@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C function and compiles on its own
+with ``nvcc`` for ``sm_90a`` into ``build/cuda/lib<name>.so`` at the repo
+root (listed in ``.gitignore``), the first time a kernel is needed or when
+its source is newer than the library.  ``build_all`` starts one ``nvcc``
+per source at once, so a fresh checkout builds in the time of the slowest
+file.  Libraries load with ``ctypes``; the wrappers in ``ops/`` pass
+pointers (``tensor.data_ptr()``) and PyTorch's current stream, and raise
+when the C function returns a CUDA error code.
+
+Nothing here runs at import time: a CPU-only host imports every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+# name -> (C function, argtypes); every pointer and the stream are c_void_p
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "fused_decode": ("spatten_fused_decode",
+                     [_P] * 15 + [_I] * 6 + [_F] * 3 + [_I] * 4 + [_P]),
+    "compact_gather": ("spatten_compact_gather", [_P] * 5 + [_I] * 5 + [_P]),
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = library_path(name)
+    src = CSRC / f"{name}.cu"
+    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+
+
+def build_all(names=None, force: bool = False) -> tuple[float, dict]:
+    """Compile the given kernels (default: all) in parallel.
+
+    Returns (seconds, {name: ptxas report}).  Raises RuntimeError with the
+    compiler output when a build fails."""
+    names = list(SIGNATURES) if names is None else list(names)
+    todo = [n for n in names if force or _stale(n)]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for n in todo:
+        cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               "-o", str(library_path(n)), str(CSRC / f"{n}.cu")]
+        procs[n] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+    reports, failed = {}, []
+    for n, proc in procs.items():
+        out, _ = proc.communicate()
+        reports[n] = out
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0, reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built first if needed)."""
+    lib = _loaded.get(name)
+    if lib is None:
+        if _stale(name):
+            build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry point with ``args`` followed by the
+    current CUDA stream; raise on a non-zero CUDA error code."""
+    fn = getattr(load(name), SIGNATURES[name][0])
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed with error {err}")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """Device pointer of a tensor (None -> NULL)."""
+    return None if t is None else t.data_ptr()

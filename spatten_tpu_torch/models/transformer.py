@@ -1,0 +1,332 @@
+"""Decoder transformer with a SpAtten attention core (port of
+``spatten_tpu/models/transformer.py``).
+
+One generic decoder covers Llama-class (RMSNorm, RoPE, SwiGLU, GQA) and
+GPT-2-class (LayerNorm, learned positions, GELU) models.  Parameters are a
+plain dict with layer-stacked tensors ``[L, ...]`` laid out as in the JAX
+package (``x @ w`` with ``w`` [in, out]).  The forward pass loops over
+layers in Python:
+
+* a single-token step (``s == 1``) with ``EngineConfig.use_pallas`` takes
+  the fused decode kernel K1 (``ops/fused_decode``), which appends to and
+  reads the stacked cache in place;
+* a prompt chunk (``s > 1``), or ``use_pallas=False``, appends with
+  ``append_tokens`` and attends with ``prefill_attention`` (chunks) or the
+  reference (single tokens).
+
+The cache planes and the importance accumulator of the state are updated
+IN PLACE: ``forward`` consumes its input state.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from spatten_tpu_torch.config import ModelConfig, SpAttenConfig
+from spatten_tpu_torch.device import resolve_device
+from spatten_tpu_torch.engine.kv_cache import append_tokens
+from spatten_tpu_torch.engine.state import DecodeState
+from spatten_tpu_torch.models.weight_quant import (
+    matmul as _mm, matmul_t as _mm_t, take_rows as _take_rows,
+)
+from spatten_tpu_torch.ops import rope as rope_ops
+from spatten_tpu_torch.ops.attention_ref import spatten_attention_reference
+from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+from spatten_tpu_torch.ops.prefill_attention import prefill_attention
+from spatten_tpu_torch.pruning.token_pruning import layer_budgets_static
+
+Params = Dict[str, Any]
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
+                dtype: torch.dtype = torch.bfloat16,
+                device: str | torch.device = "cuda") -> Params:
+    """Random parameters: dense weights ~ N(0, 1/fan_in), norms at 1.
+
+    ``generator`` is a ``torch.Generator`` on ``device`` or an int seed.
+    Each layer's slice is drawn separately, so the f32 transient stays
+    one layer's matrix (Llama-2-7B: 13.5 GB of bf16 weights)."""
+    dev = resolve_device(device)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=dev).manual_seed(generator)
+    m = cfg
+    L, D, I = m.num_layers, m.hidden_size, m.intermediate_size
+    hq, hkv, dh = m.num_heads, m.num_kv_heads, m.head_dim
+
+    def dense(shape, fan_in, stacked=True):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for part in (out if stacked else [out]):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   device=dev) / math.sqrt(fan_in))
+        return out
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    layers = {
+        "attn_norm_w": const((L, D), 1.0),
+        "wq": dense((L, D, hq * dh), D),
+        "wk": dense((L, D, hkv * dh), D),
+        "wv": dense((L, D, hkv * dh), D),
+        "wo": dense((L, hq * dh, D), hq * dh),
+        "mlp_norm_w": const((L, D), 1.0),
+        "w_up": dense((L, D, I), D),
+        "w_down": dense((L, I, D), I),
+    }
+    if m.activation == "silu":
+        layers["w_gate"] = dense((L, D, I), D)
+    if m.layernorm_kind == "layernorm":
+        layers["attn_norm_b"] = const((L, D), 0.0)
+        layers["mlp_norm_b"] = const((L, D), 0.0)
+    if m.use_qkv_bias:
+        layers["bq"] = const((L, hq * dh), 0.0)
+        layers["bk"] = const((L, hkv * dh), 0.0)
+        layers["bv"] = const((L, hkv * dh), 0.0)
+        layers["bo"] = const((L, D), 0.0)
+    if m.use_mlp_bias:
+        layers["b_up"] = const((L, I), 0.0)
+        layers["b_down"] = const((L, D), 0.0)
+    params: Params = {
+        "embed": dense((m.vocab_size, D), D, stacked=False),
+        "layers": layers,
+        "final_norm_w": const((D,), 1.0),
+    }
+    if m.layernorm_kind == "layernorm":
+        params["final_norm_b"] = const((D,), 0.0)
+    if m.use_abs_pos_emb:
+        params["wpe"] = dense((m.max_position_embeddings, D), D,
+                              stacked=False)
+    if not m.tie_word_embeddings:
+        params["lm_head"] = dense((D, m.vocab_size), D, stacked=False)
+    return params
+
+
+def _norm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+          kind: str, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    if kind == "rmsnorm":
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * w.to(torch.float32)
+    elif kind == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps) * w.to(torch.float32)
+        if b is not None:
+            out = out + b.to(torch.float32)
+    else:
+        raise ValueError(kind)
+    return out.to(x.dtype)
+
+
+def _biased(y: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
+    """y + lp[name] when the model has that bias."""
+    return y + lp[name] if name in lp else y
+
+
+def _mlp(x: torch.Tensor, lp: Params, activation: str) -> torch.Tensor:
+    """Up/gate/down MLP without the down bias (added by the caller)."""
+    if activation == "silu":
+        up = _mm(x, lp["w_up"])
+        if "b_up" in lp:
+            up = up + lp["b_up"]
+        return _mm(F.silu(_mm(x, lp["w_gate"])) * up, lp["w_down"])
+    if activation == "gelu":
+        hdn = _mm(x, lp["w_up"])
+        if "b_up" in lp:
+            hdn = hdn + lp["b_up"]
+        return _mm(F.gelu(hdn, approximate="tanh"), lp["w_down"])
+    raise ValueError(activation)
+
+
+class StepAux(NamedTuple):
+    """Per-call aggregate pruning/quant telemetry."""
+
+    requant_events: torch.Tensor   # int32 [] (layer, batch, kv head) requants
+    max_probs: torch.Tensor        # f32 [L, B, Hkv]
+
+
+def embed_tokens(params: Params, cfg: SpAttenConfig, state: DecodeState,
+                 tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token (+ absolute position) embedding.  Returns (x, positions)."""
+    s = tokens.shape[1]
+    x = _take_rows(params["embed"], tokens)                  # [B, S, D]
+    positions = state.lengths[:, None] + torch.arange(
+        s, device=tokens.device)[None, :]
+    if cfg.model.use_abs_pos_emb:
+        x = x + _take_rows(params["wpe"], positions)
+    return x, positions
+
+
+def lm_head(params: Params, cfg: SpAttenConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    m = cfg.model
+    x = _norm(x, params["final_norm_w"], params.get("final_norm_b"),
+              m.layernorm_kind, m.norm_eps)
+    if m.tie_word_embeddings:
+        logits = _mm_t(x, params["embed"])
+    else:
+        logits = _mm(x, params["lm_head"])
+    return logits.to(torch.float32)
+
+
+def v_keep_budgets(cfg: SpAttenConfig, capacity: int) -> tuple[int, ...]:
+    """Per-layer value fetch budgets relative to each layer's steady-state
+    key budget (start + cascade budget + recent); (0,) when off."""
+    p, m = cfg.pruning, cfg.model
+    if not p.enable_v_pruning:
+        return (0,)
+    if p.enable_token_pruning:
+        kb_l = [p.start_size + bl + p.recent_size
+                for bl in layer_budgets_static(p, m.num_layers)]
+    else:
+        kb_l = [capacity] * m.num_layers
+    return tuple(max(p.v_block_size, int(p.v_keep_ratio * kb)) for kb in kb_l)
+
+
+def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
+               x: torch.Tensor,
+               rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """Run x [B, S, D] through every layer, appending the S tokens to each
+    layer's cache IN PLACE (the state's cache and importance are
+    consumed).  Returns (x, new_layer_lengths, requants [L], max_probs
+    [L, B, Hkv]).  Each layer's token slots come from its own length."""
+    m, p, q, e = cfg.model, cfg.pruning, cfg.quant, cfg.engine
+    b, s = x.shape[:2]
+    hq, hkv, dh = m.num_heads, m.num_kv_heads, m.head_dim
+    cap = state.capacity
+    if rope_tables is None:
+        rope_tables = rope_ops.rope_table(cap, dh, m.rope_theta, x.device)
+    cos, sin = rope_tables
+    base_scale = 1.0 / math.sqrt(dh)
+    v_keep_layers = v_keep_budgets(cfg, cap)
+    track_importance = p.enable_token_pruning or p.enable_head_pruning
+    accum = track_importance and p.cascade_accumulate
+    use_kernel = (e.use_pallas and s == 1
+                  and (m.use_abs_pos_emb or e.rope_mode == "cached"))
+    requant_threshold = (q.requant_threshold
+                         if (q.enabled and q.enable_requant) else 0.0)
+    ar = torch.arange(s, device=x.device)
+
+    def qkv(x, lp, lengths_l, layer_idx):
+        """Norm, projections and RoPE: (q, k, v) [B, H, S, D], sm_scale."""
+        h = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"),
+                  m.layernorm_kind, m.norm_eps)
+        qh = _biased(_mm(h, lp["wq"]), lp, "bq")
+        kh = _biased(_mm(h, lp["wk"]), lp, "bk")
+        vh = _biased(_mm(h, lp["wv"]), lp, "bv")
+        qh = qh.reshape(b, s, hq, dh).transpose(1, 2)
+        kh = kh.reshape(b, s, hkv, dh).transpose(1, 2)
+        vh = vh.reshape(b, s, hkv, dh).transpose(1, 2)
+        pos_l = torch.clamp(lengths_l[:, None] + ar[None, :], max=cap - 1)
+        if not m.use_abs_pos_emb:
+            c = cos[pos_l][:, None]                       # [B, 1, S, dh]
+            sn = sin[pos_l][:, None]
+            qh = (qh * c + rope_ops.rotate_half(qh) * sn).to(qh.dtype)
+            if e.rope_mode == "cached":
+                kh = (kh * c + rope_ops.rotate_half(kh) * sn).to(kh.dtype)
+        sm_scale = base_scale
+        if m.use_attn_scale_by_layer:
+            sm_scale = base_scale / (layer_idx + 1.0)
+        return qh, kh, vh, pos_l, sm_scale
+
+    def out_mlp(x, lp, attn_out):
+        o = attn_out.to(x.dtype).transpose(1, 2).reshape(b, s, -1)
+        x = x + _biased(_mm(o, lp["wo"]), lp, "bo")
+        h2 = _norm(x, lp["mlp_norm_w"], lp.get("mlp_norm_b"),
+                   m.layernorm_kind, m.norm_eps)
+        return _biased(x + _mlp(h2, lp, m.activation), lp, "b_down")
+
+    requants, max_probs = [], []
+    for l in range(m.num_layers):
+        lp = {k: v[l] for k, v in layer_params.items()}
+        lengths_l = state.layer_lengths[l]
+        qh, kh, vh, pos_l, sm_scale = qkv(x, lp, lengths_l, l)
+        common = dict(
+            requant_threshold=requant_threshold, quant_enabled=q.enabled,
+            v_block_size=p.v_block_size,
+            head_mask=state.head_mask[l] if p.enable_head_pruning else None,
+            importance_kind=p.importance_kind)
+        if use_kernel:
+            q_kernel = qh * (sm_scale / base_scale) \
+                if m.use_attn_scale_by_layer else qh
+            attn_out, stats, _, _ = fused_decode_attention(
+                q_kernel, state.cache.k, state.cache.v, kh, vh,
+                lengths_l + s, sm_scale=base_scale,
+                importance_in=state.importance if accum else None,
+                layer=l,
+                quant_bits=(state.quant_bits
+                            if q.enabled and q.layer_bits is not None
+                            else None),
+                track_importance=track_importance,
+                importance_ema=p.importance_ema,
+                v_keep=v_keep_layers, **common)
+            if track_importance and not accum:
+                state.importance[l] = stats.importance_delta.to(
+                    state.importance.dtype)
+        else:
+            layer_cache = append_tokens(state.cache.layer(l), kh, vh,
+                                        lengths_l)
+            kwargs = dict(common, v_keep=v_keep_layers[
+                min(l, len(v_keep_layers) - 1)])
+            kwargs["use_rope"] = (not m.use_abs_pos_emb
+                                  and e.rope_mode == "read")
+            if q.enabled and q.layer_bits is not None:
+                kwargs["pass1_bits"] = int(state.quant_bits[l])
+            if s > 1:
+                if e.prefill_fp_score:
+                    # score the prompt at full precision; the quantized
+                    # planes and exact importance still build
+                    kwargs.update(quant_enabled=False, requant_threshold=0.0)
+                    kwargs.pop("pass1_bits", None)
+                if not e.prefill_v_mask:
+                    kwargs["v_keep"] = 0
+                attn_out, stats = prefill_attention(
+                    qh, layer_cache.k, layer_cache.v, cos, sin,
+                    lengths_l + s, pos_l, sm_scale=sm_scale, **kwargs)
+            else:
+                attn_out, stats = spatten_attention_reference(
+                    qh, layer_cache.k, layer_cache.v, cos, sin,
+                    lengths_l + s, pos_l, sm_scale=sm_scale, **kwargs)
+            if track_importance:
+                imp = state.importance[l]
+                if p.cascade_accumulate:
+                    # reset the incoming tokens' slots, then accumulate
+                    slot = torch.arange(cap, device=x.device)[None, None, :]
+                    is_new = ((slot >= lengths_l[:, None, None])
+                              & (slot < (lengths_l + s)[:, None, None]))
+                    prev = torch.where(is_new, 0.0, imp.to(torch.float32))
+                    imp.copy_((p.importance_ema * prev
+                               + stats.importance_delta).to(imp.dtype))
+                else:
+                    imp.copy_(stats.importance_delta.to(imp.dtype))
+        x = out_mlp(x, lp, attn_out)
+        requants.append(stats.need_requant.sum())
+        max_probs.append(stats.max_prob)
+    return (x, state.layer_lengths + s,
+            torch.stack(requants).to(torch.int32), torch.stack(max_probs))
+
+
+def forward(params: Params, cfg: SpAttenConfig, state: DecodeState,
+            tokens: torch.Tensor,
+            rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
+            ) -> tuple[torch.Tensor, DecodeState, StepAux]:
+    """Run S tokens [B, S] through the model, appending them to the cache.
+
+    Returns (logits [B, S, vocab] f32, new_state, aux).  The input state's
+    cache planes and importance are updated in place (consumed); the
+    returned state holds them with the new lengths."""
+    s = tokens.shape[1]
+    x, _ = embed_tokens(params, cfg, state, tokens)
+    x, new_lengths, requants, max_probs = run_layers(
+        params["layers"], cfg, state, x, rope_tables=rope_tables)
+    logits = lm_head(params, cfg, x)
+    total = requants.sum().to(torch.int32)
+    new_state = state._replace(
+        lengths=state.lengths + s, layer_lengths=new_lengths,
+        requant_events=state.requant_events + total)
+    return logits, new_state, StepAux(requant_events=total,
+                                      max_probs=max_probs)
