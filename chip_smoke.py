@@ -8,27 +8,43 @@ failures is caught:
 
 1. the card's name and power limit; build both kernels from ``csrc/``
    (one ``nvcc`` per source, in parallel);
-2. K1 (fused decode attention) vs its plain PyTorch version on the card,
-   at the slice's shapes for one layer of the 32-layer stacked cache,
-   ragged lengths, a requant threshold that splits the heads, V pruning;
-3. K2 (prune compaction) vs its plain version: random sorted keep sets,
-   one untriggered sequence;
-4. a small-model reference check (kernels on the card vs plain versions
-   on the CPU, f32 weights), then the main path: ``generate`` with random
-   bf16 weights at Llama-2-7B width and depth (32 layers), batch 4,
-   prompt 1152, 128 new tokens, counting kernel launches; then the first
-   decode window again through the plain versions on the card, fed the
-   same tokens, comparing logits;
-5. a ``kernels`` JSON line: per kernel its launches, error, time on the
-   card (``ms``), its plain version's (``plain_ms``), the least time the
-   card could take (``bound_ms``, with ``bound_by``), and a PyTorch
-   library call's time where one computes the same function;
-6. as the last line, ``{"ok": true, "device": {...}}``.
+2. K1 (fused decode attention) vs its plain PyTorch version on the card:
+   at the first slice's shapes (batch 4, capacity 1024), and at the
+   serving shapes (one layer of the stacked [32, 8, 4096, 4096] planes,
+   ragged lengths, rungs 2048 and 4096) for each serving flag alone, the
+   serving combination, the dense combination and 6- and 8-bit layers;
+   rules and tolerances in ``spatten_tpu_torch/kernel_checks.py``;
+3. K2 (prune compaction) vs its plain version at both slices' shapes;
+4. a small-model reference check (f32 weights, kernels vs plain versions
+   on the card), then the paths, each with its launch counts set to 0
+   just before it and read just after:
+   a. the first slice: ``generate`` at Llama-2-7B width, depth cut to 8,
+      batch 4, prompt 1152, 128 new tokens;
+   b. ``serving_config()``: the JAX package's benchmarked SpAtten
+      configuration (``bench.py`` ``build_cfg(spatten=True)``) at
+      Llama-2-7B width and depth, batch 8, capacity 4096, prompt 3072,
+      128 new tokens -- on-the-fly head pruning, capacity rungs, int8
+      queries, integer P·V, bf16 probabilities and metadata; then its
+      first decode window again through the plain versions, fed the same
+      tokens, and a profile of decode;
+   c. ``dense_config()``: the dense-int8 baseline (``build_cfg(spatten=
+      False)``), prefill and 64 decode steps (tok/s printed, no claim);
+   d. ``profile_config()``: the serving configuration with the 4/4/6/6/8
+      quant profile, depth 8, 64 new tokens;
+5. a ``kernels`` JSON line: per kernel its launches on the serving path,
+   error, time on the card (``ms``), its plain version's (``plain_ms``),
+   the least time the card could take (``bound_ms``, with ``bound_by``)
+   and a PyTorch library call's time where one computes the same
+   function; K1's 4096-rung time and the first slice's numbers ride along
+   in extra fields;
+6. the card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -41,22 +57,17 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12                   # H100 SXM f32 outside the tensor cores
-# tolerances of the kernel-vs-plain checks (f32 sums in another order)
-K1_OUT_TOL = dict(atol=1e-4, rtol=1e-4)
-K1_MAXP_TOL = dict(atol=1e-6, rtol=1e-4)
-K1_IMP_TOL = dict(atol=1e-5, rtol=1e-4)
-DECISION_MARGIN = 1e-5              # closer decisions may flip either way
 # Kernels vs plain versions on the card, teacher-forced (the same tokens
 # fed to both).  A V-block keep decision whose k-th and (k+1)-th block
-# masses nearly tie may resolve differently in the two (the kernel ranks
-# unnormalized sums), and one such flip moves the logits of its step and
-# of later layers; so the checks hold most steps, not every step.
+# masses nearly tie may resolve differently in the two, and one such flip
+# moves the logits of its step and of later layers; so the checks hold
+# most steps, not every step.
 # Small f32 model: a step agrees when its max |logit diff| <= 1e-3.
 SMALL_STEP_TOL = 1e-3
 SMALL_STEPS_MIN = 0.9
-# Main path, bf16: logits are bf16 values (~N(0, 1) at random init; a bf16
+# bf16 paths: logits are bf16 values (~N(0, 1) at random init; a bf16
 # step is 2^-7 to 2^-5 there) and any last-bit difference in an attention
-# output reaches the bf16 residual stream, so the window is held by its
+# output reaches the bf16 residual stream, so a window is held by its
 # mean error (a few bf16 steps) and its argmax agreement.
 WINDOW_MEAN_TOL = 0.05
 WINDOW_ARGMAX_MIN = 0.8
@@ -69,6 +80,11 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def device_ms(fn, n: int) -> float:
@@ -94,7 +110,9 @@ def device_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+# ---------------------------------------------------------------- configs
 def slice_config(num_layers: int = 32):
+    """The first slice: capacity 1024, f32 metadata, head pruning off."""
     from spatten_tpu_torch.config import (
         EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
     )
@@ -109,198 +127,334 @@ def slice_config(num_layers: int = 32):
     ).validate()
 
 
+SERVING_CAP, SERVING_BATCH, SERVING_PROMPT = 4096, 8, 3072
+
+
+def serving_config(num_layers: int = 32, layer_bits=None):
+    """``bench.py`` ``build_cfg(spatten=True, cache=4096, batch=8)`` at
+    Llama-2-7B width: the bench's per-chip 3 of 4 kv heads becomes 24 of
+    32 (the same 0.75 share)."""
+    from spatten_tpu_torch.config import (
+        EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
+    )
+    cap = SERVING_CAP
+    return SpAttenConfig(
+        model=dataclasses.replace(ModelConfig.llama2_7b(),
+                                  num_layers=num_layers),
+        pruning=PruningConfig(
+            start_size=4, important_size=int(cap * 0.55),
+            recent_size=int(cap * 0.10),
+            cascade_layer_ratios=(1.0, 0.78, 0.25, 0.25, 0.25, 0.14, 0.14,
+                                  0.14),
+            enable_v_pruning=True, v_keep_ratio=0.25,
+            v_block_size=max(64, cap // 64),
+            enable_head_pruning=True, head_keep=24, head_update_interval=32,
+            importance_dtype="bfloat16"),
+        quant=QuantConfig(enabled=True, enable_requant=True,
+                          requant_threshold=0.05, quantize_queries=True,
+                          layer_bits=layer_bits, pv_int8=True,
+                          probs_bf16=True, scale_dtype="bfloat16"),
+        engine=EngineConfig(max_batch_size=SERVING_BATCH, cache_capacity=cap,
+                            prefill_chunk=128, use_pallas=True,
+                            rope_mode="cached"),
+    ).validate()
+
+
+def dense_config(num_layers: int = 32):
+    """``bench.py`` ``build_cfg(spatten=False)``: K1 in dense mode with
+    int8 queries, integer P·V, bf16 probabilities and scales."""
+    from spatten_tpu_torch.config import PruningConfig, QuantConfig
+    cfg = serving_config(num_layers)
+    return dataclasses.replace(
+        cfg,
+        pruning=PruningConfig(enable_token_pruning=False,
+                              enable_v_pruning=False),
+        quant=QuantConfig(enabled=False, enable_requant=False,
+                          quantize_queries=True, pv_int8=True,
+                          probs_bf16=True, scale_dtype="bfloat16"),
+    ).validate()
+
+
+def profile_config(num_layers: int = 8):
+    """The serving configuration with the quant profile 4,4,6,6,8 (padded
+    with 8) that ``bench.py`` takes from SPATTEN_BENCH_LAYER_BITS."""
+    return serving_config(num_layers, layer_bits=(4, 4, 6, 6, 8))
+
+
 # ---------------------------------------------------------------- phase 2
-def k1_inputs(cfg, dev, gen):
-    """One layer's worth of realistic cache (quantized normals), copied to
-    every layer of the stacked planes, plus the step's query and row."""
-    from spatten_tpu_torch.engine.state import init_state
-    from spatten_tpu_torch.ops import quantize as qz
-    m = cfg.model
-    b, hq, hkv, d, cap = 4, m.num_heads, m.num_kv_heads, m.head_dim, \
-        cfg.engine.cache_capacity
-    st = init_state(cfg, batch=b, device=dev)
-    k = qz.quantize(torch.randn((b, hkv, cap, d), generator=gen, device=dev))
-    v = qz.quantize(torch.randn((b, hkv, cap, d), generator=gen, device=dev),
-                    with_msb=False)
-    for dst, src in ((st.cache.k, k), (st.cache.v, v)):
-        for name in ("full", "msb", "scale"):
-            if getattr(dst, name) is not None:
-                getattr(dst, name).copy_(getattr(src, name)[None])
-    st.importance.uniform_(generator=gen)
-    q = torch.randn((b, hq, 1, d), generator=gen, device=dev)
-    k_new = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
-    v_new = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
-    lengths = torch.tensor([1024, 900, 513, 77], dtype=torch.int32,
-                           device=dev)
-    return st, q, k_new, v_new, lengths
-
-
-def k1_bound(cfg, lengths, need, keep_any_tokens, quant=True):
-    """(bound_ms, bound_by, bytes, flops) of one K1 call on these inputs:
+def k1_bound(cfg, lengths, need, kept_tokens, alive, rung: int, bits: int):
+    """(bound_ms, bound_by, bytes, ops) of one K1 call on these inputs:
     every input byte the function needs read once, every output written
-    once (msb rows serving live tokens, the int8 rows of requant heads,
-    the kept V rows, scale and importance columns, the appended row)."""
+    once.  A live head group reads the pass-1 plane rows serving its live
+    tokens (packed msb rows, plus lsb2 rows for a 6-bit layer, or int8
+    rows for an 8-bit layer or dense mode), the int8 rows again when it
+    requantizes, its K scale column, its importance column (read and
+    written) and its kept V rows with their scales; every group writes
+    the appended row (int8 K and V, the nibble and 2-bit bytes, scales)."""
     from spatten_tpu_torch.ops.quantize import pack_unit
-    m = cfg.model
+    m, q = cfg.model, cfg.quant
     hkv, d, g = m.num_kv_heads, m.head_dim, m.q_heads_per_kv
-    cap = cfg.engine.cache_capacity
-    u = pack_unit(cap)
-    byts = flops = 0
+    u = pack_unit(cfg.engine.cache_capacity)
+    sb = 2 if q.scale_dtype == "bfloat16" else 4
+    ib = 2 if cfg.pruning.importance_dtype == "bfloat16" else 4
+    six = q.needs_lsb2
+    byts = ops = 0
     for bi, n in enumerate(lengths):
-        rows = sum(min(max(n - unit * u, 0), u // 2)
-                   for unit in range(cap // u))
+        units = range(rung // u)
+        msb_rows = sum(min(max(n - k * u, 0), u // 2) for k in units)
+        l2_rows = sum(min(max(n - k * u, 0), u // 4) for k in units)
         for h in range(hkv):
+            byts += 2 * d + 2 * sb + 2 * d + (2 * d if six else 0)
+            if not alive[bi][h]:
+                continue
             fired = bool(need[bi][h])
-            kept = int(keep_any_tokens[bi][h])
-            byts += (rows * d if quant else 0) + (n * d if fired or not quant
-                                                  else 0)
-            byts += n * 4 * 2 + n * 4                # k scale, imp r/w
-            byts += kept * (d + 4)                   # V rows + scales
-            byts += 3 * d + 8 + d                    # append (+ msb RMW)
-            passes = (1 if quant else 0) + (1 if fired or not quant else 0)
-            flops += g * (2 * d * n * passes + 5 * n * passes + 2 * d * kept)
+            kept = int(kept_tokens[bi][h])
+            p1 = {4: msb_rows * d, 6: msb_rows * d + l2_rows * d,
+                  8: n * d}[bits]
+            byts += p1 + (n * d if fired else 0)
+            byts += n * sb + 2 * n * ib + kept * (d + sb)
+            passes = 1 + (1 if fired else 0)
+            ops += g * (2 * d * n * passes + 5 * n * passes + 2 * d * kept)
     b = len(lengths)
     byts += 4 * b * (hkv * g * d * 2 + 2 * hkv * d) + b * hkv * 5
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", byts, flops)
+            "operations", byts, ops)
 
 
-def phase_k1(cfg, dev):
+def k1_inputs(cfg, dev, gen, batch):
+    from spatten_tpu_torch import kernel_checks as kc
+    m = cfg.model
+    st = kc.random_state(cfg, batch, gen, dev)
+    q = torch.randn((batch, m.num_heads, 1, m.head_dim), generator=gen,
+                    device=dev)
+    kn = torch.randn((batch, m.num_kv_heads, 1, m.head_dim), generator=gen,
+                     device=dev)
+    vn = torch.randn((batch, m.num_kv_heads, 1, m.head_dim), generator=gen,
+                     device=dev)
+    return st, q, kn, vn
+
+
+def k1_flags(cfg, layer: int, rung: int):
+    """K1's keyword arguments for one layer under ``cfg`` (as
+    ``transformer.run_layers`` passes them)."""
     from spatten_tpu_torch.models.transformer import v_keep_budgets
-    from spatten_tpu_torch.ops import fused_decode as fd
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    base, q, k_new, v_new, lengths = k1_inputs(cfg, dev, gen)
-    layer = 5
-    m, p = cfg.model, cfg.pruning
-    vb = p.v_block_size
-    vkeep = v_keep_budgets(cfg, cfg.engine.cache_capacity)
-    kw = dict(sm_scale=1.0 / math.sqrt(m.head_dim), quant_enabled=True,
-              v_keep=vkeep, v_block_size=vb, layer=layer,
-              importance_ema=p.importance_ema)
-
-    def call(fn, st, threshold, **extra):
-        return fn(q, st.cache.k, st.cache.v, k_new, v_new, lengths,
-                  requant_threshold=threshold, importance_in=st.importance,
-                  **kw, **extra)
-
-    # a threshold midway across the widest gap near the median max prob
-    probe = call(fd.fused_decode_attention_plain, base.clone(), 0.0)[1]
-    mp = torch.sort(probe.max_prob.flatten()).values.cpu().numpy()
-    lo, hi = len(mp) // 4, 3 * len(mp) // 4
-    i = lo + int(np.argmax(mp[lo + 1:hi + 1] - mp[lo:hi])) + 1
-    threshold = float(mp[i - 1] + mp[i]) / 2
-
-    st_k, st_p = base.clone(), base.clone()
-    b, hq = q.shape[:2]
-    nvb = cfg.engine.cache_capacity // vb
-    keep_k = torch.zeros((b, hq, nvb), dtype=torch.uint8, device=dev)
-    out_k, stats_k, _, _ = call(fd.fused_decode_attention, st_k, threshold,
-                                keep_out=keep_k)
-    out_p, stats_p, _, _ = call(fd.fused_decode_attention_plain, st_p,
-                                threshold)
-    torch.cuda.synchronize()
-
-    # planes after the append: exact, every layer
-    for name in ("full", "msb", "scale"):
-        for a, c in ((st_k.cache.k, st_p.cache.k), (st_k.cache.v, st_p.cache.v)):
-            if getattr(a, name) is not None:
-                check(torch.equal(getattr(a, name), getattr(c, name)),
-                      f"K1 {name} plane differs from the plain version")
-    # requant decisions: exact unless the max prob is within the margin
-    near_t = (stats_p.max_prob - threshold).abs() < DECISION_MARGIN
-    flips = stats_k.need_requant != stats_p.need_requant
-    check(not bool((flips & ~near_t).any()), "K1 need_requant differs")
-    fired = int(stats_k.need_requant.sum())
-    check(0 < fired < stats_k.need_requant.numel(),
-          f"threshold {threshold} fires {fired} heads")
-    # V-block keep sets: plain decisions from the reference probabilities
-    probs = stats_p.probs[:, :, 0]                       # [B, Hq, C]
-    mass = probs.reshape(b, hq, nvb, vb).sum(-1)
-    kb = max(1, -(-vkeep[layer] // vb))
-    srt = torch.sort(mass, dim=-1, descending=True).values
-    kth, nxt = srt[..., kb - 1:kb], srt[..., kb:kb + 1]
-    keep_p = (mass >= kth) & (mass > 0)
-    margin = torch.where(keep_p, mass - nxt, kth - mass)
-    group = m.q_heads_per_kv
-    # a row is ambiguous when its k-th and (k+1)-th block masses nearly
-    # tie (with fewer live blocks than k, kth == 0 and all live are kept)
-    row_near = ((kth - nxt)[..., 0] < DECISION_MARGIN) & (kth[..., 0] > 0)
-    row_near |= near_t.repeat_interleave(group, dim=1)
-    bad = (keep_k.bool() != keep_p) & (margin >= DECISION_MARGIN) \
-        & ~row_near[..., None]
-    check(not bool(bad.any()), f"K1 keeps {int(bad.sum())} V blocks "
-          "differently from the plain version")
-    # values on rows whose decisions are clear
-    ok_rows = ~row_near
-    err = (out_k - out_p).abs()[..., 0, :].amax(-1)       # [B, Hq]
-    check(bool(torch.allclose(out_k[ok_rows], out_p[ok_rows], **K1_OUT_TOL)),
-          "K1 out differs")
-    check(bool(torch.allclose(stats_k.max_prob, stats_p.max_prob,
-                              **K1_MAXP_TOL)), "K1 max_prob differs")
-    head_ok = ~near_t
-    for bi, n in enumerate(lengths.tolist()):
-        a = st_k.importance[layer, bi, :, :n][head_ok[bi]]
-        c = st_p.importance[layer, bi, :, :n][head_ok[bi]]
-        check(bool(torch.allclose(a, c, **K1_IMP_TOL)), "K1 importance differs")
-    max_err = float(err[ok_rows].max())
-    log(f"K1 vs plain: ok (threshold {threshold:.6f} fires {fired}/"
-        f"{stats_k.need_requant.numel()} heads; near-margin heads "
-        f"{int(near_t.sum())}, near-margin rows {int(row_near.sum())}; "
-        f"max |out err| {max_err:.3e})")
-
-    # timing: the same inputs in every layer, walked in layer order so
-    # each call finds its planes cold in L2, as decode does
-    st_t = base.clone()
-    n_layers = m.num_layers
-
-    def kernel_call(i):
-        fd.fused_decode_attention(
-            q, st_t.cache.k, st_t.cache.v, k_new, v_new, lengths,
-            requant_threshold=threshold, importance_in=st_t.importance,
-            **dict(kw, layer=i % n_layers))
-
-    def plain_call(i):
-        fd.fused_decode_attention_plain(
-            q, st_t.cache.k, st_t.cache.v, k_new, v_new, lengths,
-            requant_threshold=threshold, importance_in=st_t.importance,
-            **dict(kw, layer=i % n_layers))
-
-    ms = device_ms(kernel_call, 4 * n_layers)
-    plain_ms = device_ms(plain_call, n_layers)
-    keep_blk = keep_k.bool().reshape(b, m.num_kv_heads, group, nvb).any(2)
+    q, p, m = cfg.quant, cfg.pruning, cfg.model
     cap = cfg.engine.cache_capacity
-    live = torch.arange(cap, device=dev)[None, None, :] < lengths[:, None, None]
-    kept_tokens = (keep_blk.repeat_interleave(vb, dim=-1) & live).sum(-1
-                                                                      ).tolist()
-    bound_ms, bound_by, byts, flops = k1_bound(
-        cfg, lengths.tolist(), stats_k.need_requant.tolist(), kept_tokens)
-    log(f"K1 timing: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {byts} B, {flops} flop)")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    kw = dict(sm_scale=1.0 / math.sqrt(m.head_dim), quant_enabled=q.enabled,
+              v_keep=v_keep_budgets(cfg, cap), importance_ema=p.importance_ema,
+              quantize_queries=q.quantize_queries, pv_int8=q.pv_int8,
+              probs_bf16=q.probs_bf16,
+              cap_override=rung if rung < cap else None)
+    return kw
+
+
+def k1_case(st, q, kn, vn, lengths, cfg, layer, rung, head_mask=None,
+            **extra) -> dict:
+    """Hold K1 against its plain version on one layer of ``st``."""
+    from spatten_tpu_torch import kernel_checks as kc
+    from spatten_tpu_torch.ops import fused_decode as fd
+    kw = dict(k1_flags(cfg, layer, rung), **extra)
+    if cfg.quant.enabled and cfg.quant.layer_bits is not None:
+        kw["quant_bits"] = st.quant_bits
+    vb = cfg.pruning.v_block_size
+    threshold = 0.0
+    if cfg.quant.enabled:
+        probe = st.clone()
+        _, sp, _, _ = fd.fused_decode_attention_plain(
+            q, probe.cache.k, probe.cache.v, kn, vn, lengths, layer=layer,
+            v_block_size=vb, importance_in=probe.importance,
+            head_mask=head_mask, **kw)
+        threshold = kc.split_threshold(sp.max_prob)
+        del probe
+    res = kc.k1_pair(st, q, kn, vn, lengths, layer=layer,
+                     threshold=threshold, v_block=vb, head_mask=head_mask,
+                     keep_blocks_for=lambda r: fd._v_keep_blocks(
+                         kw["v_keep"], vb, r, layer), **kw)
+    free()
+    return dict(res, threshold=threshold, kw=kw)
+
+
+def time_k1(st, q, kn, vn, lengths, cfg, layers, rung, threshold,
+            head_mask=None) -> dict:
+    """Kernel and plain times of K1 at these inputs, walking ``layers`` so
+    that each call finds its planes cold in L2, as decode does; the bound
+    from the kernel's own decisions on the first layer."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    m = cfg.model
+    kw = k1_flags(cfg, layers[0], rung)
+    if cfg.quant.enabled and cfg.quant.layer_bits is not None:
+        kw["quant_bits"] = st.quant_bits
+    vb = cfg.pruning.v_block_size
+    b, hq = q.shape[:2]
+    nvb = rung // vb
+    keep = torch.zeros((b, hq, nvb), dtype=torch.uint8, device=q.device)
+
+    def call(fn, i, **extra):
+        return fn(q, st.cache.k, st.cache.v, kn, vn, lengths,
+                  requant_threshold=threshold, importance_in=st.importance,
+                  v_block_size=vb, head_mask=head_mask,
+                  **dict(kw, layer=layers[i % len(layers)]), **extra)
+
+    _, stats, _, _ = call(fd.fused_decode_attention, 0, keep_out=keep)
+    ms = device_ms(lambda i: call(fd.fused_decode_attention, i),
+                   4 * len(layers))
+    plain_ms = device_ms(lambda i: call(fd.fused_decode_attention_plain, i),
+                         len(layers))
+    group = m.q_heads_per_kv
+    kb = fd._v_keep_blocks(kw["v_keep"], vb, rung, layers[0])
+    keep_blk = (keep.bool() if kb else torch.ones_like(keep, dtype=torch.bool)
+                ).reshape(b, m.num_kv_heads, group, nvb).any(2)
+    live = torch.arange(rung, device=q.device)[None, None, :] \
+        < lengths[:, None, None]
+    kept = (keep_blk.repeat_interleave(vb, dim=-1) & live).sum(-1).tolist()
+    if head_mask is None:
+        alive = [[True] * m.num_kv_heads] * b
+    else:
+        alive = head_mask.reshape(m.num_kv_heads, group).any(-1)[None]\
+            .expand(b, -1).tolist()
+    bits = 8 if not cfg.quant.enabled else int(
+        st.quant_bits[layers[0]]) if cfg.quant.layer_bits else 4
+    bound_ms, bound_by, byts, ops = k1_bound(
+        cfg, lengths.tolist(), stats.need_requant.tolist(), kept, alive,
+        rung, bits)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=byts, ops=ops,
+                fired=int(stats.need_requant.sum()))
+
+
+def phase_k1_slice1(cfg, dev) -> dict:
+    """K1 at the first slice's shapes (batch 4, capacity 1024, f32
+    metadata, 4-bit, requant split, V pruning)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    st, q, kn, vn = k1_inputs(cfg, dev, gen, 4)
+    lengths = torch.tensor([1024, 900, 513, 77], dtype=torch.int32,
+                           device=dev)
+    cap = cfg.engine.cache_capacity
+    res = k1_case(st, q, kn, vn, lengths, cfg, 5, cap)
+    log(f"K1 vs plain, first slice shapes: ok (threshold "
+        f"{res['threshold']:.6f} fires {res['fired']} of 128 heads; "
+        f"near-margin heads {res['near_threshold']}, rows "
+        f"{res['near_rows']}; max |out err| {res['max_abs_err']:.3e})")
+    t = time_k1(st, q, kn, vn, lengths, cfg, list(range(cfg.model.num_layers)),
+                cap, res["threshold"])
+    log(f"K1 timing, first slice shapes: {t['ms']:.4f} ms kernel, "
+        f"{t['plain_ms']:.4f} ms plain, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops)")
+    del st
+    free()
+    return dict(max_abs_err=res["max_abs_err"], ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None)
+
+
+def serving_head_mask(cfg, gen, dev):
+    """A 24-of-32 kv-head mask (as the serving policy keeps), as [Hq]."""
+    m = cfg.model
+    keep = torch.randperm(m.num_kv_heads, generator=gen, device=dev)[
+        :cfg.pruning.head_keep]
+    grp = torch.zeros(m.num_kv_heads, dtype=torch.bool, device=dev)
+    grp[keep] = True
+    return grp.repeat_interleave(m.q_heads_per_kv)
+
+
+def phase_k1_serving(dev) -> dict:
+    """K1 at the serving shapes: each flag alone, the serving and dense
+    combinations, 6- and 8-bit layers; then timing at both rungs."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    b = SERVING_BATCH
+    lens = {2048: [2048, 1900, 1601, 1200, 977, 800, 729, 33],
+            4096: [4096, 3200, 3100, 2665, 2800, 2049, 1000, 1]}
+
+    def L(r):
+        return torch.tensor(lens[r], dtype=torch.int32, device=dev)
+
+    serving = serving_config()
+    plain_flags = dataclasses.replace(
+        serving,
+        quant=dataclasses.replace(serving.quant, quantize_queries=False,
+                                  pv_int8=False, probs_bf16=False,
+                                  scale_dtype="float32"),
+        pruning=dataclasses.replace(serving.pruning,
+                                    importance_dtype="float32"))
+    hm = serving_head_mask(serving, gen, dev)
+    errs, lines = [], []
+
+    def run(name, cfg, st, q, kn, vn, layer, rung, head_mask=None, **extra):
+        r = k1_case(st, q, kn, vn, L(rung), cfg, layer, rung,
+                    head_mask=head_mask, **extra)
+        errs.append(r["max_abs_err"])
+        lines.append(f"{name} (layer {layer}, rung {rung}): fires "
+                     f"{r['fired']}, dead groups {r['dead_groups']}, near "
+                     f"rows {r['near_rows']}, max |out err| "
+                     f"{r['max_abs_err']:.2e}")
+        return r
+
+    # each flag alone, over f32 metadata and the 4-bit plane
+    st, q, kn, vn = k1_inputs(plain_flags, dev, gen, b)
+    run("head_mask", plain_flags, st, q, kn, vn, 0, 4096, head_mask=hm)
+    for flag in ("quantize_queries", "pv_int8", "probs_bf16"):
+        run(flag, plain_flags, st, q, kn, vn, 0, 4096, **{flag: True})
+    run("cap_override", plain_flags, st, q, kn, vn, 5, 2048)
+    del st
+    free()
+    # bf16 metadata alone, then the serving combination at both rungs
+    st, q, kn, vn = k1_inputs(serving, dev, gen, b)
+    run("bf16_metadata", serving, st, q, kn, vn, 0, 4096,
+        quantize_queries=False, pv_int8=False, probs_bf16=False)
+    r2 = run("serving", serving, st, q, kn, vn, 5, 2048, head_mask=hm)
+    r4 = run("serving", serving, st, q, kn, vn, 0, 4096, head_mask=hm)
+    t2 = time_k1(st, q, kn, vn, L(2048), serving, list(range(2, 32)), 2048,
+                 r2["threshold"], head_mask=hm)
+    t4 = time_k1(st, q, kn, vn, L(4096), serving, [0, 1], 4096,
+                 r4["threshold"], head_mask=hm)
+    del st
+    free()
+    # the quant profile's 6- and 8-bit layers (lsb2 plane present)
+    prof = profile_config(32)
+    st, q, kn, vn = k1_inputs(prof, dev, gen, b)
+    run("bits6", prof, st, q, kn, vn, 2, 2048, head_mask=hm)
+    run("bits8", prof, st, q, kn, vn, 4, 2048, head_mask=hm)
+    del st
+    free()
+    dense = dense_config()
+    st, q, kn, vn = k1_inputs(dense, dev, gen, b)
+    run("dense", dense, st, q, kn, vn, 0, 4096)
+    del st
+    free()
+    log("K1 vs plain, serving shapes [32, 8, 4096, 4096]: ok\n  "
+        + "\n  ".join(lines))
+    for name, t in (("rung 2048, layers 2-31", t2), ("rung 4096, layers 0-1",
+                                                     t4)):
+        log(f"K1 timing, serving combination, {name}: {t['ms']:.4f} ms "
+            f"kernel, {t['plain_ms']:.4f} ms plain, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
+            f"{t['ops']} ops; {t['fired']} of 256 heads requantize)")
+    return dict(max_abs_err=max(errs), ms=t2["ms"], plain_ms=t2["plain_ms"],
+                bound_ms=t2["bound_ms"], bound_by=t2["bound_by"],
+                library_ms=None,
+                rung_4096=dict(ms=t4["ms"], plain_ms=t4["plain_ms"],
+                               bound_ms=t4["bound_ms"],
+                               bound_by=t4["bound_by"]))
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_k2(cfg, dev):
+def phase_k2(dev, *, b, cap, hkv, d, keep_max, window, lengths, triggered,
+             keep_count, start_size=4) -> dict:
     from spatten_tpu_torch.ops import compact_gather as cg
-    m, p = cfg.model, cfg.pruning
-    b, cap, hkv, d = 4, cfg.engine.cache_capacity, m.num_kv_heads, m.head_dim
     f = hkv * d
-    keep_max = p.start_size + p.important_size + p.recent_size
     rng = np.random.default_rng(SEED)
-    lengths = np.array([1024, 1024, 900, 1000], np.int32)
-    triggered = np.array([1, 0, 1, 1], np.int32)
-    keep_count = np.array([keep_max, keep_max, 600, keep_max], np.int32)
+    lengths = np.asarray(lengths, np.int32)
+    triggered = np.asarray(triggered, np.int32)
+    keep_count = np.asarray(keep_count, np.int32)
     idx = np.zeros((b, hkv, keep_max), np.int32)
     for bi in range(b):
         n = keep_count[bi]
         for h in range(hkv):
-            start = np.arange(p.start_size)
-            mid = np.sort(rng.choice(np.arange(p.start_size, lengths[bi]),
-                                     n - p.start_size, replace=False))
-            idx[bi, h, :n] = np.concatenate([start, mid])
+            mid = np.sort(rng.choice(np.arange(start_size, lengths[bi]),
+                                     n - start_size, replace=False))
+            idx[bi, h, :n] = np.concatenate([np.arange(start_size), mid])
     keep_idx = torch.from_numpy(idx).to(dev)
     lens_t = torch.from_numpy(lengths).to(dev)
     trig_t = torch.from_numpy(triggered).to(dev)
@@ -316,11 +470,10 @@ def phase_k2(cfg, dev):
     kk, vk = k0.clone(), v0.clone()
     kp, vp = k0.clone(), v0.clone()
     cg.gather_compact_rows(kk, vk, keep_idx, lens_t, trig_t,
-                           keep_count=kc_t, window=cap)
+                           keep_count=kc_t, window=window)
     cg.gather_compact_rows_plain(kp, vp, keep_idx, lens_t, trig_t,
-                                 keep_count=kc_t, window=cap)
+                                 keep_count=kc_t, window=window)
     torch.cuda.synchronize()
-    max_err = 0
     for bi in range(b):
         n = int(keep_count[bi]) if triggered[bi] else cap
         for a, c, o in ((kk, kp, k0), (vk, vp, v0)):
@@ -328,18 +481,15 @@ def phase_k2(cfg, dev):
                   f"K2 live rows differ (b={bi})")
             check(torch.equal(a[bi, n:], o[bi, n:]),
                   f"K2 touched rows past the keep count (b={bi})")
-            max_err = max(max_err, int((a[bi, :n].int() - c[bi, :n].int())
-                                       .abs().max()))
-    log("K2 vs plain: byte-exact on live rows, untouched elsewhere")
 
     def kernel_call(i):
         cg.gather_compact_rows(k_all[i % n_rot], v_all[i % n_rot], keep_idx,
-                               lens_t, trig_t, keep_count=kc_t, window=cap)
+                               lens_t, trig_t, keep_count=kc_t, window=window)
 
     def plain_call(i):
         cg.gather_compact_rows_plain(
             k_all[i % n_rot], v_all[i % n_rot], keep_idx, lens_t, trig_t,
-            keep_count=kc_t, window=cap)
+            keep_count=kc_t, window=window)
 
     gidx = keep_idx.to(torch.int64).transpose(1, 2)[..., None].expand(
         b, keep_max, hkv, d)
@@ -358,10 +508,13 @@ def phase_k2(cfg, dev):
             moved += int((idx[bi, :, :n] != np.arange(n)[None]).sum())
     byts = moved * d * 2 * 2 + int((keep_count * triggered).sum()) * hkv * 4
     bound_ms = byts / HBM_BYTES_PER_S * 1e3
-    log(f"K2 timing: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+    log(f"K2 [{b}, {cap}, {f}] vs plain: byte-exact on live rows, untouched "
+        f"elsewhere; {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
         f"{library_ms:.4f} ms torch.gather (K and V), bound {bound_ms:.4f} ms "
         f"(bytes: {moved} moved head rows, {byts} B)")
-    return dict(max_abs_err=float(max_err), ms=ms, plain_ms=plain_ms,
+    del k_all, v_all
+    free()
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)
 
 
@@ -430,36 +583,48 @@ def small_reference_check(dev):
         f"{fired['plain']}")
 
 
-def phase_main(cfg, dev):
+def expected_schedule(cfg, prompt_len: int, new_tokens: int):
+    """The host-side prune schedule: (K2 launches, final layer lengths,
+    length clocks of the head mask updates)."""
     from spatten_tpu_torch.engine import generate as gen
-    from spatten_tpu_torch.engine.state import init_state
-    from spatten_tpu_torch.models import transformer as tr
-    from spatten_tpu_torch.ops import rope as rope_ops
-    from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
-    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
-    m = cfg.model
-    batch, prompt_len, new_tokens = 4, 1152, 128
-    t0 = time.perf_counter()
-    params = tr.init_params(m, SEED, dtype=torch.bfloat16, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in params["layers"].values()) + \
-        params["embed"].numel() + params["lm_head"].numel()
-    log(f"params: {n_params / 1e9:.2f} B bf16 in "
-        f"{time.perf_counter() - t0:.1f} s")
-    prompt = np.random.default_rng(SEED).integers(
-        0, m.vocab_size, (batch, prompt_len))
-
-    # expected prune schedule (host-side, pure arithmetic)
-    lens, points = [0] * m.num_layers, 0
+    lens, points, clocks = [0] * cfg.model.num_layers, 0, []
     for pos in range(0, prompt_len, cfg.engine.prefill_chunk):
         layers, lens = gen.prune_schedule_step(
             cfg, lens, min(cfg.engine.prefill_chunk, prompt_len - pos))
         points += len(layers)
+    p = cfg.pruning
+    if p.enable_head_pruning and p.head_keep > 0:
+        clocks.append(max(lens))
     steps = gen.decode_window_steps(cfg)
     for w in range(0, new_tokens, steps):
-        layers, lens = gen.prune_schedule_step(
-            cfg, lens, min(steps, new_tokens - w))
+        n = min(steps, new_tokens - w)
+        layers, lens = gen.prune_schedule_step(cfg, lens, n)
         points += len(layers)
+        if gen.head_mask_due(cfg, max(lens) - n, n):
+            clocks.append(max(lens) - n)
+    return points, lens, clocks
+
+
+def run_path(name, cfg, dev, *, batch, prompt_len, new_tokens,
+             window_check=False, params=None):
+    """Drive ``generate`` on one configuration with the launch counts set
+    to 0 just before it and read just after; check the counts, lengths
+    and head masks against the schedule; optionally rerun the first
+    decode window through the plain versions; profile decode."""
+    from spatten_tpu_torch.engine import generate as gen
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    m = cfg.model
+    if params is None:
+        t0 = time.perf_counter()
+        params = tr.init_params(m, SEED, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        log(f"{name}: params {m.num_layers} layers, bf16, in "
+            f"{time.perf_counter() - t0:.1f} s")
+    prompt = np.random.default_rng(SEED).integers(
+        0, m.vocab_size, (batch, prompt_len))
+    points, lens, clocks = expected_schedule(cfg, prompt_len, new_tokens)
 
     fused_decode_attention.launches = 0
     gather_compact_rows.launches = 0
@@ -469,41 +634,89 @@ def phase_main(cfg, dev):
     check(tuple(tokens.shape) == (batch, new_tokens), "token shape")
     check(bool(((tokens >= 0) & (tokens < m.vocab_size)).all()),
           "tokens out of range")
-    check(k1 == m.num_layers * new_tokens and k1 > 0,
-          f"K1 launched {k1} times, expected {m.num_layers * new_tokens}")
-    check(k2 == points and k2 > 0, f"K2 launched {k2} times, expected "
-          f"{points}")
+    check(k1 == m.num_layers * new_tokens,
+          f"{name}: K1 launched {k1} times, expected "
+          f"{m.num_layers * new_tokens}")
+    check(k2 == points, f"{name}: K2 launched {k2} times, expected {points}")
     check(res.state.layer_lengths.tolist() == [[lens[l]] * batch
                                                for l in range(m.num_layers)],
-          "layer lengths differ from the schedule")
+          f"{name}: layer lengths differ from the schedule")
+    check(res.head_mask_updates == clocks, f"{name}: head mask updates at "
+          f"{res.head_mask_updates}, expected {clocks}")
+    p = cfg.pruning
+    alive = res.state.head_mask.reshape(m.num_layers, m.num_kv_heads,
+                                        -1).any(-1)
+    if p.enable_head_pruning and p.head_keep > 0:
+        check(alive.sum(-1).tolist() == [p.head_keep] * m.num_layers,
+              f"{name}: alive kv heads per layer {alive.sum(-1).tolist()}")
+        dropped = [torch.nonzero(~a)[:, 0].tolist() for a in alive]
+        log(f"{name}: {p.head_keep} of {m.num_kv_heads} kv heads alive in "
+            f"every layer; dropped heads by layer: {dropped}")
     tok_s = batch * new_tokens / res.decode_seconds
-    log(f"main path: prefill {res.prefill_seconds:.3f} s "
-        f"({batch}x{prompt_len} tokens), decode {res.decode_seconds:.3f} s "
-        f"= {tok_s:.1f} tok/s ({batch}x{new_tokens} tokens); prune points "
+    log(f"{name}: prefill {res.prefill_seconds:.3f} s ({batch}x{prompt_len} "
+        f"tokens), decode {res.decode_seconds:.3f} s = "
+        f"{res.decode_seconds / new_tokens * 1e3:.2f} ms/step, {tok_s:.1f} "
+        f"tok/s ({batch}x{new_tokens} tokens); prune points "
         f"{len(res.pruned_layers)} ({k2} layer compactions); requant events "
-        f"{int(res.requant_events)}; K1 launches {k1}, K2 launches {k2}")
+        f"{int(res.requant_events)} (decode, by layer: "
+        f"{res.layer_requants.tolist()}); K1 launches {k1}, K2 launches {k2};"
+        f" head mask updates at clocks {res.head_mask_updates}")
+    out = dict(k1=k1, k2=k2, res=res, params=params, prompt=prompt)
+    step_s = res.decode_seconds / new_tokens
+    if window_check:
+        state, tok, tables, host = window_vs_plain(name, cfg, dev, params,
+                                                   prompt, tokens)
+    else:
+        state = res.state
+        host = [int(x) for x in state.layer_lengths[:, 0].tolist()]
+        tok = tokens[:, -1].to(torch.int32)
+        from spatten_tpu_torch.ops import rope as rope_ops
+        tables = rope_ops.rope_table(cfg.engine.cache_capacity, m.head_dim,
+                                     m.rope_theta, dev)
+    out["idle"] = profile_decode(name, params, cfg, state, tok, tables,
+                                 step_s, host)
+    out["tok_s"], out["step_ms"] = tok_s, step_s * 1e3
+    del state
+    return out
 
-    # first decode window again: kernels, then the plain versions on the
-    # card from the same post-prefill state, fed the same tokens
+
+def window_vs_plain(name, cfg, dev, params, prompt, tokens):
+    """The first decode window again from a fresh prefill: kernels, then
+    the plain versions (K1's plain version, the gather compaction) on the
+    card from the same post-prefill state, fed the same tokens."""
+    from spatten_tpu_torch.engine import generate as gen
+    from spatten_tpu_torch.engine.policy import update_head_mask
+    from spatten_tpu_torch.engine.state import init_state
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops import rope as rope_ops
+    m = cfg.model
+    batch = prompt.shape[0]
     state = init_state(cfg, batch, device=dev)
-    last, state, _, _ = gen.prefill(params, cfg, state,
-                                    torch.as_tensor(prompt, device=dev))
+    last, state, host, _ = gen.prefill(params, cfg, state,
+                                       torch.as_tensor(prompt, device=dev))
+    if cfg.pruning.enable_head_pruning and cfg.pruning.head_keep > 0:
+        state = update_head_mask(cfg, state)
     snap = state.clone()
     tables = rope_ops.rope_table(cfg.engine.cache_capacity, m.head_dim,
                                  m.rope_theta, dev)
+    steps = gen.decode_window_steps(cfg)
     tok = torch.argmax(last, -1).to(torch.int32)
+    state, host_k, _, _ = gen.window_start(cfg, state, steps, list(host))
     fed, logits_k = [], []
     for _ in range(steps):
         logits, state, _ = tr.forward(params, cfg, state, tok[:, None], tables)
         fed.append(tok)
         logits_k.append(logits[:, -1])
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
-    cfg_plain = dataclasses.replace(
+    cfg_gather = dataclasses.replace(
         cfg, engine=dataclasses.replace(cfg.engine, use_pallas=False))
-    state, logits_p = snap, []
+    del state
+    free()
+    state, _, _, _ = gen.window_start(cfg_gather, snap, steps, list(host))
+    logits_p = []
     for t in fed:
-        logits, state, _ = tr.forward(params, cfg_plain, state, t[:, None],
-                                      tables)
+        logits, state, _ = tr.forward(params, cfg, state, t[:, None], tables,
+                                      plain_kernels=True)
         logits_p.append(logits[:, -1])
     lk, lp = torch.stack(logits_k), torch.stack(logits_p)   # [steps, B, V]
     check(bool(torch.isfinite(lk).all()), "non-finite logits")
@@ -511,27 +724,29 @@ def phase_main(cfg, dev):
     mean_err = float((lk - lp).abs().mean())
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     same = bool(torch.equal(torch.stack(fed, 1), tokens[:, :steps]))
-    log(f"first decode window, kernels vs plain on the card ({steps} steps, "
-        f"same tokens fed): mean |logit diff| {mean_err:.2e} (tolerance "
-        f"{WINDOW_MEAN_TOL}); argmax agreement {agree:.4f} (min "
+    pick = sorted({0, 1, 2, 4, 8, 16, 32, steps - 1} & set(range(steps)))
+    log(f"{name}: first decode window, kernels vs plain on the card ({steps}"
+        f" steps, same tokens fed): mean |logit diff| {mean_err:.2e} "
+        f"(tolerance {WINDOW_MEAN_TOL}); argmax agreement {agree:.4f} (min "
         f"{WINDOW_ARGMAX_MIN}); max |diff| by step "
-        f"{[round(step_err[i], 4) for i in (0, 1, 2, 4, 8, 16, 32, steps - 1)]}"
-        f" (largest logit {float(lk.abs().max()):.2f}); the rerun "
-        f"reproduces generate's tokens: {same}")
+        f"{[round(step_err[i], 4) for i in pick]} (largest logit "
+        f"{float(lk.abs().max()):.2f}); the rerun reproduces generate's "
+        f"tokens: {same}")
     check(mean_err <= WINDOW_MEAN_TOL, f"window mean error {mean_err}")
     check(agree >= WINDOW_ARGMAX_MIN, f"argmax agreement {agree}")
-    profile_decode(params, cfg, state, tok, tables,
-                   res.decode_seconds / new_tokens)
-    return k1, k2
+    return state, tok, tables, host_k
 
 
-def profile_decode(params, cfg, state, tok, tables, step_s: float,
-                   steps: int = 8) -> None:
+def profile_decode(name, params, cfg, state, tok, tables, step_s: float,
+                   host, steps: int = 8):
     """Device time per decode step, by kernel, from a torch.profiler trace
-    of a few kernel-path steps, against the host-clock step time of the
-    unprofiled ``generate`` run: the device's busy and idle shares."""
+    of a few kernel-path steps (after a window boundary), against the
+    host-clock step time of the unprofiled ``generate`` run: the device's
+    busy and idle shares."""
     from torch.profiler import ProfilerActivity, profile
+    from spatten_tpu_torch.engine import generate as gen
     from spatten_tpu_torch.models import transformer as tr
+    state, _, _, _ = gen.window_start(cfg, state, steps, list(host))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -548,15 +763,17 @@ def profile_decode(params, cfg, state, tok, tables, step_s: float,
             t = ev.self_device_time_total / 1e3 / steps
             by_name[ev.key] = by_name.get(ev.key, 0.0) + t
     if not by_name:
-        log("profile: the trace holds no device time (not measured)")
-        return
+        log(f"{name} profile: the trace holds no device time (not measured)")
+        return None
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"profile ({steps} decode steps, kernel path): device time "
+    idle = 1 - dev_ms / (step_s * 1e3)
+    log(f"{name} profile ({steps} decode steps, kernel path): device time "
         f"{dev_ms:.3f} ms/step vs {step_s * 1e3:.3f} ms/step host clock in "
         f"generate -> device busy {dev_ms / (step_s * 1e3):.3f}, idle "
-        f"{1 - dev_ms / (step_s * 1e3):.3f}; top: "
+        f"{idle:.3f}; top: "
         + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+    return idle
 
 
 def main() -> int:
@@ -576,6 +793,7 @@ def main() -> int:
     log(f"card: {smi}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
 
     secs, reports = kernels.build_all(force=True)
     log(f"built {sorted(reports)} in {secs:.1f} s")
@@ -584,26 +802,63 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    cfg = slice_config()
-    k1_stats = phase_k1(cfg, dev)
-    k2_stats = phase_k2(cfg, dev)
+    k1_pr1 = phase_k1_slice1(slice_config(), dev)
+    k1_srv = phase_k1_serving(dev)
+    k2_pr1 = phase_k2(dev, b=4, cap=1024, hkv=32, d=128, keep_max=772,
+                      window=1024, lengths=[1024, 1024, 900, 1000],
+                      triggered=[1, 0, 1, 1], keep_count=[772, 772, 600, 772])
+    # serving shapes: a deep layer (rung 2048, keep 976) at a decode prune
+    k2_srv = phase_k2(dev, b=SERVING_BATCH, cap=SERVING_CAP, hkv=32, d=128,
+                      keep_max=976, window=2048,
+                      lengths=[2048, 2047, 2000, 2048, 1990, 2048, 2048, 2048],
+                      triggered=[1, 1, 1, 0, 1, 1, 1, 1],
+                      keep_count=[976, 976, 976, 976, 600, 976, 976, 976])
     small_reference_check(dev)
-    k1, k2 = phase_main(cfg, dev)
+    log(f"kernel phases done at {time.perf_counter() - t_start:.0f} s")
+
+    pr1 = run_path("first slice (depth 8)", slice_config(8), dev, batch=4,
+                   prompt_len=1152, new_tokens=128)
+    del pr1["params"], pr1["res"]
+    free()
+    serving = run_path("serving", serving_config(), dev,
+                       batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                       new_tokens=128, window_check=True)
+    params = serving.pop("params")
+    del serving["res"]
+    free()
+    dense = run_path("dense", dense_config(), dev, batch=SERVING_BATCH,
+                     prompt_len=SERVING_PROMPT, new_tokens=64, params=params)
+    del params, dense["params"], dense["res"]
+    free()
+    prof = run_path("profile 4,4,6,6,8 (depth 8)", profile_config(8), dev,
+                    batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                    new_tokens=64)
+    lr = prof["res"].layer_requants.tolist()
+    bits = profile_config(8).quant.resolved_layer_bits(8)
+    check(all((n == 0) == (b == 8) for n, b in zip(lr, bits)),
+          f"requant events by layer {lr} for bits {bits}: only the 4- and "
+          "6-bit layers may (and here do) requantize")
+    log(f"profile: requant events by layer {lr} for bits {list(bits)}")
+    log(f"dense-int8 baseline decode {dense['tok_s']:.1f} tok/s vs serving "
+        f"{serving['tok_s']:.1f} tok/s (batch {SERVING_BATCH}; printed, no "
+        f"claim); total {time.perf_counter() - t_start:.0f} s")
 
     out = {"kernels": [
         dict(name="fused_decode_attention", route="cuda",
              source="spatten_tpu_torch/csrc/fused_decode.cu",
              replaces="spatten_tpu/ops/fused_decode.py:2319",
-             launches=k1, **k1_stats),
+             launches=serving["k1"], **k1_srv,
+             first_slice=dict(k1_pr1, launches=pr1["k1"])),
         dict(name="gather_compact_rows", route="cuda",
              source="spatten_tpu_torch/csrc/compact_gather.cu",
              replaces="spatten_tpu/ops/compact_gather.py:335",
-             launches=k2, **k2_stats),
+             launches=serving["k2"], **k2_srv,
+             first_slice=dict(k2_pr1, launches=pr1["k2"])),
     ]}
     log("library_ms: fused_decode_attention has no single PyTorch call "
-        "computing its function (append + 4-bit scoring + requant + "
-        "importance + V top-k); gather_compact_rows is timed against two "
-        "torch.gather calls (K and V planes, out of place)")
+        "computing its function (append + 4/6/8-bit scoring + requant + "
+        "importance + V top-k + 8-bit P·V); gather_compact_rows is timed "
+        "against two torch.gather calls (K and V planes, out of place)")
     print(json.dumps(out), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

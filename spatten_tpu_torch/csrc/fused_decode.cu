@@ -5,31 +5,52 @@
 // fused_decode_attention (pallas_call at :2319, body _make_kernel
 // :254-1902).  Same function, redesigned for the GPU:
 //
-//   append the new K/V row (int8 + per-(token, head) scale + nibble RMW)
-//   -> pass-1 scores on the 4-bit msb plane (dequantized with the msb
-//      midpoint rule, as dequantize_msb) or the int8 plane (dense mode)
+//   append the new K/V row (int8 + per-(token, head) scale, the 4-bit
+//   nibble RMW and, under a 6-bit profile, the 2-bit lsb2 RMW)
+//   -> pass-1 scores on the layer's profile plane: 4-bit msb, 6-bit
+//      msb + lsb2, or the int8 plane (8-bit layers and dense mode); the
+//      scaled score is ksc * (raw * rowscale * mult * sm + rowscale * qsum
+//      * (mid - 128) * sm) over the biased stored nibbles, as in the
+//      Pallas body (:1196-1231)
 //   -> masked f32 softmax -> requant decision (max prob < threshold) and,
-//      where it fires, a full-plane recompute -> importance EMA update of
+//      where it fires, an int8-plane recompute -> importance EMA update of
 //      the stacked [L, B, Hkv, C] accumulator -> local V top-k by block
-//      mass (ties kept) -> P·V over the kept V blocks only.
+//      mass (ties kept) -> P·V over the kept V blocks only, in f32 or with
+//      8-bit row weights on the stored int8 rows (pv_int8).
+//
+// Serving flags: head_mask (a kv-head group with no live query row
+// appends, then exits: zero output, zero max prob, importance untouched);
+// f32 or bf16 scale and importance planes (read as f32, stored with
+// round-to-nearest-even; the appended column's P·V term keeps the new
+// row's f32 scales, as the Pallas body does); quantize_queries (per-row
+// int8 queries: the raw dot products are exact integers before scaling);
+// pv_int8; probs_bf16 (each unnormalized probability is rounded to bf16
+// where it is stored: the CTA keeps scores and probabilities in ONE f32
+// plane, in place, so a separate bf16 plane would not shrink it); and
+// cap_override (the CTA's planes, its V-block ranking and its loops are
+// sized to the rung C, while plane strides use the stored capacity Ct).
 //
 // Grid: one CTA per (kv head, batch row).  The CTA owns lanes
 // [h*D, (h+1)*D) of every cache row, the head's scale column and its
-// importance row, so its append read-modify-write cannot race any other
-// CTA: it appends first, then __syncthreads(), then reads the post-append
-// cache like the reference does.
+// importance row, so its append read-modify-writes cannot race any other
+// CTA (the 2-bit byte that four tokens share lies in the CTA's own
+// lanes): it appends first, then __syncthreads(), then reads the
+// post-append cache.
 //
 // Bound on this card: bytes.  Per (b, h) one step moves ~len*D/2 bytes of
-// msb (len*D for a requant head or dense mode), the kept V rows, and the
-// f32 scale/importance columns, against ~4*G flops per K byte -- far
-// below the H100's ~20 f32 flops/byte ridge.  The design reads the packed
-// plane once (one packed row serves its hi and lo token), unpacks nibbles
-// in registers, keeps scores and probabilities in shared memory (never in
-// device memory), and skips the loads of V blocks no query row keeps.
-// Each warp keeps UNROLL rows' loads in flight.  The TPU scheduling
-// machinery (heads/batches per program, DMA slot rotation, cross-instance
-// prefetch, scale-ladder rungs, gate words) has no counterpart here.
+// msb (plus len*D/4 of lsb2 for a 6-bit layer, len*D for a requant head,
+// an 8-bit layer or dense mode), the kept V rows, and the scale and
+// importance columns, against ~4*G flops per K byte -- far below the
+// H100's ~20 f32 flops/byte ridge.  The design reads each packed row once
+// (one msb row and one lsb2 row serve a hi and a lo token), unpacks in
+// registers, keeps scores and probabilities in shared memory (never in
+// device memory), and skips the loads of V blocks no query row keeps and
+// of dead head groups.  Each warp keeps kUnroll rows' loads in flight.
+// The TPU scheduling machinery (heads/batches per program, DMA slot
+// rotation, cross-instance prefetch, scale-ladder rungs, gate words) has
+// no counterpart here.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -39,28 +60,37 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;
-constexpr float kMsbMidpoint = 7.5f;
+constexpr int kMisc = 8;                 // per-row scalars in shared memory
+constexpr float kMsbMidpoint = 7.5f;     // qz.MSB_MIDPOINT
+constexpr float kMidpoint6 = 1.5f;       // qz.MIDPOINT6
 
 struct Params {
   const float* q;        // [B, Hq, D]
   const float* k_new;    // [B, Hkv, D]
   const float* v_new;    // [B, Hkv, D]
   const int* lengths;    // [B] valid tokens incl. the appended row
-  int8_t* kfull;         // [B, C, F]   (this layer's base)
-  uint8_t* kmsb;         // [B, C/2, F] or null (dense)
-  float* kscale;         // [B, Hkv, C]
-  int8_t* vfull;         // [B, C, F]
-  uint8_t* vmsb;         // [B, C/2, F] or null
-  float* vscale;         // [B, Hkv, C]
-  float* imp;            // [B, Hkv, C] accumulator or null
+  int8_t* kfull;         // [B, Ct, F]   (this layer's base)
+  uint8_t* kmsb;         // [B, Ct/2, F] or null (dense)
+  uint8_t* klsb2;        // [B, Ct/4, F] or null (no 6-bit profile)
+  void* kscale;          // [B, Hkv, Ct] f32 or bf16
+  int8_t* vfull;         // [B, Ct, F]
+  uint8_t* vmsb;         // [B, Ct/2, F] or null
+  void* vscale;          // [B, Hkv, Ct] f32 or bf16
+  void* imp;             // [B, Hkv, Ct] accumulator (f32 or bf16) or null
+  const uint8_t* hmask;  // [B, Hq] head liveness or null (all alive)
+  const int* qbits;      // [L] per-layer pass-1 bits or null
   float* out;            // [B, Hq, D]
   float* max_prob;       // [B, Hkv]
   uint8_t* need;         // [B, Hkv]
   uint8_t* keep_out;     // [B, Hq, C / v_block] or null
-  int C, F, Hkv, pack_unit;
+  int Hq, C, Ct, F, Hkv, pack_unit, layer;
   float sm_scale, threshold, ema;
   int quant, requant, keep_blocks, v_block;
+  int sc_bf16, imp_bf16, qq, pv_int8, probs_bf16;
 };
+
+// per-row scalars: misc[k * G + g]
+enum Misc { kDen, kMax, kEmv, kXidx, kKth, kWrow, kEidx, kWmax };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -94,6 +124,24 @@ __device__ float block_reduce(float v, float* red, float init, Op op) {
   return op(lane < kWarps ? red[lane] : init);
 }
 
+__device__ __forceinline__ float load_meta(const void* p, size_t i, int bf) {
+  return bf ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+            : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void store_meta(void* p, size_t i, float v,
+                                           int bf) {
+  if (bf) {
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  } else {
+    static_cast<float*>(p)[i] = v;
+  }
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // Load VEC consecutive bytes (VEC in {2, 4, 8}) as one aligned word.
 template <int VEC>
 __device__ __forceinline__ void load_bytes(const uint8_t* p, uint8_t (&b)[VEC]) {
@@ -115,10 +163,13 @@ __device__ __forceinline__ void load_bytes(const uint8_t* p, uint8_t (&b)[VEC]) 
 }
 
 // Quantize one head's new row (one warp): int8 + scale into slot idx of
-// the full plane, and the nibble read-modify-write of the packed plane.
+// the full plane, the nibble RMW of the packed plane and the 2-bit RMW of
+// the lsb2 plane.  The f32 scale also goes to *scale_f32.
 template <int VEC>
-__device__ void append_row(const float* x, int8_t* full_row, float* scale_slot,
-                           uint8_t* msb_row, bool is_hi) {
+__device__ void append_row(const float* x, int8_t* full_row, void* scale,
+                           size_t scale_idx, int sc_bf16, float* scale_f32,
+                           uint8_t* msb_row, bool is_hi, uint8_t* l2_row,
+                           int l2_shift) {
   const int lane = threadIdx.x & 31;
   float v[VEC];
   float amax = 0.f;
@@ -141,14 +192,43 @@ __device__ void append_row(const float* x, int8_t* full_row, float* scale_slot,
           is_hi ? static_cast<uint8_t>((nib << 4) | (old & 0x0F))
                 : static_cast<uint8_t>((old & 0xF0) | nib);
     }
+    if (l2_row != nullptr) {
+      const int f2 = (q8 >> 2) & 0x3;
+      const int old = l2_row[lane * VEC + i];
+      l2_row[lane * VEC + i] =
+          static_cast<uint8_t>((old & ~(0x3 << l2_shift)) | (f2 << l2_shift));
+    }
   }
-  if (lane == 0) *scale_slot = s;
+  if (lane == 0) {
+    store_meta(scale, scale_idx, s, sc_bf16);
+    *scale_f32 = s;
+  }
 }
 
-// Scores of every live token from the int8 plane into s[g*C + t].
+// Per-row score constants of one pass: s = ksc * (raw * rs + off).
+template <int G>
+struct RowScale {
+  float rs[G];
+  float off[G];
+};
+
+// The scaled score of column t from its raw dot product (lane 0 only);
+// the pre-scale value of the appended column is kept for its P·V term.
+__device__ __forceinline__ void finalize(const Params& p, float raw, float rs,
+                                         float off, const void* ksc,
+                                         size_t col0, int t, int idx,
+                                         float* srow, float* xidx) {
+  const float x = __fadd_rn(__fmul_rn(raw, rs), off);
+  if (t == idx) *xidx = x;
+  srow[t] = __fmul_rn(x, load_meta(ksc, col0 + t, p.sc_bf16));
+}
+
+// Raw scores of every live token from the int8 plane.
 template <int G, int VEC>
-__device__ void scores_full(const Params& p, const int8_t* kf, const float* ksc,
-                            const float (&qr)[G][VEC], int len, float* s) {
+__device__ void scores_full(const Params& p, const int8_t* kf, const void* ksc,
+                            size_t col0, const float (&qr)[G][VEC],
+                            const RowScale<G>& rsc, int len, int idx, float* s,
+                            float* misc) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int t0 = warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
     uint8_t raw[kUnroll][VEC];
@@ -165,7 +245,6 @@ __device__ void scores_full(const Params& p, const int8_t* kf, const float* ksc,
     for (int u = 0; u < kUnroll; ++u) {
       const int t = t0 + u;
       if (t >= len) break;                       // warp-uniform
-      const float f = ksc[t] * p.sm_scale;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float acc = 0.f;
@@ -174,22 +253,31 @@ __device__ void scores_full(const Params& p, const int8_t* kf, const float* ksc,
           acc = fmaf(qr[g][i], static_cast<float>(static_cast<int8_t>(raw[u][i])),
                      acc);
         acc = warp_sum(acc);
-        if (lane == 0) s[g * p.C + t] = acc * f;
+        if (lane == 0)
+          finalize(p, acc, rsc.rs[g], rsc.off[g], ksc, col0, t, idx,
+                   s + g * p.C, misc + kXidx * G + g);
       }
     }
   }
 }
 
-// Pass-1 scores from the packed msb plane: one packed row carries its hi
-// token (unit*U + r) and lo token (+ U/2).
+// Pass-1 raw scores from the packed msb plane (biased nibbles n = k4 + 8):
+// one packed row carries its hi token (unit*U + r) and lo token (+ U/2).
+// Under a 6-bit profile the lsb2 row of the same unit carries both
+// tokens' 2-bit fields (hi: fields 0/1, lo: fields 2/3), and the raw
+// value is q . (4n + l2).
 template <int G, int VEC>
-__device__ void scores_msb(const Params& p, const uint8_t* km, const float* ksc,
-                           const float (&qr)[G][VEC], int len, float* s) {
+__device__ void scores_msb(const Params& p, const uint8_t* km,
+                           const uint8_t* kl2, const void* ksc, size_t col0,
+                           const float (&qr)[G][VEC], const RowScale<G>& rsc,
+                           int len, int idx, float* s, float* misc) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int half_u = p.pack_unit / 2;
+  const int quarter_u = p.pack_unit / 4;
   const int nrows = p.C / 2;
   for (int r0 = warp * kUnroll; r0 < nrows; r0 += kWarps * kUnroll) {
     uint8_t raw[kUnroll][VEC];
+    uint8_t l2[kUnroll][VEC];
     int thi[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -197,6 +285,11 @@ __device__ void scores_msb(const Params& p, const uint8_t* km, const float* ksc,
       thi[u] = (r / half_u) * p.pack_unit + r % half_u;
       if (r < nrows && thi[u] < len) {
         load_bytes<VEC>(km + static_cast<size_t>(r) * p.F + lane * VEC, raw[u]);
+        if (kl2 != nullptr) {
+          const int lrow = (thi[u] / p.pack_unit) * quarter_u + r % quarter_u;
+          load_bytes<VEC>(kl2 + static_cast<size_t>(lrow) * p.F + lane * VEC,
+                          l2[u]);
+        }
       }
     }
 #pragma unroll
@@ -205,49 +298,66 @@ __device__ void scores_msb(const Params& p, const uint8_t* km, const float* ksc,
       if (r >= nrows || thi[u] >= len) continue;  // warp-uniform
       const int tlo = thi[u] + half_u;
       const bool lo_live = tlo < len;
-      const float fhi = ksc[thi[u]] * p.sm_scale;
-      const float flo = lo_live ? ksc[tlo] * p.sm_scale : 0.f;
+      const int qi = (r % half_u) / quarter_u;     // hi field; lo is qi + 2
+      const int sh_hi = 6 - 2 * qi, sh_lo = 2 - 2 * qi;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float ahi = 0.f, alo = 0.f;
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           const int byte = raw[u][i];
-          const float khi = fmaf(static_cast<float>((byte >> 4) - 8), 16.f,
-                                 kMsbMidpoint);
-          const float klo = fmaf(static_cast<float>((byte & 0xF) - 8), 16.f,
-                                 kMsbMidpoint);
-          ahi = fmaf(qr[g][i], khi, ahi);
-          alo = fmaf(qr[g][i], klo, alo);
+          float nhi = static_cast<float>(byte >> 4);
+          float nlo = static_cast<float>(byte & 0xF);
+          if (kl2 != nullptr) {
+            nhi = fmaf(nhi, 4.f, static_cast<float>((l2[u][i] >> sh_hi) & 3));
+            nlo = fmaf(nlo, 4.f, static_cast<float>((l2[u][i] >> sh_lo) & 3));
+          }
+          ahi = fmaf(qr[g][i], nhi, ahi);
+          alo = fmaf(qr[g][i], nlo, alo);
         }
         ahi = warp_sum(ahi);
         alo = warp_sum(alo);
         if (lane == 0) {
-          s[g * p.C + thi[u]] = ahi * fhi;
-          if (lo_live) s[g * p.C + tlo] = alo * flo;
+          float* srow = s + g * p.C;
+          float* xi = misc + kXidx * G + g;
+          finalize(p, ahi, rsc.rs[g], rsc.off[g], ksc, col0, thi[u], idx, srow,
+                   xi);
+          if (lo_live)
+            finalize(p, alo, rsc.rs[g], rsc.off[g], ksc, col0, tlo, idx, srow,
+                     xi);
         }
       }
     }
   }
 }
 
-// In-place softmax numerators: s <- exp(s - max) over [0, len); returns
-// the row denominators in den[g].
+// In-place softmax numerators over [0, len): s <- exp(s - max) (rounded
+// to bf16 under probs_bf16), with the row max, the denominator and, for
+// pv_int8, the running max of e * vscale over the f32 e in misc.
 template <int G>
-__device__ void softmax_rows(float* s, int C, int len, float* red, float* den) {
+__device__ void softmax_rows(const Params& p, float* s, int len, float* red,
+                             float* misc, const void* vsc, size_t col0) {
   for (int g = 0; g < G; ++g) {
-    float* row = s + g * C;
+    float* row = s + g * p.C;
     float m = -INFINITY;
     for (int t = threadIdx.x; t < len; t += kThreads) m = fmaxf(m, row[t]);
     m = block_reduce(m, red, -INFINITY, [](float x) { return warp_max(x); });
-    float sum = 0.f;
+    float sum = 0.f, emv = 0.f;
     for (int t = threadIdx.x; t < len; t += kThreads) {
       const float e = expf(row[t] - m);
-      row[t] = e;
+      if (p.pv_int8)
+        emv = fmaxf(emv, __fmul_rn(e, load_meta(vsc, col0 + t, p.sc_bf16)));
+      row[t] = p.probs_bf16 ? round_bf16(e) : e;
       sum += e;
     }
     sum = block_reduce(sum, red, 0.f, [](float x) { return warp_sum(x); });
-    if (threadIdx.x == 0) den[g] = sum;
+    if (p.pv_int8)
+      emv = block_reduce(emv, red, 0.f, [](float x) { return warp_max(x); });
+    if (threadIdx.x == 0) {
+      misc[kDen * G + g] = sum;
+      misc[kMax * G + g] = m;
+      misc[kEmv * G + g] = emv;
+    }
   }
   __syncthreads();
 }
@@ -266,31 +376,30 @@ fused_decode_kernel(const Params p) {
   float* pv = s + G * C;                            // [kWarps, G, D]
   float* mass = pv + kWarps * G * D;                // [G, nvb]
   float* red = mass + G * nvb;                      // [kWarps]
-  float* den = red + kWarps;                        // [G]
-  float* inv = den + G;                             // [G]
-  float* kth = inv + G;                             // [G]
-  uint8_t* keep = reinterpret_cast<uint8_t*>(kth + G);   // [G, nvb]
+  float* misc = red + kWarps;                       // [kMisc, G]
+  float* app = misc + kMisc * G;                    // k, v f32 new scales
+  uint8_t* keep = reinterpret_cast<uint8_t*>(app + 2);   // [G, nvb]
   uint8_t* keep_any = keep + G * nvb;                    // [nvb]
 
   const int len = p.lengths[b];
   const int hq0 = h * G;                            // first q head of group
+  const size_t out0 = (static_cast<size_t>(b) * p.Hq + hq0) * D;
   if (len < 1 || len > C) {                         // contract violation
-    for (int i = threadIdx.x; i < G * D; i += kThreads)
-      p.out[(static_cast<size_t>(b) * p.Hkv * G + hq0) * D + i] = NAN;
+    for (int i = threadIdx.x; i < G * D; i += kThreads) p.out[out0 + i] = NAN;
     if (threadIdx.x == 0) p.max_prob[b * p.Hkv + h] = NAN;
     return;
   }
   const int idx = len - 1;
 
-  const size_t plane_b = static_cast<size_t>(b) * C * F;
-  const size_t packed_b = static_cast<size_t>(b) * (C / 2) * F;
-  const size_t col_bh = (static_cast<size_t>(b) * p.Hkv + h) * C;
+  const size_t plane_b = static_cast<size_t>(b) * p.Ct * F;
+  const size_t packed_b = static_cast<size_t>(b) * (p.Ct / 2) * F;
+  const size_t lsb2_b = static_cast<size_t>(b) * (p.Ct / 4) * F;
+  const size_t col0 = (static_cast<size_t>(b) * p.Hkv + h) * p.Ct;
   int8_t* kf = p.kfull + plane_b + h * D;
   int8_t* vf = p.vfull + plane_b + h * D;
   uint8_t* km = p.kmsb ? p.kmsb + packed_b + h * D : nullptr;
+  uint8_t* kl2 = p.klsb2 ? p.klsb2 + lsb2_b + h * D : nullptr;
   uint8_t* vm = p.vmsb ? p.vmsb + packed_b + h * D : nullptr;
-  float* ksc = p.kscale + col_bh;
-  float* vsc = p.vscale + col_bh;
 
   // ---- append (warp 0: K, warp 1: V) -------------------------------------
   {
@@ -298,60 +407,132 @@ fused_decode_kernel(const Params p) {
     const int r_u = idx % u;
     const bool is_hi = r_u < u / 2;
     const size_t prow = static_cast<size_t>(idx / u) * (u / 2) + r_u % (u / 2);
+    const size_t lrow = static_cast<size_t>(idx / u) * (u / 4) + r_u % (u / 4);
+    const int l2_shift = 6 - 2 * (r_u / (u / 4));
     const size_t src = (static_cast<size_t>(b) * p.Hkv + h) * D;
     if (warp == 0) {
       append_row<VEC>(p.k_new + src, kf + static_cast<size_t>(idx) * F,
-                      ksc + idx, km ? km + prow * F : nullptr, is_hi);
+                      p.kscale, col0 + idx, p.sc_bf16, app,
+                      km ? km + prow * F : nullptr, is_hi,
+                      kl2 ? kl2 + lrow * F : nullptr, l2_shift);
     } else if (warp == 1) {
       append_row<VEC>(p.v_new + src, vf + static_cast<size_t>(idx) * F,
-                      vsc + idx, vm ? vm + prow * F : nullptr, is_hi);
+                      p.vscale, col0 + idx, p.sc_bf16, app + 1,
+                      vm ? vm + prow * F : nullptr, is_hi, nullptr, 0);
     }
   }
   __syncthreads();                                  // the block sees its row
 
-  // ---- queries of this group in registers: lane holds d = lane*VEC + i --
-  float qr[G][VEC];
+  // ---- head gating: a dead group appended, and does nothing else --------
+  bool alive[G];
+  bool any_alive = false;
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      qr[g][i] = p.q[(static_cast<size_t>(b) * p.Hkv * G + hq0 + g) * D +
-                     lane * VEC + i];
+  for (int g = 0; g < G; ++g) {
+    alive[g] = p.hmask == nullptr ||
+               p.hmask[static_cast<size_t>(b) * p.Hq + hq0 + g] != 0;
+    any_alive |= alive[g];
+  }
+  if (!any_alive) {
+    for (int i = threadIdx.x; i < G * D; i += kThreads) p.out[out0 + i] = 0.f;
+    if (p.keep_out != nullptr && p.keep_blocks > 0) {
+      for (int i = threadIdx.x; i < G * nvb; i += kThreads)
+        p.keep_out[static_cast<size_t>(b) * p.Hq * nvb + hq0 * nvb + i] = 0;
+    }
+    if (threadIdx.x == 0) {
+      p.max_prob[b * p.Hkv + h] = 0.f;
+      p.need[b * p.Hkv + h] = 0;
+    }
+    return;
+  }
 
-  // ---- pass 1 + softmax + requant decision -------------------------------
-  if (p.quant) {
-    scores_msb<G, VEC>(p, km, ksc, qr, len, s);
+  // ---- queries in registers (lane holds d = lane*VEC + i), optionally
+  // quantized to int8 per row; every warp derives the same row constants
+  float qr[G][VEC];
+  float rowscale[G], qsum[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      qr[g][i] = p.q[out0 + g * D + lane * VEC + i];
+      amax = fmaxf(amax, fabsf(qr[g][i]));
+    }
+    rowscale[g] = 1.f;
+    if (p.qq) {
+      rowscale[g] = fmaxf(warp_max(amax), 1e-20f) / 127.f;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        qr[g][i] = fminf(fmaxf(rintf(qr[g][i] / rowscale[g]), -127.f), 127.f);
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) sum += qr[g][i];
+    qsum[g] = warp_sum(sum);
+  }
+
+  // ---- pass 1 on the layer's profile + softmax + requant decision -------
+  const int bits = !p.quant ? 8 : (p.qbits ? p.qbits[p.layer] : 4);
+  const bool p1_full = bits == 8;
+  const bool use6 = bits == 6 && kl2 != nullptr;
+  const float mult = p1_full ? 1.f : (use6 ? 4.f : 16.f);
+  const float moff = p1_full ? 0.f : (use6 ? kMidpoint6 : kMsbMidpoint) - 128.f;
+  RowScale<G> rs1, rs2;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    rs1.rs[g] = __fmul_rn(rowscale[g], __fmul_rn(mult, p.sm_scale));
+    rs1.off[g] = p.quant ? __fmul_rn(__fmul_rn(rowscale[g], qsum[g]),
+                                     __fmul_rn(moff, p.sm_scale))
+                         : 0.f;
+    rs2.rs[g] = __fmul_rn(rowscale[g], p.sm_scale);
+    rs2.off[g] = 0.f;
+  }
+  if (p1_full) {
+    scores_full<G, VEC>(p, kf, p.kscale, col0, qr, rs1, len, idx, s, misc);
   } else {
-    scores_full<G, VEC>(p, kf, ksc, qr, len, s);
+    scores_msb<G, VEC>(p, km, use6 ? kl2 : nullptr, p.kscale, col0, qr, rs1,
+                       len, idx, s, misc);
   }
   __syncthreads();
-  softmax_rows<G>(s, C, len, red, den);
+  softmax_rows<G>(p, s, len, red, misc, p.vscale, col0);
   float mp = 0.f;
 #pragma unroll
-  for (int g = 0; g < G; ++g) mp = fmaxf(mp, 1.f / fmaxf(den[g], 1e-30f));
-  const bool fire = p.requant && mp < p.threshold;   // uniform in the CTA
+  for (int g = 0; g < G; ++g)
+    mp = fmaxf(mp, 1.f / fmaxf(misc[kDen * G + g], 1e-30f));
+  // an 8-bit pass 1 already read the int8 plane: it never requantizes
+  const bool fire = p.requant && !p1_full && mp < p.threshold;  // uniform
   if (threadIdx.x == 0) {
     p.max_prob[b * p.Hkv + h] = mp;
     p.need[b * p.Hkv + h] = fire ? 1 : 0;
   }
   if (fire) {
     __syncthreads();
-    scores_full<G, VEC>(p, kf, ksc, qr, len, s);
+    scores_full<G, VEC>(p, kf, p.kscale, col0, qr, rs2, len, idx, s, misc);
     __syncthreads();
-    softmax_rows<G>(s, C, len, red, den);
+    softmax_rows<G>(p, s, len, red, misc, p.vscale, col0);
   }
-  if (threadIdx.x < G) inv[threadIdx.x] = 1.f / fmaxf(den[threadIdx.x], 1e-30f);
+  if (threadIdx.x < G) {
+    const int g = threadIdx.x;
+    const float inv = 1.f / fmaxf(misc[kDen * G + g], 1e-30f);
+    const float wrow = alive[g] ? inv : 0.f;
+    misc[kWrow * G + g] = wrow;
+    misc[kWmax * G + g] = __fmul_rn(misc[kEmv * G + g], wrow);
+    // the appended column's probability with the new row's f32 K scale
+    misc[kEidx * G + g] =
+        expf(__fmul_rn(misc[kXidx * G + g], app[0]) - misc[kMax * G + g]);
+  }
   __syncthreads();
+  const float* wrow = misc + kWrow * G;
 
   // ---- importance: reset the appended slot, then imp <- ema*imp + delta --
   if (p.imp != nullptr) {
-    float* imp = p.imp + col_bh;
     for (int t = threadIdx.x; t < len; t += kThreads) {
       float delta = 0.f;
 #pragma unroll
-      for (int g = 0; g < G; ++g) delta += s[g * C + t] * inv[g];
-      const float prev = t == idx ? 0.f : imp[t];
-      imp[t] = prev * p.ema + delta;
+      for (int g = 0; g < G; ++g) delta += __fmul_rn(s[g * C + t], wrow[g]);
+      const float prev = t == idx ? 0.f : load_meta(p.imp, col0 + t,
+                                                    p.imp_bf16);
+      store_meta(p.imp, col0 + t, __fadd_rn(__fmul_rn(prev, p.ema), delta),
+                 p.imp_bf16);
     }
   }
 
@@ -363,7 +544,7 @@ fused_decode_kernel(const Params p) {
       const int t0 = j * p.v_block, t1 = min(t0 + p.v_block, len);
       float m = 0.f;
       for (int t = t0; t < t1; ++t) m += s[g * C + t];
-      mass[i] = m;
+      mass[i] = alive[g] ? m : 0.f;
     }
     __syncthreads();
     // k-th largest by counting: the smallest mass whose strictly-greater
@@ -377,7 +558,7 @@ fused_decode_kernel(const Params p) {
         if (rank < p.keep_blocks) cand = fminf(cand, mj);
       }
       cand = block_reduce(cand, red, INFINITY, [](float x) { return warp_min(x); });
-      if (threadIdx.x == 0) kth[g] = cand;
+      if (threadIdx.x == 0) misc[kKth * G + g] = cand;
     }
     __syncthreads();
     for (int j = threadIdx.x; j < nvb; j += kThreads) {
@@ -385,30 +566,40 @@ fused_decode_kernel(const Params p) {
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float mj = mass[g * nvb + j];
-        const uint8_t k = (mj >= kth[g]) && (mj > 0.f);
+        const uint8_t k = (mj >= misc[kKth * G + g]) && (mj > 0.f);
         keep[g * nvb + j] = k;
         any |= k;
         if (p.keep_out != nullptr)
-          p.keep_out[(static_cast<size_t>(b) * p.Hkv * G + hq0 + g) * nvb + j] = k;
+          p.keep_out[(static_cast<size_t>(b) * p.Hq + hq0 + g) * nvb + j] = k;
       }
       keep_any[j] = any;
     }
     __syncthreads();
   }
 
-  // ---- P·V over the kept blocks ------------------------------------------
-  float acc[G][VEC];
+  // ---- P·V over the kept blocks; the appended column comes last, from
+  // the new row's f32 V scale (pv_int8: 8-bit row weights w8 =
+  // rint(w * 127 / wmax) on the stored int8 rows, int32 sums)
+  float accf[G][VEC];
+  int acci[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < VEC; ++i) {
+      accf[g][i] = 0.f;
+      acci[g][i] = 0;
+    }
+  float wrecip[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    wrecip[g] = 127.f / fmaxf(misc[kWmax * G + g], 1e-30f);
   for (int t0 = warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
     uint8_t raw[kUnroll][VEC];
     bool live[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = t0 + u;
-      live[u] = t < len && (!vprune || keep_any[t / p.v_block]);
+      live[u] = t < len && t != idx && (!vprune || keep_any[t / p.v_block]);
       if (live[u]) {
         load_bytes<VEC>(reinterpret_cast<const uint8_t*>(vf) +
                             static_cast<size_t>(t) * F + lane * VEC,
@@ -419,36 +610,69 @@ fused_decode_kernel(const Params p) {
     for (int u = 0; u < kUnroll; ++u) {
       if (!live[u]) continue;
       const int t = t0 + u;
-      const float sc = vsc[t];
+      const float sc = load_meta(p.vscale, col0 + t, p.sc_bf16);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const bool kept = !vprune || keep[g * nvb + t / p.v_block];
-        const float w = kept ? s[g * C + t] * inv[g] * sc : 0.f;
+        const float w = kept ? __fmul_rn(__fmul_rn(s[g * C + t], wrow[g]), sc)
+                             : 0.f;
+        if (p.pv_int8) {
+          const int w8 = static_cast<int>(
+              fminf(fmaxf(rintf(__fmul_rn(w, wrecip[g])), 0.f), 127.f));
 #pragma unroll
-        for (int i = 0; i < VEC; ++i)
-          acc[g][i] = fmaf(w, static_cast<float>(static_cast<int8_t>(raw[u][i])),
-                           acc[g][i]);
+          for (int i = 0; i < VEC; ++i)
+            acci[g][i] += w8 * static_cast<int>(static_cast<int8_t>(raw[u][i]));
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            accf[g][i] = fmaf(w, static_cast<float>(static_cast<int8_t>(raw[u][i])),
+                              accf[g][i]);
+        }
       }
     }
   }
+  int* pvi = reinterpret_cast<int*>(pv);
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      pv[(warp * G + g) * D + lane * VEC + i] = acc[g][i];
+    for (int i = 0; i < VEC; ++i) {
+      const int at = (warp * G + g) * D + lane * VEC + i;
+      if (p.pv_int8) {
+        pvi[at] = acci[g][i];
+      } else {
+        pv[at] = accf[g][i];
+      }
+    }
   __syncthreads();
+  const float kept_scale = 1.f / 127.f;
   for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    float o = 0.f;
+    const int g = i / D, dd = i % D;
+    float o;
+    if (p.pv_int8) {
+      int acc = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) o += pv[w * G * D + i];
-    p.out[(static_cast<size_t>(b) * p.Hkv * G + hq0) * D + i] = o;
+      for (int w = 0; w < kWarps; ++w) acc += pvi[w * G * D + i];
+      o = __fmul_rn(static_cast<float>(acc),
+                    __fmul_rn(misc[kWmax * G + g], kept_scale));
+    } else {
+      o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) o += pv[w * G * D + i];
+    }
+    const float kept_new =
+        (!vprune || keep[g * nvb + idx / p.v_block]) ? 1.f : 0.f;
+    const float p_idx =
+        __fmul_rn(__fmul_rn(misc[kEidx * G + g], wrow[g]), kept_new);
+    const float vnew = __fmul_rn(
+        static_cast<float>(vf[static_cast<size_t>(idx) * F + dd]), app[1]);
+    p.out[out0 + i] = __fadd_rn(o, __fmul_rn(p_idx, vnew));
   }
 }
 
 size_t smem_bytes(int G, int D, int C, int v_block) {
   const int nvb = C / v_block;
   return sizeof(float) * (static_cast<size_t>(G) * C + kWarps * G * D +
-                          G * nvb + kWarps + 3 * G) +
+                          G * nvb + kWarps + kMisc * G + 2) +
          static_cast<size_t>(G + 1) * nvb;
 }
 
@@ -482,15 +706,18 @@ cudaError_t launch_g(const Params& p, int B, int G, cudaStream_t stream) {
 // (spatten_tpu_torch/ops/fused_decode.py) validates shapes and flags.
 extern "C" int spatten_fused_decode(
     const float* q, const float* k_new, const float* v_new, const int* lengths,
-    int8_t* kfull, uint8_t* kmsb, float* kscale, int8_t* vfull, uint8_t* vmsb,
-    float* vscale, float* imp, float* out, float* max_prob, uint8_t* need,
-    uint8_t* keep_out, int B, int Hq, int Hkv, int D, int C, int pack_unit,
-    float sm_scale, float threshold, float ema, int quant, int requant,
-    int keep_blocks, int v_block, void* stream) {
-  Params p{q, k_new, v_new, lengths, kfull, kmsb, kscale, vfull, vmsb,
-           vscale, imp, out, max_prob, need, keep_out, C, Hkv * D, Hkv,
-           pack_unit, sm_scale, threshold, ema, quant, requant, keep_blocks,
-           v_block};
+    int8_t* kfull, uint8_t* kmsb, uint8_t* klsb2, void* kscale, int8_t* vfull,
+    uint8_t* vmsb, void* vscale, void* imp, const uint8_t* hmask,
+    const int* qbits, float* out, float* max_prob, uint8_t* need,
+    uint8_t* keep_out, int B, int Hq, int Hkv, int D, int C, int Ct,
+    int pack_unit, int layer, float sm_scale, float threshold, float ema,
+    int quant, int requant, int keep_blocks, int v_block, int sc_bf16,
+    int imp_bf16, int qq, int pv_int8, int probs_bf16, void* stream) {
+  Params p{q, k_new, v_new, lengths, kfull, kmsb, klsb2, kscale, vfull, vmsb,
+           vscale, imp, hmask, qbits, out, max_prob, need, keep_out,
+           Hq, C, Ct, Hkv * D, Hkv, pack_unit, layer, sm_scale, threshold,
+           ema, quant, requant, keep_blocks, v_block, sc_bf16, imp_bf16, qq,
+           pv_int8, probs_bf16};
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

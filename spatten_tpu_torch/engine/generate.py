@@ -11,7 +11,13 @@ produce the same greedy token stream:
 * prompts run in chunks of ``prefill_chunk``, with a prune before any
   chunk that would overflow a layer's capacity rung;
 * decode runs in windows of ``decode_window`` steps (clamped to the
-  pruning headroom) with a prune, when scheduled, before each window.
+  pruning headroom) with a prune, when scheduled, before each window;
+* head pruning derives the per-layer head mask from the importance
+  accumulators once after prefill and, on the fly, at every window
+  boundary where the length clock crosses ``head_update_interval``
+  (``maybe_update_head_mask``); with ``head_update_interval == 0`` and
+  ``compact_pruned_heads`` the attention projections are compacted once
+  to the kept heads.
 
 The window body is a plain Python loop over ``forward``.  Functions that
 take a state update its tensors in place and consume it.
@@ -26,6 +32,7 @@ import torch
 
 from spatten_tpu_torch.config import SpAttenConfig
 from spatten_tpu_torch.device import resolve_device
+from spatten_tpu_torch.engine.policy import update_head_mask
 from spatten_tpu_torch.engine.sampling import SamplingParams, sample_token
 from spatten_tpu_torch.engine.state import DecodeState, init_state
 from spatten_tpu_torch.models import transformer
@@ -149,11 +156,43 @@ def prefill(params, cfg: SpAttenConfig, state: DecodeState,
     return last_logits, state, host_lens, pruned
 
 
+def head_mask_due(cfg: SpAttenConfig, clock: int, window: int = 1) -> bool:
+    """Whether the on-the-fly head mask update fires at a window of
+    ``window`` steps starting at length clock ``clock`` (the maximum
+    sequence length): when the clock crosses a multiple of
+    ``head_update_interval`` within the window."""
+    p = cfg.pruning
+    n = p.head_update_interval
+    if not (p.enable_head_pruning and p.head_keep > 0 and n > 0):
+        return False
+    return clock % n < window
+
+
+def maybe_update_head_mask(cfg: SpAttenConfig, state: DecodeState,
+                           window: int = 1, clock: Optional[int] = None
+                           ) -> DecodeState:
+    """On-the-fly head pruning: re-derive the per-layer head mask from the
+    live importance accumulators when ``head_mask_due``.  The clock is
+    ``max(state.lengths)``; callers that know it on the host (the static
+    prune schedule) pass it as ``clock`` and spare a device sync."""
+    p = cfg.pruning
+    if not (p.enable_head_pruning and p.head_keep > 0
+            and p.head_update_interval > 0):
+        return state
+    if clock is None:
+        clock = int(state.lengths.max())
+    if head_mask_due(cfg, clock, window):
+        state = update_head_mask(cfg, state)
+    return state
+
+
 def decode_step(params, cfg: SpAttenConfig, state: DecodeState,
                 token: torch.Tensor):
-    """One greedy decode step (pruning first when needed).  Consumes
-    ``state``.  token: int32 [B] -> (next_token [B], state, aux)."""
+    """One greedy decode step (pruning and the head mask update first,
+    when due).  Consumes ``state``.  token: int32 [B] -> (next_token [B],
+    state, aux)."""
     state, _ = maybe_prune(cfg, state, 1)
+    state = maybe_update_head_mask(cfg, state)
     logits, state, aux = transformer.forward(params, cfg, state,
                                              token[:, None])
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), state, aux
@@ -166,6 +205,8 @@ class GenerateResult(NamedTuple):
     pruned_layers: list             # layers pruned at each prune point
     prefill_seconds: float          # host clock, device synchronised
     decode_seconds: float
+    head_mask_updates: list         # length clock at each mask update
+    layer_requants: torch.Tensor    # int32 [L] decode requants by layer
 
 
 def decode_window_steps(cfg: SpAttenConfig) -> int:
@@ -178,6 +219,29 @@ def decode_window_steps(cfg: SpAttenConfig) -> int:
                                                     cfg.model.num_layers)
         steps = max(1, min(steps, min(c - k for c, k in zip(caps, keeps))))
     return steps
+
+
+def window_start(cfg: SpAttenConfig, state: DecodeState, n: int,
+                 host_lens: Optional[list] = None):
+    """The work at a decode-window boundary of ``n`` steps: the prune (the
+    schedule-known layers when ``host_lens`` is given, else checked on
+    the host), then the head mask update when due.  Consumes ``state``.
+    Returns (state, host_lens after the window, pruned layers or None,
+    the length clock when the mask was updated or None)."""
+    if host_lens is not None:
+        layers, host_lens = prune_schedule_step(cfg, host_lens, n)
+        if layers:
+            state, _ = maybe_prune(cfg, state, n, static_layers=layers)
+        clock = max(host_lens) - n       # max(state.lengths), on the host
+    else:
+        layers = None
+        state, _ = maybe_prune(cfg, state, n)
+        clock = int(state.lengths.max())
+    updated = None
+    if head_mask_due(cfg, clock, n):
+        state = update_head_mask(cfg, state)
+        updated = clock
+    return state, host_lens, layers, updated
 
 
 def _sync(dev: torch.device) -> None:
@@ -208,8 +272,6 @@ def generate(
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params live on {params['embed'].device}, "
                          f"not on {dev}")
-    if cfg.pruning.enable_head_pruning and cfg.pruning.head_keep > 0:
-        raise NotImplementedError("head pruning is not ported yet")
     sampling = sampling or SamplingParams()
     prompt = torch.as_tensor(prompt, dtype=torch.int64).to(dev)
     b = prompt.shape[0]
@@ -232,6 +294,17 @@ def generate(
         for pos in range(0, prompt.shape[1], chunk):
             last_logits, state, _ = prefill_chunk(
                 params, cfg, state, prompt[:, pos:pos + chunk])
+    head_updates: list = []
+    head_compact = None
+    if cfg.pruning.enable_head_pruning and cfg.pruning.head_keep > 0:
+        state = update_head_mask(cfg, state)
+        head_updates.append(max(host_lens) if static_ok
+                            else int(state.lengths.max()))
+        if (cfg.pruning.head_update_interval == 0
+                and cfg.engine.compact_pruned_heads):
+            # permanent mode: the mask is fixed from here on
+            head_compact = transformer.compact_head_params(
+                params, cfg, state.head_mask)
     _sync(dev)
     t1 = time.perf_counter()
 
@@ -242,19 +315,22 @@ def generate(
                                  dev)
     window_steps = decode_window_steps(cfg)
     out = []
+    layer_requants = torch.zeros((cfg.model.num_layers,), dtype=torch.int32,
+                                 device=dev)
     remaining = max_new_tokens
     while remaining > 0:
         n = min(window_steps, remaining)
-        if static_ok:
-            layers, host_lens = prune_schedule_step(cfg, host_lens, n)
-            if layers:
-                pruned.append(layers)
-                state, _ = maybe_prune(cfg, state, n, static_layers=layers)
-        else:
-            state, _ = maybe_prune(cfg, state, n)
+        state, host_lens, layers, updated = window_start(
+            cfg, state, n, host_lens if static_ok else None)
+        if layers:
+            pruned.append(layers)
+        if updated is not None:
+            head_updates.append(updated)
         for _ in range(n):
-            logits, state, _ = transformer.forward(
-                params, cfg, state, token[:, None], rope_tables=tables)
+            logits, state, aux = transformer.forward(
+                params, cfg, state, token[:, None], rope_tables=tables,
+                head_compact=head_compact)
+            layer_requants += aux.layer_requants
             next_token = sample_token(logits[:, -1], generator, sampling)
             if eos_token_id is not None:
                 done = done | (token == eos_token_id)
@@ -267,4 +343,6 @@ def generate(
     return GenerateResult(tokens=torch.stack(out, dim=1), state=state,
                           requant_events=state.requant_events,
                           pruned_layers=pruned, prefill_seconds=t1 - t0,
-                          decode_seconds=t2 - t1)
+                          decode_seconds=t2 - t1,
+                          head_mask_updates=head_updates,
+                          layer_requants=layer_requants)

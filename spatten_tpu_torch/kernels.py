@@ -31,7 +31,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fused_decode": ("spatten_fused_decode",
-                     [_P] * 15 + [_I] * 6 + [_F] * 3 + [_I] * 4 + [_P]),
+                     [_P] * 18 + [_I] * 8 + [_F] * 3 + [_I] * 9 + [_P]),
     "compact_gather": ("spatten_compact_gather", [_P] * 5 + [_I] * 5 + [_P]),
 }
 

@@ -9,13 +9,20 @@ layers in Python:
 
 * a single-token step (``s == 1``) with ``EngineConfig.use_pallas`` takes
   the fused decode kernel K1 (``ops/fused_decode``), which appends to and
-  reads the stacked cache in place;
+  reads the stacked cache in place, one call per layer with the layer's
+  capacity rung (``token_pruning.layer_capacity_groups``) and the serving
+  flags of ``QuantConfig``;
 * a prompt chunk (``s > 1``), or ``use_pallas=False``, appends with
   ``append_tokens`` and attends with ``prefill_attention`` (chunks) or the
   reference (single tokens).
 
 The cache planes and the importance accumulator of the state are updated
 IN PLACE: ``forward`` consumes its input state.
+
+``compact_head_params`` gathers each layer's kept heads out of the
+attention projections (permanent head pruning); ``forward(head_compact=
+...)`` then computes q/k/v on the compact width and scatters them into
+their physical head slots, so dead heads get exact zeros.
 """
 
 from __future__ import annotations
@@ -31,13 +38,17 @@ from spatten_tpu_torch.device import resolve_device
 from spatten_tpu_torch.engine.kv_cache import append_tokens
 from spatten_tpu_torch.engine.state import DecodeState
 from spatten_tpu_torch.models.weight_quant import (
-    matmul as _mm, matmul_t as _mm_t, take_rows as _take_rows,
+    is_quantized, matmul as _mm, matmul_t as _mm_t, take_rows as _take_rows,
 )
 from spatten_tpu_torch.ops import rope as rope_ops
 from spatten_tpu_torch.ops.attention_ref import spatten_attention_reference
-from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+from spatten_tpu_torch.ops.fused_decode import (
+    fused_decode_attention, fused_decode_attention_plain,
+)
 from spatten_tpu_torch.ops.prefill_attention import prefill_attention
-from spatten_tpu_torch.pruning.token_pruning import layer_budgets_static
+from spatten_tpu_torch.pruning.token_pruning import (
+    layer_budgets_static, layer_capacity_groups,
+)
 
 Params = Dict[str, Any]
 
@@ -105,6 +116,59 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
     return params
 
 
+def compact_head_params(params: Params, cfg: SpAttenConfig,
+                        head_mask: torch.Tensor) -> dict:
+    """Physically compact the attention projections to the KEPT heads.
+
+    Permanent head pruning (``head_update_interval == 0``: the mask is
+    derived once, after prefill): gather each layer's kept head columns
+    of wq/wk/wv (and the qkv biases) and kept rows of wo, so decode
+    streams only live-head weight bytes.  The KV cache keeps its full
+    head layout.  Returns {"layers": compacted stacked leaves, "kept_q":
+    int64 [L, kq], "kept_kv": int64 [L, kkv]} for
+    ``forward(head_compact=...)``; outputs equal the masked forward."""
+    m, p = cfg.model, cfg.pruning
+    L, hq, hkv, dh = m.num_layers, m.num_heads, m.num_kv_heads, m.head_dim
+    group = hq // hkv
+    kg = min(p.head_keep, hkv)
+    dev = head_mask.device
+    gmask = head_mask.reshape(L, hkv, group).any(-1)           # [L, Hkv]
+    # kept kv-group indices in physical order (the scores are distinct,
+    # so the top-k has no ties)
+    score = gmask.to(torch.int64) * (2 * hkv) - torch.arange(hkv, device=dev)
+    kept_kv = torch.sort(torch.topk(score, kg, dim=-1).indices,
+                         dim=-1).values                         # [L, kg]
+    kept_q = (kept_kv[:, :, None] * group + torch.arange(
+        group, device=dev)[None, None, :]).reshape(L, kg * group)
+
+    def lanes(idx):                       # [L, k] -> [L, k*dh]
+        return (idx[:, :, None] * dh + torch.arange(
+            dh, device=dev)[None, None, :]).reshape(idx.shape[0], -1)
+
+    def g_out(w, li):                     # gather output-channel lanes
+        if is_quantized(w):
+            return {"qw": torch.take_along_dim(w["qw"], li[:, None, :], 2),
+                    "ws": torch.take_along_dim(w["ws"], li, 1)}
+        return torch.take_along_dim(w, li[:, None, :], 2)
+
+    def g_in(w, li):                      # gather input-row lanes (wo)
+        if is_quantized(w):
+            return {"qw": torch.take_along_dim(w["qw"], li[:, :, None], 1),
+                    "ws": w["ws"]}
+        return torch.take_along_dim(w, li[:, :, None], 1)
+
+    lq, lkv = lanes(kept_q), lanes(kept_kv)
+    layers = dict(params["layers"])
+    layers["wq"] = g_out(layers["wq"], lq)
+    layers["wk"] = g_out(layers["wk"], lkv)
+    layers["wv"] = g_out(layers["wv"], lkv)
+    layers["wo"] = g_in(layers["wo"], lq)
+    for bn, li in (("bq", lq), ("bk", lkv), ("bv", lkv)):
+        if bn in layers:
+            layers[bn] = torch.take_along_dim(layers[bn], li, 1)
+    return {"layers": layers, "kept_q": kept_q, "kept_kv": kept_kv}
+
+
 def _norm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
           kind: str, eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
@@ -147,6 +211,7 @@ class StepAux(NamedTuple):
 
     requant_events: torch.Tensor   # int32 [] (layer, batch, kv head) requants
     max_probs: torch.Tensor        # f32 [L, B, Hkv]
+    layer_requants: torch.Tensor   # int32 [L] requants by layer
 
 
 def embed_tokens(params: Params, cfg: SpAttenConfig, state: DecodeState,
@@ -187,13 +252,27 @@ def v_keep_budgets(cfg: SpAttenConfig, capacity: int) -> tuple[int, ...]:
     return tuple(max(p.v_block_size, int(p.v_keep_ratio * kb)) for kb in kb_l)
 
 
+def _layer_leaf(w, l: int):
+    """Layer ``l`` of a stacked leaf (a tensor or a quantized dict)."""
+    if isinstance(w, dict):
+        return {k: v[l] for k, v in w.items()}
+    return w[l]
+
+
 def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
                x: torch.Tensor,
-               rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None):
+               rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
+               head_kept: tuple[torch.Tensor, torch.Tensor] | None = None,
+               plain_kernels: bool = False):
     """Run x [B, S, D] through every layer, appending the S tokens to each
     layer's cache IN PLACE (the state's cache and importance are
     consumed).  Returns (x, new_layer_lengths, requants [L], max_probs
-    [L, B, Hkv]).  Each layer's token slots come from its own length."""
+    [L, B, Hkv]).  Each layer's token slots come from its own length.
+
+    ``head_kept``: (kept_q [L, kq], kept_kv [L, kkv]) when
+    ``layer_params`` are the compacted leaves of ``compact_head_params``
+    (decode only).  ``plain_kernels``: K1 runs its plain PyTorch version
+    on any device (checks of the kernel against it)."""
     m, p, q, e = cfg.model, cfg.pruning, cfg.quant, cfg.engine
     b, s = x.shape[:2]
     hq, hkv, dh = m.num_heads, m.num_kv_heads, m.head_dim
@@ -206,21 +285,43 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
     track_importance = p.enable_token_pruning or p.enable_head_pruning
     accum = track_importance and p.cascade_accumulate
     use_kernel = (e.use_pallas and s == 1
-                  and (m.use_abs_pos_emb or e.rope_mode == "cached"))
+                  and (m.use_abs_pos_emb or e.rope_mode == "cached")
+                  # the 6-bit path's 2-bit append needs cap >= 32
+                  and not (q.needs_lsb2 and e.cache_capacity < 32))
+    if head_kept is not None and not use_kernel:
+        raise NotImplementedError(
+            "head-compacted projections are a decode-kernel-path feature "
+            "(prefill derives the mask, so it never runs compacted)")
+    k1 = fused_decode_attention_plain if plain_kernels \
+        else fused_decode_attention
     requant_threshold = (q.requant_threshold
                          if (q.enabled and q.enable_requant) else 0.0)
     ar = torch.arange(s, device=x.device)
 
-    def qkv(x, lp, lengths_l, layer_idx):
-        """Norm, projections and RoPE: (q, k, v) [B, H, S, D], sm_scale."""
+    def qkv(x, lp, lengths_l, layer_idx, kept=None):
+        """Norm, projections and RoPE: (q, k, v) [B, H, S, D], sm_scale.
+        ``kept``: (kept_q_l, kept_kv_l) for compacted projections --
+        computed on the compact width, then scattered into the physical
+        head slots (dead heads get exact zeros)."""
         h = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"),
                   m.layernorm_kind, m.norm_eps)
         qh = _biased(_mm(h, lp["wq"]), lp, "bq")
         kh = _biased(_mm(h, lp["wk"]), lp, "bk")
         vh = _biased(_mm(h, lp["wv"]), lp, "bv")
-        qh = qh.reshape(b, s, hq, dh).transpose(1, 2)
-        kh = kh.reshape(b, s, hkv, dh).transpose(1, 2)
-        vh = vh.reshape(b, s, hkv, dh).transpose(1, 2)
+        nq = hq if kept is None else kept[0].shape[0]
+        nkv = hkv if kept is None else kept[1].shape[0]
+        qh = qh.reshape(b, s, nq, dh).transpose(1, 2)
+        kh = kh.reshape(b, s, nkv, dh).transpose(1, 2)
+        vh = vh.reshape(b, s, nkv, dh).transpose(1, 2)
+        if kept is not None:
+            def scatter(t, heads, idx):
+                full = torch.zeros((b, heads, s, dh), dtype=t.dtype,
+                                   device=t.device)
+                full[:, idx] = t
+                return full
+            qh = scatter(qh, hq, kept[0])
+            kh = scatter(kh, hkv, kept[1])
+            vh = scatter(vh, hkv, kept[1])
         pos_l = torch.clamp(lengths_l[:, None] + ar[None, :], max=cap - 1)
         if not m.use_abs_pos_emb:
             c = cos[pos_l][:, None]                       # [B, 1, S, dh]
@@ -233,18 +334,27 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
             sm_scale = base_scale / (layer_idx + 1.0)
         return qh, kh, vh, pos_l, sm_scale
 
-    def out_mlp(x, lp, attn_out):
+    def out_mlp(x, lp, attn_out, kept_q=None):
+        if kept_q is not None:
+            # head-compacted o_proj: the pruned heads' rows were zeros
+            attn_out = attn_out[:, kept_q]
         o = attn_out.to(x.dtype).transpose(1, 2).reshape(b, s, -1)
         x = x + _biased(_mm(o, lp["wo"]), lp, "bo")
         h2 = _norm(x, lp["mlp_norm_w"], lp.get("mlp_norm_b"),
                    m.layernorm_kind, m.norm_eps)
         return _biased(x + _mlp(h2, lp, m.activation), lp, "b_down")
 
+    # per-layer capacity rungs: K1 is sized to each group's rung
+    rungs = [cap] * m.num_layers
+    for ga, gb, rung in layer_capacity_groups(cfg):
+        rungs[ga:gb] = [rung] * (gb - ga)
     requants, max_probs = [], []
     for l in range(m.num_layers):
-        lp = {k: v[l] for k, v in layer_params.items()}
+        lp = {k: _layer_leaf(v, l) for k, v in layer_params.items()}
         lengths_l = state.layer_lengths[l]
-        qh, kh, vh, pos_l, sm_scale = qkv(x, lp, lengths_l, l)
+        kept = None if head_kept is None else (head_kept[0][l],
+                                               head_kept[1][l])
+        qh, kh, vh, pos_l, sm_scale = qkv(x, lp, lengths_l, l, kept)
         common = dict(
             requant_threshold=requant_threshold, quant_enabled=q.enabled,
             v_block_size=p.v_block_size,
@@ -253,7 +363,7 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
         if use_kernel:
             q_kernel = qh * (sm_scale / base_scale) \
                 if m.use_attn_scale_by_layer else qh
-            attn_out, stats, _, _ = fused_decode_attention(
+            attn_out, stats, _, _ = k1(
                 q_kernel, state.cache.k, state.cache.v, kh, vh,
                 lengths_l + s, sm_scale=base_scale,
                 importance_in=state.importance if accum else None,
@@ -261,11 +371,17 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
                 quant_bits=(state.quant_bits
                             if q.enabled and q.layer_bits is not None
                             else None),
+                quantize_queries=q.quantize_queries, pv_int8=q.pv_int8,
+                probs_bf16=q.probs_bf16,
+                cap_override=rungs[l] if rungs[l] < cap else None,
                 track_importance=track_importance,
                 importance_ema=p.importance_ema,
                 v_keep=v_keep_layers, **common)
             if track_importance and not accum:
-                state.importance[l] = stats.importance_delta.to(
+                # a rung-sized delta: columns past the rung are dead
+                delta = stats.importance_delta
+                state.importance[l].zero_()
+                state.importance[l, ..., :delta.shape[-1]] = delta.to(
                     state.importance.dtype)
         else:
             layer_cache = append_tokens(state.cache.layer(l), kh, vh,
@@ -303,7 +419,7 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
                                + stats.importance_delta).to(imp.dtype))
                 else:
                     imp.copy_(stats.importance_delta.to(imp.dtype))
-        x = out_mlp(x, lp, attn_out)
+        x = out_mlp(x, lp, attn_out, None if kept is None else kept[0])
         requants.append(stats.need_requant.sum())
         max_probs.append(stats.max_prob)
     return (x, state.layer_lengths + s,
@@ -313,20 +429,29 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
 def forward(params: Params, cfg: SpAttenConfig, state: DecodeState,
             tokens: torch.Tensor,
             rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
+            head_compact: dict | None = None,
+            plain_kernels: bool = False,
             ) -> tuple[torch.Tensor, DecodeState, StepAux]:
     """Run S tokens [B, S] through the model, appending them to the cache.
 
     Returns (logits [B, S, vocab] f32, new_state, aux).  The input state's
     cache planes and importance are updated in place (consumed); the
-    returned state holds them with the new lengths."""
+    returned state holds them with the new lengths.  ``head_compact``:
+    ``compact_head_params`` output (decode with compacted projections);
+    ``plain_kernels``: see ``run_layers``."""
     s = tokens.shape[1]
     x, _ = embed_tokens(params, cfg, state, tokens)
     x, new_lengths, requants, max_probs = run_layers(
-        params["layers"], cfg, state, x, rope_tables=rope_tables)
+        head_compact["layers"] if head_compact else params["layers"], cfg,
+        state, x, rope_tables=rope_tables,
+        head_kept=(None if head_compact is None else
+                   (head_compact["kept_q"], head_compact["kept_kv"])),
+        plain_kernels=plain_kernels)
     logits = lm_head(params, cfg, x)
     total = requants.sum().to(torch.int32)
     new_state = state._replace(
         lengths=state.lengths + s, layer_lengths=new_lengths,
         requant_events=state.requant_events + total)
     return logits, new_state, StepAux(requant_events=total,
-                                      max_probs=max_probs)
+                                      max_probs=max_probs,
+                                      layer_requants=requants)

@@ -5,27 +5,27 @@ Replaces the TPU kernel ``spatten_tpu/ops/fused_decode.py::
 fused_decode_attention`` (``pl.pallas_call`` at :2319): one single-query
 decode step, in place --
 
-  append the new K/V row (int8 + per-(token, head) scale + nibble RMW)
-  -> pass-1 scores on the 4-bit plane -> masked f32 softmax -> requant
-  decision per (b, kv head) and full-plane recompute where it fires ->
+  append the new K/V row (int8 + per-(token, head) scale + nibble and
+  2-bit read-modify-writes) -> pass-1 scores on the layer's profile plane
+  (4-bit msb, 6-bit msb + lsb2, or int8) -> masked f32 softmax -> requant
+  decision per (b, kv head) and int8 recompute where it fires ->
   importance EMA into the stacked accumulator -> local V top-k by block
-  mass (ties kept) -> P·V over the kept V blocks.
+  mass (ties kept) -> P·V over the kept V blocks (f32, or 8-bit weights
+  on the stored int8 rows).
 
 Beside the CUDA kernel (``csrc/fused_decode.cu``, whose header says what
 bounds it on the card and how its design handles that) lives its plain
-PyTorch version, ``fused_decode_attention_plain``: ``update_token`` then
-``spatten_attention_reference`` over the post-append cache.  The wrapper
-runs the plain version only for CPU tensors; for CUDA tensors it launches
-the kernel or raises.  ``fused_decode_attention.launches`` counts kernel
-launches.
-
-The kernel covers the flags of the ported slice: dense int8
-(``quant_enabled=False``), the 4-bit msb pass 1 with its nibble RMW
-append, requant, EMA importance into the stacked [L, B, Hkv, C]
-accumulator, per-layer ``v_keep`` V-block top-k, and GQA.  On CUDA every
-other flag (``head_mask``, ``quant_bits``, ``importance_kind`` other than
-"prob", delta-mode importance) raises ``NotImplementedError``; the plain
-version takes them all.
+PyTorch version, ``fused_decode_attention_plain``.  The JAX reference
+(``attention_ref.py``) has none of the serving flags (int8 queries,
+integer P·V, the bf16 probability plane, capacity rungs); they exist only
+in the Pallas body, so the plain version follows the body's arithmetic:
+pass-1 scores are ``ksc * (raw * rowscale * mult * sm + rowscale * qsum *
+(mid - 128) * sm)`` over the biased stored nibbles (exact integers before
+scaling when the queries are quantized), and the appended column's P·V
+term uses the new row's f32 scales while the stored scale columns hold
+their (possibly bf16) rounding.  The wrapper runs the plain version only
+for CPU tensors; for CUDA tensors it launches the kernel or raises.
+``fused_decode_attention.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -36,12 +36,13 @@ import torch
 
 from spatten_tpu_torch import kernels
 from spatten_tpu_torch.ops import quantize as qz
-from spatten_tpu_torch.ops.attention_ref import (
-    AttentionStats, spatten_attention_reference,
-)
+from spatten_tpu_torch.ops.attention_ref import MASK_VALUE, AttentionStats
 
 _SMEM_LIMIT = 227 * 1024
 _THREADS = 256
+_WARPS = _THREADS // 32
+_MISC_PER_ROW = 8           # per-row scalars the CUDA kernel keeps in smem
+_META_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _layer_views(k_quant, v_quant, importance_in, layer):
@@ -52,11 +53,38 @@ def _layer_views(k_quant, v_quant, importance_in, layer):
     return k_quant.layer(layer), v_quant.layer(layer), imp
 
 
+def _rung(cap_total: int, cap_override: Optional[int], v_block: int) -> int:
+    """The kernel's window: ``cap_override`` when it is a legal prefix of
+    the stored capacity (the JAX wrapper's asserts), else the capacity."""
+    if cap_override is None or cap_override >= cap_total:
+        return cap_total
+    unit = qz.pack_unit(cap_total)
+    if (cap_override % unit or qz.pack_unit(cap_override) != unit
+            or cap_override % v_block):
+        raise ValueError(f"cap_override {cap_override} must be a multiple "
+                         f"of the pack unit {unit} (with the same unit) and "
+                         f"of v_block {v_block}")
+    return cap_override
+
+
+def _prefix(q: qz.QuantizedKV, cap: int) -> qz.QuantizedKV:
+    """Views of the first ``cap`` token slots of every plane (a rung is a
+    shared prefix of the packed layouts)."""
+    if q.tokens == cap:
+        return q
+    return qz.QuantizedKV(
+        full=q.full[..., :cap, :],
+        msb=None if q.msb is None else q.msb[..., :cap // 2, :],
+        scale=q.scale[..., :cap],
+        lsb2=None if q.lsb2 is None else q.lsb2[..., :cap // 4, :])
+
+
 def _v_keep_blocks(v_keep, v_block_size: int, cap: int, layer) -> int:
     """The layer's V keep-block count, or 0 when V pruning is off.
 
-    Mirrors the TPU kernel: pruning is on when ANY layer's budget prunes;
-    each layer then keeps max(1, ceil(v_keep[l] / v_block)) blocks."""
+    Mirrors the TPU kernel: pruning is on when ANY layer's budget prunes
+    within the kernel's window ``cap``; each layer then keeps
+    max(1, ceil(v_keep[l] / v_block)) blocks."""
     vk = (v_keep,) if isinstance(v_keep, int) else tuple(v_keep)
     nvb = cap // v_block_size
     if not any(0 < x and max(1, -(-x // v_block_size)) < nvb for x in vk):
@@ -65,56 +93,210 @@ def _v_keep_blocks(v_keep, v_block_size: int, cap: int, layer) -> int:
     return max(1, -(-vk_l // v_block_size))
 
 
+def _layer_bits(quant_enabled, quant_bits, layer, has_lsb2) -> int:
+    """Pass-1 bits of this layer: 4, 6 (only with the lsb2 plane; else it
+    reads as 4) or 8 (int8 plane; dense mode is 8)."""
+    if not quant_enabled:
+        return 8
+    if quant_bits is None:
+        return 4
+    bits = int(quant_bits[0 if layer is None else layer])
+    return 4 if bits == 6 and not has_lsb2 else bits
+
+
+def _kth_largest(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k-th largest per row [..., n] -> [..., 1]: the smallest value whose
+    strictly-greater count is below k (the kernel's counting rule)."""
+    srt = torch.sort(x, dim=-1, descending=True).values
+    i = min(k, x.shape[-1]) - 1
+    return srt[..., i:i + 1]
+
+
 def fused_decode_attention_plain(
     q, k_quant, v_quant, k_new, v_new, lengths, *, sm_scale=1.0,
     requant_threshold=0.0, quant_enabled=True, v_keep=0, v_block_size=16,
     head_mask=None, importance_kind="prob", importance_in=None,
     track_importance=True, importance_ema=1.0, layer=None, quant_bits=None,
+    quantize_queries=False, pv_int8=False, probs_bf16=False,
+    cap_override=None,
 ):
     """Plain PyTorch version of the kernel (same signature, same in-place
     contract).  Returns (out, stats, k_quant, v_quant); ``stats.probs``
-    carries the reference probabilities [B, Hq, 1, C]."""
+    carries the normalized probabilities the kernel ranks and weights
+    with, head-masked, [B, Hq, 1, rung]."""
     kq, vq, imp = _layer_views(k_quant, v_quant, importance_in, layer)
+    cap = _rung(kq.tokens, cap_override, v_block_size)
+    kq, vq = _prefix(kq, cap), _prefix(vq, cap)
+    if imp is not None:
+        imp = imp[..., :cap]
+    b, hq, _, d = q.shape
+    hkv = kq.heads
+    group = hq // hkv
+    dev = q.device
+    f32 = torch.float32
+    mixed = quant_enabled and quant_bits is not None
+    has_lsb2 = mixed and kq.lsb2 is not None
+    if has_lsb2 and cap < 32:
+        raise ValueError("6-bit profiles need cap >= 32")
+    bits = _layer_bits(quant_enabled, quant_bits, layer, has_lsb2)
+
+    # ---- append: dense mode keeps no nibble planes up to date, and the
+    # 2-bit plane is maintained only under a mixed profile
     idx = lengths.to(torch.int64) - 1
-    qz.update_token(kq, k_new[..., 0, :], idx)
-    qz.update_token(vq, v_new[..., 0, :], idx)
-    cap = kq.tokens
-    kb = _v_keep_blocks(v_keep, v_block_size, cap, layer)
-    out, st = spatten_attention_reference(
-        q, kq, vq, None, None, lengths, idx[:, None], sm_scale=sm_scale,
-        requant_threshold=requant_threshold, quant_enabled=quant_enabled,
-        v_keep=kb * v_block_size, v_block_size=v_block_size,
-        head_mask=head_mask, importance_kind=importance_kind,
-        use_rope=False,
-        pass1_bits=(None if quant_bits is None or not quant_enabled
-                    else int(quant_bits[0 if layer is None else layer])))
-    if not track_importance:
-        delta = torch.zeros_like(st.importance_delta)
-    elif imp is None:
-        delta = st.importance_delta
+    qz.update_token(kq._replace(msb=kq.msb if quant_enabled else None,
+                                lsb2=kq.lsb2 if has_lsb2 else None),
+                    k_new[..., 0, :], idx)
+    qz.update_token(vq._replace(msb=vq.msb if quant_enabled else None,
+                                lsb2=None), v_new[..., 0, :], idx)
+    _, ksc_new = qz.quantize_rows(k_new[..., 0, :])          # f32 [B, Hkv]
+    vq8_new, vsc_new = qz.quantize_rows(v_new[..., 0, :])
+
+    # ---- queries (per-row int8 when quantize_queries) ----------------
+    qf = q[..., 0, :].to(f32)                                  # [B, Hq, D]
+    if quantize_queries:
+        amax = torch.clamp(qf.abs().amax(-1, keepdim=True), min=1e-20)
+        rowscale = amax / torch.full_like(amax, 127.0)
+        qf = torch.clamp(torch.round(qf / rowscale), -127, 127)
     else:
+        rowscale = torch.ones((b, hq, 1), dtype=f32, device=dev)
+    qsum = qf.sum(-1, keepdim=True)
+    qg = qf.reshape(b, hkv, group, d)
+
+    def raw_scores(keys):                   # keys [B, Hkv, C, D] f32
+        return torch.einsum("bhgd,bhcd->bhgc", qg, keys).reshape(b, hq, cap)
+
+    def rows(x):                            # [B, Hkv, ...] -> [B, Hq, ...]
+        return x.repeat_interleave(group, dim=1)
+
+    full8 = qz.to_head_major(kq.full, hkv).to(f32)
+    if bits == 8:
+        raw, mult, mid = raw_scores(full8), 1.0, 0.0
+    else:
+        nib = qz.to_head_major(qz.unpack_msb(kq.msb), hkv).to(f32) + 8.0
+        if bits == 6:
+            l2 = qz.to_head_major(qz.unpack_lsb2(kq.lsb2), hkv).to(f32)
+            raw, mult, mid = raw_scores(nib * 4.0 + l2), 4.0, qz.MIDPOINT6
+        else:
+            raw, mult, mid = raw_scores(nib), 16.0, qz.MSB_MIDPOINT
+    x = raw * (rowscale * (mult * sm_scale))
+    if quant_enabled:
+        x = x + (rowscale * qsum) * ((mid - 128.0 if bits < 8 else 0.0)
+                                     * sm_scale)
+    ksc = rows(kq.scale.to(f32))                               # [B, Hq, C]
+    vsc = rows(vq.scale.to(f32))
+    cols = torch.arange(cap, device=dev)
+    live = cols[None, None, :] < lengths[:, None, None]        # [B, 1, C]
+    at_idx = cols[None, None, :] == idx[:, None, None]
+
+    def softmax(s):
+        s = torch.where(live, s * ksc, MASK_VALUE)
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        return s, m, e, e.sum(-1, keepdim=True)
+
+    s, m, e, den = softmax(x)
+    col_idx = idx.reshape(b, 1, 1).expand(b, hq, 1)
+
+    def at_col(t):                          # [B, Hq, C] -> [B, Hq, 1]
+        return t.gather(-1, col_idx)
+
+    x_idx = at_col(x)
+    if head_mask is None:
+        hm = torch.ones((b, hq), dtype=torch.bool, device=dev)
+    else:
+        hm = (head_mask if head_mask.ndim == 2 else head_mask[None]
+              ).expand(b, hq)
+    alive = hm.reshape(b, hkv, group).any(-1)                  # [B, Hkv]
+    hmf = hm.to(f32)[..., None]                                # [B, Hq, 1]
+    # max prob is taken before head masking (a partly alive group keeps
+    # its dead rows' maxima); fully dead groups report 0
+    mp = (1.0 / torch.clamp(den, min=1e-30)).reshape(b, hkv, group).amax(-1)
+    mp = mp * alive.to(f32)
+    need = torch.zeros((b, hkv), dtype=torch.bool, device=dev)
+    if quant_enabled and requant_threshold > 0.0 and bits < 8:
+        need = alive & (mp < requant_threshold)
+    if bool(need.any()):
+        x2 = raw_scores(full8) * (rowscale * sm_scale)
+        s2, m2, e2, den2 = softmax(x2)
+        fire = rows(need)[..., None]
+        s, m, e, den = (torch.where(fire, a, c) for a, c in
+                        ((s2, s), (m2, m), (e2, e), (den2, den)))
+        x_idx = torch.where(fire, at_col(x2), x_idx)
+    e_st = e.to(torch.bfloat16).to(f32) if probs_bf16 else e
+    wrow = hmf * (1.0 / torch.clamp(den, min=1e-30))
+    # the appended column's probability with the new row's f32 scale
+    e_idx = torch.exp(x_idx * rows(ksc_new[..., None]) - m)
+
+    kb = _v_keep_blocks(v_keep, v_block_size, cap, layer)
+    nvb = cap // v_block_size
+    if kb:
+        mass = e_st.reshape(b, hq, nvb, v_block_size).sum(-1) * hmf
+        keep = (mass >= _kth_largest(mass, kb)) & (mass > 0.0)
+        keep_cols = keep.repeat_interleave(v_block_size, dim=-1)
+        kept_new = at_col(keep_cols).to(f32)
+    else:
+        keep_cols = torch.ones((b, hq, cap), dtype=torch.bool, device=dev)
+        kept_new = torch.ones((b, hq, 1), dtype=f32, device=dev)
+    pb = (e_st * wrow) * vsc
+    pb = torch.where(live & ~at_idx & keep_cols, pb, 0.0)
+    v8 = qz.to_head_major(vq.full, hkv)                        # [B, Hkv, C, D]
+    if pv_int8:
+        # 8-bit row weights on the stored int8 V; the TPU applies this
+        # only where its row tiling allows (fused_decode.py:2050), which
+        # holds at Hq rows of 8 or a divisor of 8 -- the port applies the
+        # flag as given.  Integer sums are exact in f64.
+        emv = (e * vsc).masked_fill(~live, 0.0).amax(-1, keepdim=True)
+        wmax = emv * wrow
+        # a tensor dividend: PyTorch evaluates ``scalar / tensor`` as a
+        # multiply by the reciprocal, not the quotient the kernels take
+        wrecip = torch.full_like(wmax, 127.0) / torch.clamp(wmax, min=1e-30)
+        w8 = torch.clamp(torch.round(pb * wrecip), 0.0, 127.0)
+        acc = torch.einsum("bhgc,bhcd->bhgd",
+                           w8.reshape(b, hkv, group, cap).double(),
+                           v8.double()).reshape(b, hq, d)
+        out = acc.to(f32) * (wmax * (1.0 / 127.0))
+    else:
+        out = torch.einsum("bhgc,bhcd->bhgd", pb.reshape(b, hkv, group, cap),
+                           v8.to(f32)).reshape(b, hq, d)
+    vnew = rows(vq8_new.to(f32) * vsc_new[..., None])          # [B, Hq, D]
+    out = out + (e_idx * wrow * kept_new) * vnew
+
+    if importance_kind == "prob":
+        dsrc = e_st * wrow
+    elif importance_kind == "presoftmax":
+        dsrc = torch.where(live, s, 0.0) * hmf
+    else:
+        raise ValueError(importance_kind)
+    delta = dsrc.reshape(b, hkv, group, cap).sum(2)            # [B, Hkv, C]
+    if not track_importance:
+        delta = torch.zeros_like(delta)
+    elif imp is not None:
         # reset the appended slot, then imp <- ema * imp + delta on the
-        # live columns; columns past the length keep their bytes (dead by
-        # the layer-length contract).  A fully dead head group is left as
-        # it was.
-        cols = torch.arange(cap, device=imp.device)
-        live = cols[None, None, :] < lengths[:, None, None]
-        prev = torch.where(cols[None, None, :] == idx[:, None, None], 0.0,
-                           imp.to(torch.float32))
-        new = prev * importance_ema + st.importance_delta
-        if head_mask is not None:
-            hm = head_mask if head_mask.ndim == 2 else head_mask[None]
-            alive = hm.expand(q.shape[0], -1).reshape(
-                q.shape[0], kq.heads, -1).any(-1)
-            live = live & alive[:, :, None]
-        imp.copy_(torch.where(live, new, imp.to(torch.float32)).to(imp.dtype))
+        # live columns; columns at or past the length keep their bytes
+        # (dead by the layer-length contract), and a fully dead head
+        # group is left as it was
+        prev = torch.where(at_idx, 0.0, imp.to(f32))
+        new = prev * importance_ema + delta
+        upd = live & alive[:, :, None]
+        imp.copy_(torch.where(upd, new, imp.to(f32)).to(imp.dtype))
         delta = importance_in
-    return out, st._replace(importance_delta=delta), k_quant, v_quant
+    stats = AttentionStats(max_prob=mp, need_requant=need,
+                           importance_delta=delta,
+                           probs=(e_st * wrow)[:, :, None, :])
+    return out[:, :, None, :], stats, k_quant, v_quant
+
+
+def smem_bytes(group: int, head_dim: int, cap: int, v_block: int) -> int:
+    """Shared memory of one K1 CTA (mirrors ``smem_bytes`` in the .cu)."""
+    nvb = cap // v_block
+    return (4 * (group * cap + _WARPS * group * head_dim + group * nvb
+                 + _WARPS + _MISC_PER_ROW * group + 2)
+            + (group + 1) * nvb)
 
 
 def fused_decode_attention(
     q: torch.Tensor,               # [B, Hq, 1, D] (rotated queries)
-    k_quant: qz.QuantizedKV,       # planes [(L,) B, C(/2), Hkv*D], in place
+    k_quant: qz.QuantizedKV,       # planes [(L,) B, C(/2,/4), Hkv*D], in place
     v_quant: qz.QuantizedKV,
     k_new: torch.Tensor,           # [B, Hkv, 1, D] new K row (rotated)
     v_new: torch.Tensor,           # [B, Hkv, 1, D] new V row
@@ -125,41 +307,45 @@ def fused_decode_attention(
     quant_enabled: bool = True,
     v_keep=0,                      # int, or per-layer ints [L]
     v_block_size: int = 16,
-    head_mask: Optional[torch.Tensor] = None,
+    head_mask: Optional[torch.Tensor] = None,       # bool [Hq] or [B, Hq]
     importance_kind: str = "prob",
     importance_in: Optional[torch.Tensor] = None,   # [(L,) B, Hkv, C]
     track_importance: bool = True,
     importance_ema: float = 1.0,
     layer: Optional[int] = None,   # which layer of STACKED planes
     quant_bits: Optional[torch.Tensor] = None,      # int [L] pass-1 bits
-    keep_out: Optional[torch.Tensor] = None,        # uint8 [B, Hq, C/vb]
+    quantize_queries: bool = False,
+    pv_int8: bool = False,
+    probs_bf16: bool = False,
+    cap_override: Optional[int] = None,             # capacity rung
+    keep_out: Optional[torch.Tensor] = None,        # uint8 [B, Hq, rung/vb]
 ) -> tuple[torch.Tensor, AttentionStats, qz.QuantizedKV, qz.QuantizedKV]:
     """One fused decode step.  Returns (out [B, Hq, 1, D] f32, stats,
     k_quant, v_quant): the cache planes (and the importance accumulator,
     when given) are updated IN PLACE, so the inputs are consumed.
 
     Stacked mode (``layer`` given): planes carry a leading layer axis and
-    only layer ``layer`` is read or written.  ``stats.importance_delta``
-    is the accumulator itself when ``importance_in`` is given.
-    ``keep_out`` (CUDA only, for checks) receives the per-row kept V-block
-    mask when V pruning is on.
+    only layer ``layer`` is read or written.  ``cap_override`` sizes the
+    call to a prefix of the stored capacity (lengths stay at or under
+    it).  ``stats.importance_delta`` is the accumulator itself when
+    ``importance_in`` is given.  ``keep_out`` (CUDA only, for checks)
+    receives the per-row kept V-block mask when V pruning is on.
     """
+    flags = dict(
+        sm_scale=sm_scale, requant_threshold=requant_threshold,
+        quant_enabled=quant_enabled, v_keep=v_keep,
+        v_block_size=v_block_size, head_mask=head_mask,
+        importance_kind=importance_kind, importance_in=importance_in,
+        track_importance=track_importance, importance_ema=importance_ema,
+        layer=layer, quant_bits=quant_bits,
+        quantize_queries=quantize_queries, pv_int8=pv_int8,
+        probs_bf16=probs_bf16, cap_override=cap_override)
     if not q.is_cuda:
         if keep_out is not None:
             raise ValueError("keep_out is a kernel check output (CUDA only)")
         return fused_decode_attention_plain(
-            q, k_quant, v_quant, k_new, v_new, lengths, sm_scale=sm_scale,
-            requant_threshold=requant_threshold, quant_enabled=quant_enabled,
-            v_keep=v_keep, v_block_size=v_block_size, head_mask=head_mask,
-            importance_kind=importance_kind, importance_in=importance_in,
-            track_importance=track_importance, importance_ema=importance_ema,
-            layer=layer, quant_bits=quant_bits)
+            q, k_quant, v_quant, k_new, v_new, lengths, **flags)
 
-    if head_mask is not None:
-        raise NotImplementedError("K1 on CUDA: head_mask is not ported yet")
-    if quant_bits is not None:
-        raise NotImplementedError("K1 on CUDA: per-layer quant_bits (6/8-bit "
-                                  "profiles) are not ported yet")
     if importance_kind != "prob":
         raise NotImplementedError("K1 on CUDA: importance_kind "
                                   f"{importance_kind!r} is not ported yet")
@@ -168,8 +354,9 @@ def fused_decode_attention(
                                   "ported yet (pass importance_in)")
     kq, vq, imp = _layer_views(k_quant, v_quant, importance_in, layer)
     b, hq, q_len, d = q.shape
-    hkv, cap = kq.heads, kq.tokens
+    hkv, cap_total = kq.heads, kq.tokens
     group = hq // hkv
+    cap = _rung(cap_total, cap_override, v_block_size)
     if q_len != 1:
         raise ValueError("K1 is a single-query decode step")
     if group not in (1, 2, 4, 8) or d not in (64, 128, 256):
@@ -177,30 +364,36 @@ def fused_decode_attention(
                                   f"{d} (supported: 1/2/4/8 and 64/128/256)")
     if quant_enabled and kq.msb is None:
         raise ValueError("quant_enabled needs the K msb plane")
-    if kq.lsb2 is not None or vq.lsb2 is not None:
-        raise NotImplementedError("K1 on CUDA: lsb2 planes are not ported yet")
-    planes = [kq.full, kq.msb, vq.full, vq.msb]
-    expect = [(b, cap, hkv * d), (b, cap // 2, hkv * d)] * 2
-    dtypes = [torch.int8, torch.uint8] * 2
+    mixed = quant_enabled and quant_bits is not None
+    has_lsb2 = mixed and kq.lsb2 is not None
+    if has_lsb2 and cap < 32:
+        raise ValueError("6-bit profiles need cap >= 32")
+    planes = [kq.full, kq.msb, kq.lsb2 if has_lsb2 else None, vq.full,
+              vq.msb]
+    expect = [(b, cap_total, hkv * d), (b, cap_total // 2, hkv * d),
+              (b, cap_total // 4, hkv * d), (b, cap_total, hkv * d),
+              (b, cap_total // 2, hkv * d)]
+    dtypes = [torch.int8, torch.uint8, torch.uint8, torch.int8, torch.uint8]
     for t, shape, dt in zip(planes, expect, dtypes):
         if t is None:
             continue
         if tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"cache plane {tuple(t.shape)} {t.dtype} is not "
                              f"a contiguous {dt} {shape}")
-    for t in (kq.scale, vq.scale) + ((imp,) if track_importance else ()):
-        if (tuple(t.shape) != (b, hkv, cap) or t.dtype != torch.float32
-                or not t.is_contiguous()):
-            raise NotImplementedError(
-                "K1 on CUDA takes contiguous f32 [B, Hkv, C] scales and "
-                "importance")
+    meta = [kq.scale, vq.scale] + ([imp] if track_importance else [])
+    for t in meta:
+        if (tuple(t.shape) != (b, hkv, cap_total) or t.dtype not in
+                _META_DTYPES or not t.is_contiguous()):
+            raise ValueError("K1 takes contiguous f32 or bf16 [B, Hkv, C] "
+                             "scales and importance")
+    if kq.scale.dtype != vq.scale.dtype:
+        raise ValueError("K and V scales must share one dtype")
     if cap % v_block_size or cap % 2:
         raise ValueError("capacity must be even and a multiple of v_block")
     nvb = cap // v_block_size
-    smem = 4 * (group * cap + (_THREADS // 32) * (group * d + 1)
-                + group * nvb + 3 * group) + (group + 1) * nvb
+    smem = smem_bytes(group, d, cap, v_block_size)
     if smem > _SMEM_LIMIT:
-        raise NotImplementedError(f"K1 on CUDA: capacity {cap} x GQA group "
+        raise NotImplementedError(f"K1 on CUDA: window {cap} x GQA group "
                                   f"{group} needs {smem} B of shared memory")
 
     dev = q.device
@@ -208,7 +401,16 @@ def fused_decode_attention(
     knf = k_new.reshape(b, hkv, d).to(torch.float32).contiguous()
     vnf = v_new.reshape(b, hkv, d).to(torch.float32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    for t in (kq.full, vq.full, lens):
+    hmask = None
+    if head_mask is not None:
+        hmask = (head_mask if head_mask.ndim == 2 else head_mask[None]
+                 ).expand(b, hq).to(torch.uint8).contiguous()
+    qbits = None
+    if mixed:
+        qbits = torch.as_tensor(quant_bits, dtype=torch.int32,
+                                device=dev).contiguous()
+    for t in (kq.full, vq.full, lens) + tuple(
+            x for x in (hmask, qbits) if x is not None):
         if t.device != dev:
             raise ValueError("K1 operands must share one CUDA device")
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
@@ -223,13 +425,19 @@ def fused_decode_attention(
         "fused_decode", qf.data_ptr(), knf.data_ptr(), vnf.data_ptr(),
         lens.data_ptr(), kq.full.data_ptr(),
         kernels.ptr(kq.msb if quant_enabled else None),
+        kernels.ptr(kq.lsb2 if has_lsb2 else None),
         kq.scale.data_ptr(), vq.full.data_ptr(),
         kernels.ptr(vq.msb if quant_enabled else None), vq.scale.data_ptr(),
-        kernels.ptr(imp if track_importance else None), out.data_ptr(),
-        max_prob.data_ptr(), need.data_ptr(), kernels.ptr(keep_out),
-        b, hq, hkv, d, cap, qz.pack_unit(cap),
+        kernels.ptr(imp if track_importance else None), kernels.ptr(hmask),
+        kernels.ptr(qbits), out.data_ptr(), max_prob.data_ptr(),
+        need.data_ptr(), kernels.ptr(keep_out),
+        b, hq, hkv, d, cap, cap_total, qz.pack_unit(cap_total),
+        0 if layer is None else int(layer),
         float(sm_scale), float(requant_threshold), float(importance_ema),
-        int(quant_enabled), int(do_requant), kb, v_block_size)
+        int(quant_enabled), int(do_requant), kb, v_block_size,
+        int(kq.scale.dtype == torch.bfloat16),
+        int(track_importance and imp.dtype == torch.bfloat16),
+        int(quantize_queries), int(pv_int8), int(probs_bf16))
     fused_decode_attention.launches += 1
     if track_importance:
         delta = importance_in

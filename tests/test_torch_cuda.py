@@ -8,8 +8,10 @@ and nvcc, from the repository root:
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX, which this file
 does not use.)  K1 runs every GQA group / head_dim instance class it
-supports; decisions within 1e-5 of their threshold may resolve either way
-and are excluded, as in ``chip_smoke.py``.
+supports and each serving flag alone (head masks, bf16 metadata, int8
+queries, integer P·V, the bf16 probability plane, a capacity rung, 6- and
+8-bit layers) and combined; the rules and tolerances are those of
+``spatten_tpu_torch/kernel_checks.py``, shared with ``chip_smoke.py``.
 """
 
 import dataclasses
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from spatten_tpu_torch import kernel_checks as kc
 from spatten_tpu_torch.config import (
     EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
 )
@@ -27,10 +30,8 @@ from spatten_tpu_torch.engine.state import init_state
 from spatten_tpu_torch.models import transformer as tr
 from spatten_tpu_torch.ops import compact_gather as cg
 from spatten_tpu_torch.ops import fused_decode as fd
-from spatten_tpu_torch.ops import quantize as qz
 
 pytestmark = pytest.mark.cuda
-MARGIN = 1e-5
 
 
 @pytest.fixture
@@ -55,64 +56,95 @@ def small_cfg(hq, hkv, d, cap, vb=16):
 @pytest.mark.parametrize("group,d", [(1, 128), (2, 64), (4, 128), (8, 64)])
 def test_k1_matches_plain(dev, group, d, quant):
     hkv, cap, vb = 2, 256, 16
-    lengths = [256, 129, 40, 1]
     cfg = small_cfg(hkv * group, hkv, d, cap, vb)
+    if not quant:
+        cfg = dataclasses.replace(cfg, quant=QuantConfig(enabled=False))
     g = torch.Generator(device=dev).manual_seed(group * 1000 + d)
-    b, hq = len(lengths), hkv * group
-    st = init_state(cfg, b, device=dev)
-    k = qz.quantize(torch.randn((b, hkv, cap, d), generator=g, device=dev))
-    v = qz.quantize(torch.randn((b, hkv, cap, d), generator=g, device=dev),
-                    with_msb=False)
-    for dst, src in ((st.cache.k, k), (st.cache.v, v)):
-        for name in ("full", "msb", "scale"):
-            if getattr(dst, name) is not None:
-                getattr(dst, name).copy_(getattr(src, name)[None])
-    st.importance.uniform_(generator=g)
-    q = torch.randn((b, hq, 1, d), generator=g, device=dev)
-    kn = torch.randn((b, hkv, 1, d), generator=g, device=dev)
-    vn = torch.randn((b, hkv, 1, d), generator=g, device=dev)
+    res = run_pair(dev, cfg, g, [256, 129, 40, 1], requant=quant,
+                   v_keep=(40, 40))
+    assert res["max_abs_err"] <= 1e-4
+
+
+def serving_small(*, cap=256, hq=4, hkv=2, d=128, bf16=True,
+                  layer_bits=None, quant=True):
+    cfg = small_cfg(hq, hkv, d, cap, 16)
+    dt = "bfloat16" if bf16 else "float32"
+    return dataclasses.replace(
+        cfg, quant=QuantConfig(enabled=quant, scale_dtype=dt,
+                               layer_bits=layer_bits),
+        pruning=dataclasses.replace(cfg.pruning, importance_dtype=dt))
+
+
+def run_pair(dev, cfg, g, lengths, *, requant, v_keep, layer=1,
+             head_mask=None, **flags):
+    """K1 vs its plain version on one layer of a random stacked cache."""
+    m = cfg.model
+    b, vb = len(lengths), cfg.pruning.v_block_size
+    st = kc.random_state(cfg, b, g, dev)
+    q = torch.randn((b, m.num_heads, 1, m.head_dim), generator=g, device=dev)
+    kn = torch.randn((b, m.num_kv_heads, 1, m.head_dim), generator=g,
+                     device=dev)
+    vn = torch.randn((b, m.num_kv_heads, 1, m.head_dim), generator=g,
+                     device=dev)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    kw = dict(sm_scale=1 / math.sqrt(d), quant_enabled=quant,
-              requant_threshold=0.05 if quant else 0.0, v_keep=(40, 40),
-              v_block_size=vb, layer=1)
-    a, c = st.clone(), st.clone()
-    nvb = cap // vb
-    keep = torch.zeros((b, hq, nvb), dtype=torch.uint8, device=dev)
-    before = fd.fused_decode_attention.launches
-    out_k, sk, _, _ = fd.fused_decode_attention(
-        q, a.cache.k, a.cache.v, kn, vn, lens, importance_in=a.importance,
-        keep_out=keep, **kw)
-    out_p, sp, _, _ = fd.fused_decode_attention_plain(
-        q, c.cache.k, c.cache.v, kn, vn, lens, importance_in=c.importance,
-        **kw)
-    torch.cuda.synchronize()
-    assert fd.fused_decode_attention.launches == before + 1
-    for x, y in ((a.cache.k, c.cache.k), (a.cache.v, c.cache.v)):
-        assert torch.equal(x.full, y.full) and torch.equal(x.scale, y.scale)
-    if quant:
-        assert torch.equal(a.cache.k.msb, c.cache.k.msb)
-    near_t = (sp.max_prob - kw["requant_threshold"]).abs() < MARGIN
-    assert not ((sk.need_requant != sp.need_requant) & ~near_t).any()
-    mass = sp.probs[:, :, 0].reshape(b, hq, nvb, vb).sum(-1)
-    kb = -(-40 // vb)
-    srt = torch.sort(mass, dim=-1, descending=True).values
-    kth, nxt = srt[..., kb - 1:kb], srt[..., kb:kb + 1]
-    row_near = (((kth - nxt)[..., 0] < MARGIN) & (kth[..., 0] > 0)) \
-        | near_t.repeat_interleave(group, dim=1)
-    keep_p = (mass >= kth) & (mass > 0)
-    margin = torch.where(keep_p, mass - nxt, kth - mass)
-    assert not ((keep.bool() != keep_p) & (margin >= MARGIN)
-                & ~row_near[..., None]).any()
-    torch.testing.assert_close(out_k[~row_near], out_p[~row_near],
-                               atol=1e-4, rtol=1e-4)
-    torch.testing.assert_close(sk.max_prob, sp.max_prob, atol=1e-6,
-                               rtol=1e-4)
-    for bi, n in enumerate(lengths):
-        alive = ~near_t[bi]
-        torch.testing.assert_close(a.importance[1, bi, alive, :n],
-                                   c.importance[1, bi, alive, :n],
-                                   atol=1e-5, rtol=1e-4)
-    assert torch.equal(a.importance[0], c.importance[0])
+    kw = dict(sm_scale=1 / math.sqrt(m.head_dim),
+              quant_enabled=cfg.quant.enabled, v_keep=v_keep,
+              importance_ema=1.0, **flags)
+    if cfg.quant.layer_bits is not None:
+        kw["quant_bits"] = st.quant_bits
+    threshold = 0.0
+    if requant:
+        probe = st.clone()
+        _, sp, _, _ = fd.fused_decode_attention_plain(
+            q, probe.cache.k, probe.cache.v, kn, vn, lens, layer=layer,
+            v_block_size=vb, importance_in=probe.importance,
+            head_mask=head_mask, **kw)
+        threshold = kc.split_threshold(sp.max_prob)
+    return kc.k1_pair(
+        st, q, kn, vn, lens, layer=layer, threshold=threshold, v_block=vb,
+        head_mask=head_mask,
+        keep_blocks_for=lambda rung: fd._v_keep_blocks(v_keep, vb, rung,
+                                                       layer), **kw)
+
+
+# flag -> (config options, call options)
+FLAG_CASES = {
+    "head_mask": ({}, dict(head_mask=[True, True, False, False])),
+    "head_mask_per_row": ({}, dict(head_mask=[[True, False, True, True],
+                                              [False, False, True, False],
+                                              [True, True, True, True],
+                                              [False, False, False, False]])),
+    "bf16_metadata": (dict(bf16=True), {}),
+    "quantize_queries": (dict(bf16=False), dict(quantize_queries=True)),
+    "pv_int8": (dict(bf16=False), dict(pv_int8=True)),
+    "probs_bf16": (dict(bf16=False), dict(probs_bf16=True)),
+    "cap_override": (dict(cap=4096, bf16=False), dict(cap_override=2048)),
+    "bits6": (dict(layer_bits=(4, 6)), {}),
+    "bits8": (dict(layer_bits=(6, 8)), {}),
+    "serving": (dict(cap=4096, layer_bits=(4, 6)),
+                dict(quantize_queries=True, pv_int8=True, probs_bf16=True,
+                     cap_override=2048,
+                     head_mask=[False, False, True, False])),
+    "dense": (dict(quant=False),
+              dict(quantize_queries=True, pv_int8=True, probs_bf16=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(FLAG_CASES))
+def test_k1_serving_flags_match_plain(dev, case):
+    opts, flags = FLAG_CASES[case]
+    cfg = serving_small(**opts)
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    flags = dict(flags)
+    hm = flags.pop("head_mask", None)
+    if hm is not None:
+        hm = torch.tensor(hm, device=dev)
+    lengths = [256, 129, 40, 1] if opts.get("cap", 256) == 256 \
+        else [2048, 1501, 900, 33]
+    res = run_pair(dev, cfg, g, lengths, requant=opts.get("quant", True),
+                   v_keep=(40, 48), head_mask=hm, **flags)
+    if hm is not None:
+        assert res["dead_groups"] > 0
 
 
 def test_k1_raises_on_unported_flags(dev):
@@ -120,12 +152,13 @@ def test_k1_raises_on_unported_flags(dev):
     st = init_state(cfg, 1, device=dev)
     q = torch.zeros((1, 4, 1, 64), device=dev)
     kn = torch.zeros((1, 2, 1, 64), device=dev)
+    args = (q, st.cache.k, st.cache.v, kn, kn,
+            torch.ones(1, dtype=torch.int32, device=dev))
     with pytest.raises(NotImplementedError):
-        fd.fused_decode_attention(
-            q, st.cache.k, st.cache.v, kn, kn,
-            torch.ones(1, dtype=torch.int32, device=dev), layer=0,
-            importance_in=st.importance,
-            head_mask=torch.ones(4, dtype=torch.bool, device=dev))
+        fd.fused_decode_attention(*args, layer=0, importance_in=st.importance,
+                                  importance_kind="presoftmax")
+    with pytest.raises(NotImplementedError):
+        fd.fused_decode_attention(*args, layer=0, importance_in=None)
 
 
 def test_k2_matches_plain(dev):
