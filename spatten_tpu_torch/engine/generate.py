@@ -15,7 +15,8 @@ produce the same greedy token stream:
 * head pruning derives the per-layer head mask from the importance
   accumulators once after prefill and, on the fly, at every window
   boundary where the length clock crosses ``head_update_interval``
-  (``maybe_update_head_mask``); with ``head_update_interval == 0`` and
+  (``window_start``; ``decode_step`` checks every step through
+  ``maybe_update_head_mask``); with ``head_update_interval == 0`` and
   ``compact_pruned_heads`` the attention projections are compacted once
   to the kept heads.
 
@@ -168,20 +169,16 @@ def head_mask_due(cfg: SpAttenConfig, clock: int, window: int = 1) -> bool:
     return clock % n < window
 
 
-def maybe_update_head_mask(cfg: SpAttenConfig, state: DecodeState,
-                           window: int = 1, clock: Optional[int] = None
+def maybe_update_head_mask(cfg: SpAttenConfig, state: DecodeState
                            ) -> DecodeState:
-    """On-the-fly head pruning: re-derive the per-layer head mask from the
-    live importance accumulators when ``head_mask_due``.  The clock is
-    ``max(state.lengths)``; callers that know it on the host (the static
-    prune schedule) pass it as ``clock`` and spare a device sync."""
+    """On-the-fly head pruning before one decode step: re-derive the
+    per-layer head mask from the live importance accumulators when
+    ``head_mask_due`` at the clock ``max(state.lengths)``."""
     p = cfg.pruning
     if not (p.enable_head_pruning and p.head_keep > 0
             and p.head_update_interval > 0):
         return state
-    if clock is None:
-        clock = int(state.lengths.max())
-    if head_mask_due(cfg, clock, window):
+    if head_mask_due(cfg, int(state.lengths.max())):
         state = update_head_mask(cfg, state)
     return state
 

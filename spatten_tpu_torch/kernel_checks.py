@@ -101,11 +101,19 @@ def check_k1(kernel, plain, *, layer: int, lengths, threshold: float,
           "K1 max_prob differs")
     imp_k, imp_p = s_k.importance[layer], s_p.importance[layer]
     tol = K1_IMP_BF16_TOL if imp_k.dtype == torch.bfloat16 else K1_IMP_TOL
+    live = torch.zeros(s_k.importance.shape, dtype=torch.bool,
+                       device=s_k.importance.device)
     for bi, n in enumerate(lengths):
         heads = ~near_t[bi]
         check(bool(torch.allclose(imp_k[bi, heads, :n].float(),
                                   imp_p[bi, heads, :n].float(), **tol)),
               "K1 importance differs")
+        live[layer, bi, :, :n] = True
+    # everywhere else the accumulator keeps its bytes: the other layers,
+    # and the columns at or past a row's length, which the head mask
+    # update still reads
+    check(torch.equal(s_k.importance[~live], s_p.importance[~live]),
+          "K1 changed importance outside the call's live columns")
     dead_groups = 0
     if head_mask is not None:
         hm = (head_mask if head_mask.ndim == 2 else head_mask[None]

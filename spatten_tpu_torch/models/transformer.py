@@ -42,9 +42,7 @@ from spatten_tpu_torch.models.weight_quant import (
 )
 from spatten_tpu_torch.ops import rope as rope_ops
 from spatten_tpu_torch.ops.attention_ref import spatten_attention_reference
-from spatten_tpu_torch.ops.fused_decode import (
-    fused_decode_attention, fused_decode_attention_plain,
-)
+from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
 from spatten_tpu_torch.ops.prefill_attention import prefill_attention
 from spatten_tpu_torch.pruning.token_pruning import (
     layer_budgets_static, layer_capacity_groups,
@@ -262,8 +260,7 @@ def _layer_leaf(w, l: int):
 def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
                x: torch.Tensor,
                rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
-               head_kept: tuple[torch.Tensor, torch.Tensor] | None = None,
-               plain_kernels: bool = False):
+               head_kept: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Run x [B, S, D] through every layer, appending the S tokens to each
     layer's cache IN PLACE (the state's cache and importance are
     consumed).  Returns (x, new_layer_lengths, requants [L], max_probs
@@ -271,8 +268,7 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
 
     ``head_kept``: (kept_q [L, kq], kept_kv [L, kkv]) when
     ``layer_params`` are the compacted leaves of ``compact_head_params``
-    (decode only).  ``plain_kernels``: K1 runs its plain PyTorch version
-    on any device (checks of the kernel against it)."""
+    (decode only)."""
     m, p, q, e = cfg.model, cfg.pruning, cfg.quant, cfg.engine
     b, s = x.shape[:2]
     hq, hkv, dh = m.num_heads, m.num_kv_heads, m.head_dim
@@ -292,8 +288,6 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
         raise NotImplementedError(
             "head-compacted projections are a decode-kernel-path feature "
             "(prefill derives the mask, so it never runs compacted)")
-    k1 = fused_decode_attention_plain if plain_kernels \
-        else fused_decode_attention
     requant_threshold = (q.requant_threshold
                          if (q.enabled and q.enable_requant) else 0.0)
     ar = torch.arange(s, device=x.device)
@@ -363,7 +357,7 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
         if use_kernel:
             q_kernel = qh * (sm_scale / base_scale) \
                 if m.use_attn_scale_by_layer else qh
-            attn_out, stats, _, _ = k1(
+            attn_out, stats, _, _ = fused_decode_attention(
                 q_kernel, state.cache.k, state.cache.v, kh, vh,
                 lengths_l + s, sm_scale=base_scale,
                 importance_in=state.importance if accum else None,
@@ -430,23 +424,20 @@ def forward(params: Params, cfg: SpAttenConfig, state: DecodeState,
             tokens: torch.Tensor,
             rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
             head_compact: dict | None = None,
-            plain_kernels: bool = False,
             ) -> tuple[torch.Tensor, DecodeState, StepAux]:
     """Run S tokens [B, S] through the model, appending them to the cache.
 
     Returns (logits [B, S, vocab] f32, new_state, aux).  The input state's
     cache planes and importance are updated in place (consumed); the
     returned state holds them with the new lengths.  ``head_compact``:
-    ``compact_head_params`` output (decode with compacted projections);
-    ``plain_kernels``: see ``run_layers``."""
+    ``compact_head_params`` output (decode with compacted projections)."""
     s = tokens.shape[1]
     x, _ = embed_tokens(params, cfg, state, tokens)
     x, new_lengths, requants, max_probs = run_layers(
         head_compact["layers"] if head_compact else params["layers"], cfg,
         state, x, rope_tables=rope_tables,
         head_kept=(None if head_compact is None else
-                   (head_compact["kept_q"], head_compact["kept_kv"])),
-        plain_kernels=plain_kernels)
+                   (head_compact["kept_q"], head_compact["kept_kv"])))
     logits = lm_head(params, cfg, x)
     total = requants.sum().to(torch.int32)
     new_state = state._replace(
