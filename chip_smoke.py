@@ -6,16 +6,27 @@ It needs one CUDA card and exits non-zero, printing no result, without
 one (or without the repository beside it).  Phases, none of whose
 failures is caught:
 
-1. the card's name and power limit; build both kernels from ``csrc/``
-   (one ``nvcc`` per source, in parallel);
+1. the card's name and power limit; build every kernel source in
+   ``csrc/`` (one ``nvcc`` per source, in parallel);
 2. K1 (fused decode attention) vs its plain PyTorch version on the card:
    at the first slice's shapes (batch 4, capacity 1024), and at the
    serving shapes (one layer of the stacked [32, 8, 4096, 4096] planes,
    ragged lengths, rungs 2048 and 4096) for each serving flag alone, the
    serving combination, the dense combination and 6- and 8-bit layers;
-   rules and tolerances in ``spatten_tpu_torch/kernel_checks.py``;
+   then K1's remaining flags at the serving shapes (presoftmax importance
+   accumulated and in delta mode, prob in delta mode, rows that do not
+   append with an empty one, row stats) and per-row importance at a GQA
+   shape (32 query heads over 8 kv heads of 128); rules and tolerances
+   in ``spatten_tpu_torch/kernel_checks.py``;
 3. K2 (prune compaction) vs its plain version at both slices' shapes;
-4. a small-model reference check (f32 weights, kernels vs plain versions
+4. split-K decode (``phase_split_k``): 4 shards of 2048 tokens on the
+   card, MHA and GQA, one K1 launch per shard against one unsharded K1
+   call over the same 8192 tokens, before and after ``split_k_prune``
+   (which leaves two shards empty); device times printed;
+5. the launch probe (``phase_launch_probe``): P1-P5 vs their plain
+   versions (exact), then their eager, graph and device times and the
+   yardsticks of ``spatten_tpu_torch/tools/launch_overhead.py``;
+6. a small-model reference check (f32 weights, kernels vs plain versions
    on the card), then the paths, each with its launch counts set to 0
    just before it and read just after:
    a. the first slice: ``generate`` at Llama-2-7B width, depth cut to 8,
@@ -31,13 +42,19 @@ failures is caught:
       False)``), prefill and 64 decode steps (tok/s printed, no claim);
    d. ``profile_config()``: the serving configuration with the 4/4/6/6/8
       quant profile, depth 8, 64 new tokens;
-5. a ``kernels`` JSON line: per kernel its launches on the serving path,
-   error, time on the card (``ms``), its plain version's (``plain_ms``),
-   the least time the card could take (``bound_ms``, with ``bound_by``)
-   and a PyTorch library call's time where one computes the same
-   function; K1's 4096-rung time and the first slice's numbers ride along
-   in extra fields;
-6. the card's name and power limit, and as the last line
+   e. ``parity_config()``: the JAX CLI's defaults (``run_spatten_tpu.py``)
+      with the reference-parity importance signal (presoftmax, not
+      accumulated) at Llama-2-7B width and depth, batch 8, prompt 1152,
+      128 new tokens; its first decode window again through the plain
+      versions;
+7. a ``kernels`` JSON line: per kernel its launches on the serving path
+   (the probes: 0, with their own phase's count beside), error, time on
+   the card (``ms``), its plain version's (``plain_ms``), the least time
+   the card could take (``bound_ms``, with ``bound_by``) and a PyTorch
+   library call's time where one computes the same function; K1's
+   4096-rung, parity and split-K numbers and the first slice's ride
+   along in extra fields;
+8. the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -182,6 +199,33 @@ def profile_config(num_layers: int = 8):
     return serving_config(num_layers, layer_bits=(4, 4, 6, 6, 8))
 
 
+PARITY_BATCH, PARITY_PROMPT = 8, 1152
+
+
+def parity_config(num_layers: int = 32):
+    """The JAX CLI's defaults (``run_spatten_tpu.py`` parse_args and its
+    SpAttenConfig: start/important/recent 4/384/384, capacity 1024, V keep
+    ratio 0.35, requant at 0.05, 4-bit, prefill chunk 128, head pruning
+    off) with the upstream SpAtten-LLM pruning signal: the last step's
+    raw scaled scores summed over queries, not accumulated
+    (``importance_kind="presoftmax"``, ``cascade_accumulate=False``)."""
+    from spatten_tpu_torch.config import (
+        EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
+    )
+    return SpAttenConfig(
+        model=dataclasses.replace(ModelConfig.llama2_7b(),
+                                  num_layers=num_layers),
+        pruning=PruningConfig(start_size=4, important_size=384,
+                              recent_size=384, v_keep_ratio=0.35,
+                              importance_kind="presoftmax",
+                              cascade_accumulate=False),
+        quant=QuantConfig(enabled=True, enable_requant=True,
+                          requant_threshold=0.05),
+        engine=EngineConfig(max_batch_size=PARITY_BATCH, cache_capacity=1024,
+                            prefill_chunk=128),
+    ).validate()
+
+
 # ---------------------------------------------------------------- phase 2
 def k1_bound(cfg, lengths, need, kept_tokens, alive, rung: int, bits: int):
     """(bound_ms, bound_by, bytes, ops) of one K1 call on these inputs:
@@ -190,8 +234,9 @@ def k1_bound(cfg, lengths, need, kept_tokens, alive, rung: int, bits: int):
     tokens (packed msb rows, plus lsb2 rows for a 6-bit layer, or int8
     rows for an 8-bit layer or dense mode), the int8 rows again when it
     requantizes, its K scale column, its importance column (read and
-    written) and its kept V rows with their scales; every group writes
-    the appended row (int8 K and V, the nibble and 2-bit bytes, scales)."""
+    written; in delta mode the rung's f32 delta written) and its kept V
+    rows with their scales; every group writes the appended row (int8 K
+    and V, the nibble and 2-bit bytes, scales)."""
     from spatten_tpu_torch.ops.quantize import pack_unit
     m, q = cfg.model, cfg.quant
     hkv, d, g = m.num_kv_heads, m.head_dim, m.q_heads_per_kv
@@ -213,7 +258,9 @@ def k1_bound(cfg, lengths, need, kept_tokens, alive, rung: int, bits: int):
             p1 = {4: msb_rows * d, 6: msb_rows * d + l2_rows * d,
                   8: n * d}[bits]
             byts += p1 + (n * d if fired else 0)
-            byts += n * sb + 2 * n * ib + kept * (d + sb)
+            imp_b = (2 * n * ib if cfg.pruning.cascade_accumulate
+                     else 4 * rung)
+            byts += n * sb + imp_b + kept * (d + sb)
             passes = 1 + (1 if fired else 0)
             ops += g * (2 * d * n * passes + 5 * n * passes + 2 * d * kept)
     b = len(lengths)
@@ -246,13 +293,13 @@ def k1_flags(cfg, layer: int, rung: int):
     kw = dict(sm_scale=1.0 / math.sqrt(m.head_dim), quant_enabled=q.enabled,
               v_keep=v_keep_budgets(cfg, cap), importance_ema=p.importance_ema,
               quantize_queries=q.quantize_queries, pv_int8=q.pv_int8,
-              probs_bf16=q.probs_bf16,
+              probs_bf16=q.probs_bf16, importance_kind=p.importance_kind,
               cap_override=rung if rung < cap else None)
     return kw
 
 
 def k1_case(st, q, kn, vn, lengths, cfg, layer, rung, head_mask=None,
-            **extra) -> dict:
+            delta_mode=False, **extra) -> dict:
     """Hold K1 against its plain version on one layer of ``st``."""
     from spatten_tpu_torch import kernel_checks as kc
     from spatten_tpu_torch.ops import fused_decode as fd
@@ -263,18 +310,31 @@ def k1_case(st, q, kn, vn, lengths, cfg, layer, rung, head_mask=None,
     threshold = 0.0
     if cfg.quant.enabled:
         probe = st.clone()
-        _, sp, _, _ = fd.fused_decode_attention_plain(
+        sp = fd.fused_decode_attention_plain(
             q, probe.cache.k, probe.cache.v, kn, vn, lengths, layer=layer,
             v_block_size=vb, importance_in=probe.importance,
-            head_mask=head_mask, **kw)
+            head_mask=head_mask, **kw)[1]
         threshold = kc.split_threshold(sp.max_prob)
         del probe
     res = kc.k1_pair(st, q, kn, vn, lengths, layer=layer,
                      threshold=threshold, v_block=vb, head_mask=head_mask,
+                     delta_mode=delta_mode,
                      keep_blocks_for=lambda r: fd._v_keep_blocks(
                          kw["v_keep"], vb, r, layer), **kw)
     free()
     return dict(res, threshold=threshold, kw=kw)
+
+
+def k1_case_logged(errs, lines, name, cfg, st, q, kn, vn, layer, rung,
+                   lengths, **extra) -> dict:
+    """``k1_case`` with its error and a log line appended to the phase's
+    lists."""
+    r = k1_case(st, q, kn, vn, lengths, cfg, layer, rung, **extra)
+    errs.append(r["max_abs_err"])
+    lines.append(f"{name} (layer {layer}, rung {rung}): fires {r['fired']}, "
+                 f"dead groups {r['dead_groups']}, near rows "
+                 f"{r['near_rows']}, max |out err| {r['max_abs_err']:.2e}")
+    return r
 
 
 def time_k1(st, q, kn, vn, lengths, cfg, layers, rung, threshold,
@@ -292,13 +352,15 @@ def time_k1(st, q, kn, vn, lengths, cfg, layers, rung, threshold,
     nvb = rung // vb
     keep = torch.zeros((b, hq, nvb), dtype=torch.uint8, device=q.device)
 
+    imp = st.importance if cfg.pruning.cascade_accumulate else None
+
     def call(fn, i, **extra):
         return fn(q, st.cache.k, st.cache.v, kn, vn, lengths,
-                  requant_threshold=threshold, importance_in=st.importance,
+                  requant_threshold=threshold, importance_in=imp,
                   v_block_size=vb, head_mask=head_mask,
                   **dict(kw, layer=layers[i % len(layers)]), **extra)
 
-    _, stats, _, _ = call(fd.fused_decode_attention, 0, keep_out=keep)
+    stats = call(fd.fused_decode_attention, 0, keep_out=keep)[1]
     ms = device_ms(lambda i: call(fd.fused_decode_attention, i),
                    4 * len(layers))
     plain_ms = device_ms(lambda i: call(fd.fused_decode_attention_plain, i),
@@ -382,15 +444,9 @@ def phase_k1_serving(dev) -> dict:
     hm = serving_head_mask(serving, gen, dev)
     errs, lines = [], []
 
-    def run(name, cfg, st, q, kn, vn, layer, rung, head_mask=None, **extra):
-        r = k1_case(st, q, kn, vn, L(rung), cfg, layer, rung,
-                    head_mask=head_mask, **extra)
-        errs.append(r["max_abs_err"])
-        lines.append(f"{name} (layer {layer}, rung {rung}): fires "
-                     f"{r['fired']}, dead groups {r['dead_groups']}, near "
-                     f"rows {r['near_rows']}, max |out err| "
-                     f"{r['max_abs_err']:.2e}")
-        return r
+    def run(name, cfg, st, q, kn, vn, layer, rung, **extra):
+        return k1_case_logged(errs, lines, name, cfg, st, q, kn, vn, layer,
+                              rung, L(rung), **extra)
 
     # each flag alone, over f32 metadata and the 4-bit plane
     st, q, kn, vn = k1_inputs(plain_flags, dev, gen, b)
@@ -438,6 +494,85 @@ def phase_k1_serving(dev) -> dict:
                 rung_4096=dict(ms=t4["ms"], plain_ms=t4["plain_ms"],
                                bound_ms=t4["bound_ms"],
                                bound_by=t4["bound_by"]))
+
+
+def phase_k1_flags(dev) -> dict:
+    """K1's remaining flags at the serving shapes (one layer of stacked
+    [4, 8, 4096, 4096] planes, f32 metadata as the parity path keeps):
+    presoftmax accumulated and in delta mode, prob in delta mode, rows
+    that do not append (one of them empty), row stats with dead groups;
+    then per-row importance at a GQA shape (32 query heads over 8 kv heads
+    of 128); then K1's time under the parity flags at the parity shapes
+    (batch 8, capacity 1024, delta mode, presoftmax)."""
+    from spatten_tpu_torch.config import ModelConfig
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    b = SERVING_BATCH
+    serving = serving_config(4)
+    flags_cfg = dataclasses.replace(
+        serving,
+        quant=dataclasses.replace(serving.quant, quantize_queries=False,
+                                  pv_int8=False, probs_bf16=False,
+                                  scale_dtype="float32"),
+        pruning=dataclasses.replace(serving.pruning,
+                                    importance_dtype="float32"))
+    lens = {2048: [2048, 1900, 1601, 1200, 977, 800, 729, 33],
+            4096: [4096, 3200, 3100, 2665, 2800, 2049, 1000, 1]}
+    hm = serving_head_mask(flags_cfg, gen, dev)
+    app = torch.tensor([True, False, True, False, True, False, True, False],
+                       device=dev)
+    errs, lines = [], []
+
+    def run(name, cfg, st, q, kn, vn, layer, rung, lengths=None, **extra):
+        lengths = torch.tensor(lengths or lens[rung], dtype=torch.int32,
+                               device=dev)
+        k1_case_logged(errs, lines, name, cfg, st, q, kn, vn, layer, rung,
+                       lengths, **extra)
+
+    st, q, kn, vn = k1_inputs(flags_cfg, dev, gen, b)
+    run("presoftmax accumulated", flags_cfg, st, q, kn, vn, 0, 4096,
+        importance_kind="presoftmax")
+    run("presoftmax delta", flags_cfg, st, q, kn, vn, 1, 2048,
+        importance_kind="presoftmax", delta_mode=True, head_mask=hm)
+    run("prob delta", flags_cfg, st, q, kn, vn, 0, 4096, delta_mode=True)
+    run("append_mask (row 7 empty)", flags_cfg, st, q, kn, vn, 1, 2048,
+        lengths=lens[2048][:-1] + [0], append_mask=app)
+    run("return_row_stats", flags_cfg, st, q, kn, vn, 0, 4096,
+        head_mask=hm, return_row_stats=True, delta_mode=True,
+        append_mask=app, importance_kind="presoftmax")
+    del st
+    free()
+    gqa = dataclasses.replace(
+        flags_cfg, model=dataclasses.replace(ModelConfig.llama2_7b(),
+                                             num_layers=2, num_kv_heads=8))
+    st, q, kn, vn = k1_inputs(gqa, dev, gen, b)
+    for kind in ("prob", "presoftmax"):
+        run(f"GQA 32/8 per_row_importance {kind}", gqa, st, q, kn, vn, 1,
+            4096, lengths=lens[4096][:-1] + [0], delta_mode=True,
+            per_row_importance=True, return_row_stats=True,
+            append_mask=app, importance_kind=kind)
+    del st
+    free()
+    log("K1 vs plain, remaining flags at the serving shapes: ok\n  "
+        + "\n  ".join(lines))
+    # the parity path's K1 calls: [32, 8, 1024, 4096] planes, lengths as
+    # decode finds them after prefill's prunes
+    par = parity_config()
+    st, q, kn, vn = k1_inputs(par, dev, gen, PARITY_BATCH)
+    plen = torch.tensor([900, 890, 880, 870, 860, 850, 840, 830],
+                        dtype=torch.int32, device=dev)
+    r = k1_case(st, q, kn, vn, plen, par, 3, 1024, delta_mode=True)
+    t = time_k1(st, q, kn, vn, plen, par, list(range(32)), 1024,
+                r["threshold"])
+    del st
+    free()
+    log(f"K1 timing, parity flags (presoftmax, delta mode, batch 8, "
+        f"capacity 1024): {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms "
+        f"plain, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+        f"{t['bytes']} B, {t['ops']} ops; {t['fired']} of 256 heads "
+        "requantize)")
+    return dict(max_abs_err=max(errs + [r["max_abs_err"]]),
+                parity=dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                            bound_ms=t["bound_ms"], bound_by=t["bound_by"]))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -520,6 +655,170 @@ def phase_k2(dev, *, b, cap, hkv, d, keep_max, window, lengths, triggered,
 
 
 # ---------------------------------------------------------------- phase 4
+SPLIT_N, SPLIT_CL = 4, 2048
+SPLIT_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def phase_split_k(dev) -> dict:
+    """Split-K decode on one card: 4 shards of 2048 tokens on cuda:0, batch
+    8, 32 query heads of 128 over 32 (MHA) or 8 (GQA) kv heads, 4-bit
+    planes, no requant and no V pruning (the JAX split-K tests' flags:
+    shard-local requant and V budgets differ from global ones by design).
+    Shards 0-2 are full and the owner partly live.  Each step is held
+    against one unsharded K1 call over the globally packed cache of the
+    same tokens: out, the appended row (exact), the other shards' planes
+    (untouched) and the importance live prefix.  Then ``split_k_prune``
+    (4004 kept tokens: shards 2-3 left empty) and one more step against
+    unsharded K1 over the same kept set."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    from spatten_tpu_torch.ops import quantize as qz
+    from spatten_tpu_torch.parallel import split_k as sk
+    n, cl, b, hq, d = SPLIT_N, SPLIT_CL, SERVING_BATCH, 32, 128
+    cap = n * cl
+    mesh = sk.make_kv_mesh([dev] * n)
+    kw = dict(sm_scale=1.0 / math.sqrt(d), quant_enabled=True,
+              v_block_size=64)
+    own = torch.tensor([2048, 1900, 1500, 1025, 777, 300, 64, 1],
+                       dtype=torch.int32)
+    out = {}
+    for hkv in (32, 8):
+        name = "MHA 32/32" if hkv == hq else f"GQA {hq}/{hkv}"
+        gen = torch.Generator(device=dev).manual_seed(SEED + hkv)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        q, kn, vn = randn(b, hq, 1, d), randn(b, hkv, 1, d), randn(b, hkv, 1, d)
+        kx, vx = randn(b, hkv, cap, d), randn(b, hkv, cap, d)
+        imp0 = torch.rand((b, hkv, cap), generator=gen, device=dev)
+        ks = sk.quantize_sharded(kx, mesh)
+        vs = sk.quantize_sharded(vx, mesh, with_msb=False)
+        kg, vg = qz.quantize(kx), qz.quantize(vx, with_msb=False)
+        del kx, vx
+        local = torch.cat([torch.full((n - 1, b), cl, dtype=torch.int32),
+                           own[None]]).to(dev)
+        glob = local.sum(0)
+        imp_s = sk.shard_tokens(imp0, mesh, -1)
+        before = [[x.clone() for x in (s_.full, s_.msb, s_.scale)]
+                  for s_ in ks[:n - 1]]
+        fd.fused_decode_attention.launches = 0
+        got, ks, vs, imp_s, _, _ = sk.split_k_decode_fused(
+            q, ks, vs, kn, vn, local, mesh, importance_in=imp_s, **kw)
+        launches = fd.fused_decode_attention.launches
+        check(launches == n, f"split-K {name}: K1 launched {launches} "
+              f"times for {n} shards")
+        imp_g = imp0.clone()
+        want = fd.fused_decode_attention(q, kg, vg, kn, vn, glob,
+                                         importance_in=imp_g, **kw)[0]
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, **SPLIT_TOL)),
+              f"split-K {name}: out differs from unsharded K1 ({err:.3e})")
+        joined = sk.join_kv(ks)
+        check(torch.equal(joined.full, kg.full)
+              and torch.equal(joined.scale, kg.scale),
+              f"split-K {name}: planes differ from unsharded K1's")
+        check(all(torch.equal(x, y) for i in range(n - 1) for x, y in
+                  zip((ks[i].full, ks[i].msb, ks[i].scale), before[i])),
+              f"split-K {name}: a shard that does not own the tail changed")
+        imp = sk.join_tokens(imp_s)
+        for bi in range(b):
+            m = int(glob[bi])
+            check(bool(torch.allclose(imp[bi, :, :m], imp_g[bi, :, :m],
+                                      atol=1e-5, rtol=1e-4)),
+                  f"split-K {name}: importance differs (b={bi})")
+
+        def step(_i):
+            sk.split_k_decode_fused(q, ks, vs, kn, vn, local, mesh,
+                                    importance_in=imp_s, **kw)
+
+        def unsharded(_i):
+            fd.fused_decode_attention(q, kg, vg, kn, vn, glob,
+                                      importance_in=imp_g, **kw)
+
+        def shard0(_i):
+            fd.fused_decode_attention(
+                q, ks[0], vs[0], kn, vn, local[0], append_mask=torch.zeros(
+                    b, dtype=torch.bool, device=dev), return_row_stats=True,
+                per_row_importance=hq > hkv, **kw)
+
+        ms_split, ms_full = device_ms(step, 8), device_ms(unsharded, 8)
+        ms_shard = device_ms(shard0, 16)
+        # prune: 4 + 3000 + 1000 kept; shards 2 and 3 hold no live token
+        ks, vs, imp_s, local = sk.split_k_prune(
+            ks, vs, imp_s, local, mesh, start_size=4, important_size=3000,
+            recent_size=1000)
+        check(local[:, 0].tolist() == [2048, 1956, 0, 0],
+              f"split-K {name}: local lengths after the prune "
+              f"{local[:, 0].tolist()}")
+        local[1] += 1                          # the owner of slot 4004
+        got2 = sk.split_k_decode_fused(q, ks, vs, kn, vn, local, mesh,
+                                       importance_in=imp_s, **kw)[0]
+        kg2, vg2 = sk.join_kv(ks), sk.join_kv(vs)
+        kg2 = kg2._replace(msb=qz.pack_msb(kg2.full))
+        # the shards already hold the appended row: the unsharded call
+        # writes the same bytes at the same slot
+        want2 = fd.fused_decode_attention(q, kg2, vg2, kn, vn, local.sum(0),
+                                          track_importance=False, **kw)[0]
+        torch.cuda.synchronize()
+        err2 = float((got2 - want2).abs().max())
+        check(bool(torch.isfinite(got2).all()), f"split-K {name}: non-finite "
+              "output over empty shards")
+        check(bool(torch.allclose(got2, want2, **SPLIT_TOL)),
+              f"split-K {name}: out after the prune differs ({err2:.3e})")
+        log(f"split-K {name} ({n} shards x {cl} tokens on one card, batch "
+            f"{b}): vs unsharded K1 max |out err| {err:.2e}, planes exact, "
+            f"importance within 1e-5/1e-4; after split_k_prune (local "
+            f"lengths with the new token {local[:, 0].tolist()}) max |out err| "
+            f"{err2:.2e}; "
+            f"device {ms_split:.4f} ms per split-K step ({n} K1 launches + "
+            f"recombination) vs {ms_full:.4f} ms unsharded K1 (printed, no "
+            f"claim); one shard's K1 call {ms_shard:.4f} ms")
+        out[name] = dict(max_abs_err=max(err, err2), step_ms=ms_split,
+                         unsharded_ms=ms_full, shard_ms=ms_shard,
+                         launches=launches)
+        del ks, vs, kg, vg, kg2, vg2, imp_s, imp_g
+        free()
+    return out
+
+
+def phase_launch_probe(dev) -> dict:
+    """P1-P5 against their plain versions (exact), then the launch probe's
+    timings with the yardsticks; the host time of one K1 wrapper call at
+    the serving shapes (layer 2 of stacked serving planes, rung 2048, the
+    serving flags) rides along."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    from spatten_tpu_torch.tools import launch_overhead as lo
+    ops = lo.inputs(dev, SEED)
+    errs = lo.check_probes(ops)
+    log("launch probe: P1-P5 equal their plain versions exactly")
+    cfg = serving_config(4)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    st, q, kn, vn = k1_inputs(cfg, dev, gen, SERVING_BATCH)
+    lengths = torch.full((SERVING_BATCH,), 1500, dtype=torch.int32,
+                         device=dev)
+    hm = serving_head_mask(cfg, gen, dev)
+    kw = dict(k1_flags(cfg, 2, 2048), requant_threshold=0.05,
+              v_block_size=cfg.pruning.v_block_size, head_mask=hm,
+              layer=2, importance_in=st.importance)
+
+    def k1_call():
+        fd.fused_decode_attention(q, st.cache.k, st.cache.v, kn, vn, lengths,
+                                  **kw)
+
+    for k, _, _, _ in lo.PROBES.values():
+        k.launches = 0
+    res = lo.measure(ops, k1_call)
+    counts = {pid: k.launches for pid, (k, _, _, _) in lo.PROBES.items()}
+    check(all(c > 0 for c in counts.values()),
+          f"launch probe: a probe was never launched ({counts})")
+    for line in lo.report(res):
+        log(f"  {line}")
+    del st
+    free()
+    return dict(res=res, errs=errs, counts=counts)
+
+
 def small_reference_check(dev):
     """A small GQA model (head_dim 64, group 2) in f32: the kernels vs the
     plain versions, both on the card, from the same weights and prompt.
@@ -627,10 +926,15 @@ def run_path(name, cfg, dev, *, batch, prompt_len, new_tokens,
         0, m.vocab_size, (batch, prompt_len))
     points, lens, clocks = expected_schedule(cfg, prompt_len, new_tokens)
 
+    from spatten_tpu_torch.tools.launch_overhead import PROBES
+    probes = [k for k, _, _, _ in PROBES.values()]
     fused_decode_attention.launches = 0
     gather_compact_rows.launches = 0
+    for k in probes:
+        k.launches = 0
     res = gen.generate(params, cfg, prompt, new_tokens, device=dev)
     k1, k2 = fused_decode_attention.launches, gather_compact_rows.launches
+    probe_launches = {pid: k.launches for pid, k in zip(PROBES, probes)}
     tokens = res.tokens
     check(tuple(tokens.shape) == (batch, new_tokens), "token shape")
     check(bool(((tokens >= 0) & (tokens < m.vocab_size)).all()),
@@ -662,7 +966,8 @@ def run_path(name, cfg, dev, *, batch, prompt_len, new_tokens,
         f"{int(res.requant_events)} (decode, by layer: "
         f"{res.layer_requants.tolist()}); K1 launches {k1}, K2 launches {k2};"
         f" head mask updates at clocks {res.head_mask_updates}")
-    out = dict(k1=k1, k2=k2, res=res, params=params, prompt=prompt)
+    out = dict(k1=k1, k2=k2, res=res, params=params, prompt=prompt,
+               probe_launches=probe_launches)
     step_s = res.decode_seconds / new_tokens
     if window_check:
         state, tok, tables, host = window_vs_plain(name, cfg, dev, params,
@@ -764,13 +1069,14 @@ def profile_decode(name, params, cfg, state, tok, tables, step_s: float,
                                           tables)
             tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, n_kernels = {}, 0
     for ev in prof.key_averages():
         # device-side events only: a CPU op's entry repeats the device
         # time of the kernels it launched
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             t = ev.self_device_time_total / 1e3 / steps
             by_name[ev.key] = by_name.get(ev.key, 0.0) + t
+            n_kernels += ev.count
     if not by_name:
         log(f"{name} profile: the trace holds no device time (not measured)")
         return None
@@ -780,7 +1086,7 @@ def profile_decode(name, params, cfg, state, tok, tables, step_s: float,
     log(f"{name} profile ({steps} decode steps, kernel path): device time "
         f"{dev_ms:.3f} ms/step vs {step_s * 1e3:.3f} ms/step host clock in "
         f"generate -> device busy {dev_ms / (step_s * 1e3):.3f}, idle "
-        f"{idle:.3f}; top: "
+        f"{idle:.3f}; {n_kernels / steps:.0f} device ops per step; top: "
         + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
     return idle
 
@@ -818,6 +1124,7 @@ def main() -> int:
 
     k1_pr1 = phase_k1_slice1(slice_config(), dev)
     k1_srv = phase_k1_serving(dev)
+    k1_flags_res = phase_k1_flags(dev)
     k2_pr1 = phase_k2(dev, b=4, cap=1024, hkv=32, d=128, keep_max=772,
                       window=1024, lengths=[1024, 1024, 900, 1000],
                       triggered=[1, 0, 1, 1], keep_count=[772, 772, 600, 772])
@@ -827,6 +1134,8 @@ def main() -> int:
                       lengths=[2048, 2047, 2000, 2048, 1990, 2048, 2048, 2048],
                       triggered=[1, 1, 1, 0, 1, 1, 1, 1],
                       keep_count=[976, 976, 976, 976, 600, 976, 976, 976])
+    split = phase_split_k(dev)
+    probe = phase_launch_probe(dev)
     small_reference_check(dev)
     log(f"kernel phases done at {time.perf_counter() - t_start:.0f} s")
 
@@ -855,24 +1164,53 @@ def main() -> int:
     log(f"profile: requant events by layer {lr} for bits {list(bits)}")
     log(f"dense-int8 baseline decode {dense['tok_s']:.1f} tok/s vs serving "
         f"{serving['tok_s']:.1f} tok/s (batch {SERVING_BATCH}; printed, no "
-        f"claim); total {time.perf_counter() - t_start:.0f} s")
+        f"claim)")
+    parity = run_path("parity", parity_config(), dev, batch=PARITY_BATCH,
+                      prompt_len=PARITY_PROMPT, new_tokens=128,
+                      window_check=True)
+    del parity["params"], parity["res"]
+    free()
+    log(f"total {time.perf_counter() - t_start:.0f} s")
 
-    out = {"kernels": [
+    k1_srv["max_abs_err"] = max(k1_srv["max_abs_err"],
+                                k1_flags_res["max_abs_err"])
+    kernels_out = [
         dict(name="fused_decode_attention", route="cuda",
              source="spatten_tpu_torch/csrc/fused_decode.cu",
              replaces="spatten_tpu/ops/fused_decode.py:2319",
              launches=serving["k1"], **k1_srv,
-             first_slice=dict(k1_pr1, launches=pr1["k1"])),
+             first_slice=dict(k1_pr1, launches=pr1["k1"]),
+             parity=dict(k1_flags_res["parity"], launches=parity["k1"]),
+             split_k={k: dict(v) for k, v in split.items()}),
         dict(name="gather_compact_rows", route="cuda",
              source="spatten_tpu_torch/csrc/compact_gather.cu",
              replaces="spatten_tpu/ops/compact_gather.py:335",
              launches=serving["k2"], **k2_srv,
-             first_slice=dict(k2_pr1, launches=pr1["k2"])),
-    ]}
+             first_slice=dict(k2_pr1, launches=pr1["k2"]),
+             parity_launches=parity["k2"]),
+    ]
+    from spatten_tpu_torch.tools import launch_overhead as lo
+    pres = probe["res"]
+    for pid, (kern, _, replaces, _) in lo.PROBES.items():
+        r = pres[pid]
+        kernels_out.append(dict(
+            name=f"{pid} {kern.__name__}", route="cuda",
+            source="spatten_tpu_torch/csrc/launch_probe.cu",
+            replaces=replaces, launches=serving["probe_launches"][pid],
+            max_abs_err=probe["errs"][pid], ms=r["device_us"] / 1e3,
+            plain_ms=r["plain_us"] / 1e3, bound_ms=r["bound_us"] / 1e3,
+            bound_by="bytes", library_ms=r["library_us"] / 1e3,
+            probe_launches=probe["counts"][pid],
+            eager_us=r["eager_us"], graph_us=r["graph_us"]))
+    out = {"kernels": kernels_out}
     log("library_ms: fused_decode_attention has no single PyTorch call "
         "computing its function (append + 4/6/8-bit scoring + requant + "
         "importance + V top-k + 8-bit P·V); gather_compact_rows is timed "
-        "against two torch.gather calls (K and V planes, out of place)")
+        "against two torch.gather calls (K and V planes, out of place); "
+        "P1/P2/P5 against torch.add(x, 1.0), P3 against big[:256].sum(), "
+        "P4 against big[:8].add_(1).  The probes' launches on the paths "
+        "are 0 (they are off every path); probe_launches counts their own "
+        "phase")
     print(json.dumps(out), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,19 @@
 //      mass (ties kept) -> P·V over the kept V blocks only, in f32 or with
 //      8-bit row weights on the stored int8 rows (pv_int8).
 //
+// Importance: "prob" (the softmax probabilities) or "presoftmax" (the
+// masked scaled scores of the last scoring pass, head-masked), either
+// accumulated in place (imp <- ema * imp + delta) or, in delta mode,
+// written as this step's delta to an output of [B, Hkv, C] (or per query
+// row, [B, Hq, C]), every column of the window, zeros past the length.
+//
+// Split-K flags (parallel/split_k.py): append_mask (a row that does not
+// append writes no plane byte, scores its idx column as a stored token and
+// resets no importance slot; it may hold no live token at all, and then
+// reports zero output, m = MASK_VALUE and den = 1e-30, so its flash weight
+// exp(m - m_g) * den is exactly 0); row stats (the per-row softmax max m and
+// denominator den, written for every row of a live or dead group).
+//
 // Serving flags: head_mask (a kv-head group with no live query row
 // appends, then exits: zero output, zero max prob, importance untouched);
 // f32 or bf16 scale and importance planes (read as f32, stored with
@@ -63,6 +76,7 @@ constexpr int kUnroll = 4;
 constexpr int kMisc = 8;                 // per-row scalars in shared memory
 constexpr float kMsbMidpoint = 7.5f;     // qz.MSB_MIDPOINT
 constexpr float kMidpoint6 = 1.5f;       // qz.MIDPOINT6
+constexpr float kMaskValue = -0.7f * 3.402823466e38f;   // MASK_VALUE
 
 struct Params {
   const float* q;        // [B, Hq, D]
@@ -79,14 +93,18 @@ struct Params {
   void* imp;             // [B, Hkv, Ct] accumulator (f32 or bf16) or null
   const uint8_t* hmask;  // [B, Hq] head liveness or null (all alive)
   const int* qbits;      // [L] per-layer pass-1 bits or null
+  const uint8_t* appmask;  // [B] 0 = this row does not append, or null
   float* out;            // [B, Hq, D]
   float* max_prob;       // [B, Hkv]
   uint8_t* need;         // [B, Hkv]
   uint8_t* keep_out;     // [B, Hq, C / v_block] or null
+  float* delta;          // delta mode: [B, Hkv or Hq, C], or null
+  float* mrow;           // [B, Hq] row max, or null (no row stats)
+  float* drow;           // [B, Hq] row denominator
   int Hq, C, Ct, F, Hkv, pack_unit, layer;
   float sm_scale, threshold, ema;
   int quant, requant, keep_blocks, v_block;
-  int sc_bf16, imp_bf16, qq, pv_int8, probs_bf16;
+  int sc_bf16, imp_bf16, qq, pv_int8, probs_bf16, presoftmax, per_row;
 };
 
 // per-row scalars: misc[k * G + g]
@@ -331,12 +349,15 @@ __device__ void scores_msb(const Params& p, const uint8_t* km,
   }
 }
 
-// In-place softmax numerators over [0, len): s <- exp(s - max) (rounded
-// to bf16 under probs_bf16), with the row max, the denominator and, for
-// pv_int8, the running max of e * vscale over the f32 e in misc.
+// Softmax statistics over [0, len): the row max, the denominator and, for
+// pv_int8, the running max of e * vscale over the f32 e, into misc; with
+// `write`, also the in-place numerators s <- exp(s - max) (rounded to bf16
+// under probs_bf16).  Presoftmax importance reads the scores first and
+// writes the numerators later (exp_rows), from the same max.
 template <int G>
 __device__ void softmax_rows(const Params& p, float* s, int len, float* red,
-                             float* misc, const void* vsc, size_t col0) {
+                             float* misc, const void* vsc, size_t col0,
+                             bool write) {
   for (int g = 0; g < G; ++g) {
     float* row = s + g * p.C;
     float m = -INFINITY;
@@ -347,7 +368,7 @@ __device__ void softmax_rows(const Params& p, float* s, int len, float* red,
       const float e = expf(row[t] - m);
       if (p.pv_int8)
         emv = fmaxf(emv, __fmul_rn(e, load_meta(vsc, col0 + t, p.sc_bf16)));
-      row[t] = p.probs_bf16 ? round_bf16(e) : e;
+      if (write) row[t] = p.probs_bf16 ? round_bf16(e) : e;
       sum += e;
     }
     sum = block_reduce(sum, red, 0.f, [](float x) { return warp_sum(x); });
@@ -360,6 +381,76 @@ __device__ void softmax_rows(const Params& p, float* s, int len, float* red,
     }
   }
   __syncthreads();
+}
+
+// The numerators softmax_rows(write = false) summed, written in place.
+// Thread t handles the columns importance() reads, so no barrier is
+// needed between the two.
+template <int G>
+__device__ void exp_rows(const Params& p, float* s, int len,
+                         const float* misc) {
+  for (int g = 0; g < G; ++g) {
+    float* row = s + g * p.C;
+    const float m = misc[kMax * G + g];
+    for (int t = threadIdx.x; t < len; t += kThreads) {
+      const float e = expf(row[t] - m);
+      row[t] = p.probs_bf16 ? round_bf16(e) : e;
+    }
+  }
+}
+
+// This step's importance: delta(g, t) = s[g][t] * wt[g] over the live
+// columns (probabilities times the row weight, or scores times the head
+// mask).  Accumulated into the stacked plane (the appended slot starts
+// from 0), or written to the delta output over the whole window.
+template <int G>
+__device__ void importance(const Params& p, const float* s, const float* wt,
+                           int len, int idx, bool do_app, size_t col0,
+                           float* dl) {
+  if (p.imp != nullptr) {
+    for (int t = threadIdx.x; t < len; t += kThreads) {
+      float delta = 0.f;
+#pragma unroll
+      for (int g = 0; g < G; ++g) delta += __fmul_rn(s[g * p.C + t], wt[g]);
+      const float prev = (do_app && t == idx)
+                             ? 0.f : load_meta(p.imp, col0 + t, p.imp_bf16);
+      store_meta(p.imp, col0 + t, __fadd_rn(__fmul_rn(prev, p.ema), delta),
+                 p.imp_bf16);
+    }
+  } else if (dl != nullptr) {
+    for (int t = threadIdx.x; t < p.C; t += kThreads) {
+      if (p.per_row) {
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          dl[static_cast<size_t>(g) * p.C + t] =
+              t < len ? __fmul_rn(s[g * p.C + t], wt[g]) : 0.f;
+      } else {
+        float delta = 0.f;
+        if (t < len) {
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            delta += __fmul_rn(s[g * p.C + t], wt[g]);
+        }
+        dl[t] = delta;
+      }
+    }
+  }
+}
+
+// Zero output, kept-block mask and delta of a group that computes nothing
+// more (a dead head group, or a row with no live token).
+template <int G, int D>
+__device__ void zero_outputs(const Params& p, int b, int hq0, size_t out0,
+                             int nvb, float* dl) {
+  for (int i = threadIdx.x; i < G * D; i += kThreads) p.out[out0 + i] = 0.f;
+  if (p.keep_out != nullptr && p.keep_blocks > 0) {
+    for (int i = threadIdx.x; i < G * nvb; i += kThreads)
+      p.keep_out[static_cast<size_t>(b) * p.Hq * nvb + hq0 * nvb + i] = 0;
+  }
+  if (dl != nullptr) {
+    const int n = (p.per_row ? G : 1) * p.C;
+    for (int i = threadIdx.x; i < n; i += kThreads) dl[i] = 0.f;
+  }
 }
 
 template <int G, int D>
@@ -382,11 +473,39 @@ fused_decode_kernel(const Params p) {
   uint8_t* keep_any = keep + G * nvb;                    // [nvb]
 
   const int len = p.lengths[b];
+  const bool do_app = p.appmask == nullptr || p.appmask[b] != 0;
   const int hq0 = h * G;                            // first q head of group
   const size_t out0 = (static_cast<size_t>(b) * p.Hq + hq0) * D;
-  if (len < 1 || len > C) {                         // contract violation
+  const size_t row0 = static_cast<size_t>(b) * p.Hq + hq0;   // [B, Hq] index
+  float* dl = p.delta == nullptr ? nullptr
+            : p.delta + (p.per_row ? row0 : static_cast<size_t>(b) * p.Hkv + h)
+                            * C;
+  // an appending row holds its new token; only a non-appending one (a
+  // split-K shard past the kept prefix) may hold none
+  if (len < (do_app ? 1 : 0) || len > C) {          // contract violation
     for (int i = threadIdx.x; i < G * D; i += kThreads) p.out[out0 + i] = NAN;
     if (threadIdx.x == 0) p.max_prob[b * p.Hkv + h] = NAN;
+    return;
+  }
+  bool alive[G];
+  bool any_alive = false;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    alive[g] = p.hmask == nullptr || p.hmask[row0 + g] != 0;
+    any_alive |= alive[g];
+  }
+  if (len == 0) {
+    // no live column: every score is masked, so m = MASK_VALUE, e = 0 and
+    // den sits at its 1e-30 floor (max prob 1e30, which never requantizes)
+    zero_outputs<G, D>(p, b, hq0, out0, nvb, dl);
+    if (threadIdx.x < G && p.mrow != nullptr) {
+      p.mrow[row0 + threadIdx.x] = kMaskValue;
+      p.drow[row0 + threadIdx.x] = 1e-30f;
+    }
+    if (threadIdx.x == 0) {
+      p.max_prob[b * p.Hkv + h] = any_alive ? 1e30f : 0.f;
+      p.need[b * p.Hkv + h] = 0;
+    }
     return;
   }
   const int idx = len - 1;
@@ -402,7 +521,7 @@ fused_decode_kernel(const Params p) {
   uint8_t* vm = p.vmsb ? p.vmsb + packed_b + h * D : nullptr;
 
   // ---- append (warp 0: K, warp 1: V) -------------------------------------
-  {
+  if (do_app) {
     const int u = p.pack_unit;
     const int r_u = idx % u;
     const bool is_hi = r_u < u / 2;
@@ -423,21 +542,10 @@ fused_decode_kernel(const Params p) {
   }
   __syncthreads();                                  // the block sees its row
 
-  // ---- head gating: a dead group appended, and does nothing else --------
-  bool alive[G];
-  bool any_alive = false;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    alive[g] = p.hmask == nullptr ||
-               p.hmask[static_cast<size_t>(b) * p.Hq + hq0 + g] != 0;
-    any_alive |= alive[g];
-  }
-  if (!any_alive) {
-    for (int i = threadIdx.x; i < G * D; i += kThreads) p.out[out0 + i] = 0.f;
-    if (p.keep_out != nullptr && p.keep_blocks > 0) {
-      for (int i = threadIdx.x; i < G * nvb; i += kThreads)
-        p.keep_out[static_cast<size_t>(b) * p.Hq * nvb + hq0 * nvb + i] = 0;
-    }
+  // ---- head gating: a dead group appended, and does nothing else, but
+  // for its row stats (the Pallas body scores every row)
+  if (!any_alive && p.mrow == nullptr) {
+    zero_outputs<G, D>(p, b, hq0, out0, nvb, dl);
     if (threadIdx.x == 0) {
       p.max_prob[b * p.Hkv + h] = 0.f;
       p.need[b * p.Hkv + h] = 0;
@@ -493,22 +601,40 @@ fused_decode_kernel(const Params p) {
                        len, idx, s, misc);
   }
   __syncthreads();
-  softmax_rows<G>(p, s, len, red, misc, p.vscale, col0);
+  // presoftmax keeps the scores until its importance has read them
+  const bool write_e = !p.presoftmax;
+  softmax_rows<G>(p, s, len, red, misc, p.vscale, col0, write_e);
   float mp = 0.f;
 #pragma unroll
   for (int g = 0; g < G; ++g)
     mp = fmaxf(mp, 1.f / fmaxf(misc[kDen * G + g], 1e-30f));
   // an 8-bit pass 1 already read the int8 plane: it never requantizes
-  const bool fire = p.requant && !p1_full && mp < p.threshold;  // uniform
+  const bool fire = any_alive && p.requant && !p1_full &&
+                    mp < p.threshold;               // uniform
   if (threadIdx.x == 0) {
-    p.max_prob[b * p.Hkv + h] = mp;
+    p.max_prob[b * p.Hkv + h] = any_alive ? mp : 0.f;
     p.need[b * p.Hkv + h] = fire ? 1 : 0;
   }
   if (fire) {
     __syncthreads();
     scores_full<G, VEC>(p, kf, p.kscale, col0, qr, rs2, len, idx, s, misc);
     __syncthreads();
-    softmax_rows<G>(p, s, len, red, misc, p.vscale, col0);
+    softmax_rows<G>(p, s, len, red, misc, p.vscale, col0, write_e);
+  }
+  if (p.mrow != nullptr && threadIdx.x < G) {
+    p.mrow[row0 + threadIdx.x] = misc[kMax * G + threadIdx.x];
+    p.drow[row0 + threadIdx.x] = fmaxf(misc[kDen * G + threadIdx.x], 1e-30f);
+  }
+  if (!any_alive) {                                 // row stats only
+    zero_outputs<G, D>(p, b, hq0, out0, nvb, dl);
+    return;
+  }
+  if (p.presoftmax) {
+    float hm[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) hm[g] = alive[g] ? 1.f : 0.f;
+    importance<G>(p, s, hm, len, idx, do_app, col0, dl);
+    exp_rows<G>(p, s, len, misc);
   }
   if (threadIdx.x < G) {
     const int g = threadIdx.x;
@@ -518,23 +644,15 @@ fused_decode_kernel(const Params p) {
     misc[kWmax * G + g] = __fmul_rn(misc[kEmv * G + g], wrow);
     // the appended column's probability with the new row's f32 K scale
     misc[kEidx * G + g] =
-        expf(__fmul_rn(misc[kXidx * G + g], app[0]) - misc[kMax * G + g]);
+        do_app ? expf(__fmul_rn(misc[kXidx * G + g], app[0]) -
+                      misc[kMax * G + g])
+               : 0.f;
   }
   __syncthreads();
   const float* wrow = misc + kWrow * G;
 
-  // ---- importance: reset the appended slot, then imp <- ema*imp + delta --
-  if (p.imp != nullptr) {
-    for (int t = threadIdx.x; t < len; t += kThreads) {
-      float delta = 0.f;
-#pragma unroll
-      for (int g = 0; g < G; ++g) delta += __fmul_rn(s[g * C + t], wrow[g]);
-      const float prev = t == idx ? 0.f : load_meta(p.imp, col0 + t,
-                                                    p.imp_bf16);
-      store_meta(p.imp, col0 + t, __fadd_rn(__fmul_rn(prev, p.ema), delta),
-                 p.imp_bf16);
-    }
-  }
+  // ---- prob importance: probabilities times the row weight -------------
+  if (!p.presoftmax) importance<G>(p, s, wrow, len, idx, do_app, col0, dl);
 
   // ---- local V pruning: per-row block keep mask --------------------------
   const bool vprune = p.keep_blocks > 0;
@@ -599,7 +717,8 @@ fused_decode_kernel(const Params p) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = t0 + u;
-      live[u] = t < len && t != idx && (!vprune || keep_any[t / p.v_block]);
+      live[u] = t < len && (t != idx || !do_app) &&
+                (!vprune || keep_any[t / p.v_block]);
       if (live[u]) {
         load_bytes<VEC>(reinterpret_cast<const uint8_t*>(vf) +
                             static_cast<size_t>(t) * F + lane * VEC,
@@ -659,13 +778,16 @@ fused_decode_kernel(const Params p) {
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) o += pv[w * G * D + i];
     }
-    const float kept_new =
-        (!vprune || keep[g * nvb + idx / p.v_block]) ? 1.f : 0.f;
-    const float p_idx =
-        __fmul_rn(__fmul_rn(misc[kEidx * G + g], wrow[g]), kept_new);
-    const float vnew = __fmul_rn(
-        static_cast<float>(vf[static_cast<size_t>(idx) * F + dd]), app[1]);
-    p.out[out0 + i] = __fadd_rn(o, __fmul_rn(p_idx, vnew));
+    if (do_app) {
+      const float kept_new =
+          (!vprune || keep[g * nvb + idx / p.v_block]) ? 1.f : 0.f;
+      const float p_idx =
+          __fmul_rn(__fmul_rn(misc[kEidx * G + g], wrow[g]), kept_new);
+      const float vnew = __fmul_rn(
+          static_cast<float>(vf[static_cast<size_t>(idx) * F + dd]), app[1]);
+      o = __fadd_rn(o, __fmul_rn(p_idx, vnew));
+    }
+    p.out[out0 + i] = o;
   }
 }
 
@@ -708,16 +830,17 @@ extern "C" int spatten_fused_decode(
     const float* q, const float* k_new, const float* v_new, const int* lengths,
     int8_t* kfull, uint8_t* kmsb, uint8_t* klsb2, void* kscale, int8_t* vfull,
     uint8_t* vmsb, void* vscale, void* imp, const uint8_t* hmask,
-    const int* qbits, float* out, float* max_prob, uint8_t* need,
-    uint8_t* keep_out, int B, int Hq, int Hkv, int D, int C, int Ct,
-    int pack_unit, int layer, float sm_scale, float threshold, float ema,
-    int quant, int requant, int keep_blocks, int v_block, int sc_bf16,
-    int imp_bf16, int qq, int pv_int8, int probs_bf16, void* stream) {
+    const int* qbits, const uint8_t* appmask, float* out, float* max_prob,
+    uint8_t* need, uint8_t* keep_out, float* delta, float* mrow, float* drow,
+    int B, int Hq, int Hkv, int D, int C, int Ct, int pack_unit, int layer,
+    float sm_scale, float threshold, float ema, int quant, int requant,
+    int keep_blocks, int v_block, int sc_bf16, int imp_bf16, int qq,
+    int pv_int8, int probs_bf16, int presoftmax, int per_row, void* stream) {
   Params p{q, k_new, v_new, lengths, kfull, kmsb, klsb2, kscale, vfull, vmsb,
-           vscale, imp, hmask, qbits, out, max_prob, need, keep_out,
-           Hq, C, Ct, Hkv * D, Hkv, pack_unit, layer, sm_scale, threshold,
-           ema, quant, requant, keep_blocks, v_block, sc_bf16, imp_bf16, qq,
-           pv_int8, probs_bf16};
+           vscale, imp, hmask, qbits, appmask, out, max_prob, need, keep_out,
+           delta, mrow, drow, Hq, C, Ct, Hkv * D, Hkv, pack_unit, layer,
+           sm_scale, threshold, ema, quant, requant, keep_blocks, v_block,
+           sc_bf16, imp_bf16, qq, pv_int8, probs_bf16, presoftmax, per_row};
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

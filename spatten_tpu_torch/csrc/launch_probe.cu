@@ -1,0 +1,183 @@
+// Launch-overhead probes P1-P5 on Hopper (sm_90a).
+//
+// Replace the five probes of tools/pallas_overhead.py (main(): bare :62,
+// gridded :70, dma :90, aliased :113, spref :134), which time a trivial
+// pallas_call with one more feature each to isolate the TPU's per-call
+// dispatch cost.  Each kernel here does the same trivial work with the
+// card's counterpart of that feature:
+//
+//   P1 bare     o = x + 1 over one f32 (8, 128) block, one CTA;
+//   P2 gridded  the same body over a grid of 16 CTAs that all compute the
+//               same block (the Pallas grid's 16 steps map the one block;
+//               every CTA writes identical values);
+//   P3 dma      a 1-D bulk async copy (cp.async.bulk completing on an
+//               mbarrier, Hopper's counterpart of make_async_copy plus a
+//               DMA semaphore) of rows 0-255 of an int8 [1024, 512] plane
+//               (128 KB of dynamic shared memory), then o = sum of those
+//               bytes, summed in int32 (exact), broadcast to (8, 128);
+//   P4 aliased  bulk copy of rows 0-7 into shared memory, +1 with int8
+//               wrap-around, bulk copy back into the same plane (in place:
+//               the aliased read-modify-write), o = 0;
+//   P5 spref    o = x + s[0] over a grid of 4 CTAs, s an int32 array read
+//               from device memory (scalar prefetch has no counterpart: a
+//               block loads its own scalars).
+//
+// Bound on this card: launch latency.  The bytes (8 KB; 132 KB for P3,
+// 12 KB for P4) take 2.4-40 ns at 3.35 TB/s, far below a launch; the
+// probes measure what a launch costs, eager, from a CUDA graph and
+// through ctypes.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBlock = 8 * 128;          // f32 elements of the (8, 128) block
+constexpr int kPlaneCols = 512;          // int8 plane [1024, 512]
+constexpr int kDmaBytes = 256 * kPlaneCols;
+constexpr int kRmwBytes = 8 * kPlaneCols;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One mbarrier expecting `bytes` of one bulk copy global -> shared, issued
+// by thread 0; every thread waits on phase 0.
+__device__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                          uint64_t* bar) {
+  const uint32_t b = smem_addr(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint64_t state;
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;"
+        : "=l"(state)
+        : "r"(b), "r"(bytes)
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(b)
+        : "memory");
+  }
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(b)
+        : "memory");
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+add_one_kernel(const float* __restrict__ x, float* __restrict__ o) {
+  for (int i = threadIdx.x; i < kBlock; i += kThreads) o[i] = x[i] + 1.f;
+}
+
+__global__ void __launch_bounds__(kThreads)
+dma_sum_kernel(const int8_t* __restrict__ plane, float* __restrict__ o) {
+  extern __shared__ __align__(128) uint8_t buf[];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ int red[kThreads / 32];
+  bulk_load(buf, plane, kDmaBytes, &bar);
+  int sum = 0;
+  const int4* v = reinterpret_cast<const int4*>(buf);
+  for (int i = threadIdx.x; i < kDmaBytes / 16; i += kThreads) {
+    const int4 w = v[i];
+    const int words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int s = 0; s < 32; s += 8)
+        sum += static_cast<int8_t>((words[k] >> s) & 0xFF);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = sum;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) total += red[w];
+  const float t = static_cast<float>(total);
+  for (int i = threadIdx.x; i < kBlock; i += kThreads) o[i] = t;
+}
+
+__global__ void __launch_bounds__(kThreads)
+aliased_rmw_kernel(int8_t* plane, float* __restrict__ o) {
+  __shared__ __align__(128) int8_t buf[kRmwBytes];
+  __shared__ __align__(8) uint64_t bar;
+  bulk_load(buf, plane, kRmwBytes, &bar);
+  for (int i = threadIdx.x; i < kRmwBytes; i += kThreads)
+    buf[i] = static_cast<int8_t>(static_cast<int>(buf[i]) + 1);
+  // the generic-proxy writes must be visible to the async proxy's store
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+            plane),
+        "r"(smem_addr(buf)), "r"(kRmwBytes)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < kBlock; i += kThreads) o[i] = 0.f;
+}
+
+__global__ void __launch_bounds__(kThreads)
+spref_kernel(const int* __restrict__ s, const float* __restrict__ x,
+             float* __restrict__ o) {
+  const float add = static_cast<float>(s[0]);
+  for (int i = threadIdx.x; i < kBlock; i += kThreads) o[i] = x[i] + add;
+}
+
+}  // namespace
+
+// Each entry point launches on `stream` and returns cudaGetLastError()
+// (0 = success); the wrappers (spatten_tpu_torch/tools/launch_overhead.py)
+// check shapes, types and contiguity.
+extern "C" int spatten_probe_bare(const float* x, float* o, void* stream) {
+  add_one_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatten_probe_gridded(const float* x, float* o, void* stream) {
+  add_one_kernel<<<16, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatten_probe_dma(const int8_t* plane, float* o, void* stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dma_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kDmaBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  dma_sum_kernel<<<1, kThreads, kDmaBytes,
+                   static_cast<cudaStream_t>(stream)>>>(plane, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatten_probe_aliased(int8_t* plane, float* o, void* stream) {
+  aliased_rmw_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      plane, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatten_probe_spref(const int* s, const float* x, float* o,
+                                   void* stream) {
+  spref_kernel<<<4, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(s, x, o);
+  return static_cast<int>(cudaGetLastError());
+}

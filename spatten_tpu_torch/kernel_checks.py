@@ -22,6 +22,10 @@ K1_OUT_TOL = dict(atol=1e-4, rtol=1e-4)      # f32 sums in another order
 K1_MAXP_TOL = dict(atol=1e-6, rtol=1e-4)
 K1_IMP_TOL = dict(atol=1e-5, rtol=1e-4)
 K1_IMP_BF16_TOL = dict(atol=1e-5, rtol=2 ** -7)   # one bf16 step
+# presoftmax importance sums scaled scores: 1e-4 of the row's largest
+# |score| (the scores themselves carry f32 rounding of that size)
+K1_PRESOFTMAX_REL = 1e-4
+K1_ROW_STATS_TOL = dict(atol=1e-6, rtol=1e-5)     # m and den per row
 
 
 def check(cond: bool, msg: str) -> None:
@@ -29,11 +33,27 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def _presoftmax_close(got, want, base=None) -> bool:
+    """Presoftmax importance [..., n]: within K1_PRESOFTMAX_REL of each
+    row's largest |delta| (``base``: the accumulator before the call, so
+    that the delta is want - base), plus the f32 floor."""
+    if want.shape[-1] == 0:
+        return True
+    delta = want if base is None else want - base
+    scale = delta.abs().amax(-1, keepdim=True)
+    tol = K1_IMP_TOL["atol"] + K1_PRESOFTMAX_REL * scale \
+        + K1_IMP_TOL["rtol"] * want.abs()
+    return bool(((got - want).abs() <= tol).all())
+
+
 def check_k1(kernel, plain, *, layer: int, lengths, threshold: float,
              keep_blocks: int, v_block: int, keep_out: Optional[torch.Tensor],
              head_mask: Optional[torch.Tensor] = None,
              importance_before: Optional[torch.Tensor] = None,
-             rounded_weights: bool = False) -> dict:
+             rounded_weights: bool = False, presoftmax: bool = False,
+             delta: Optional[tuple] = None, row_stats: Optional[tuple] = None,
+             append_mask: Optional[torch.Tensor] = None,
+             planes_before=None) -> dict:
     """Hold one K1 call against its plain version.
 
     ``kernel`` / ``plain``: (out, stats, state) after the call, where
@@ -44,7 +64,15 @@ def check_k1(kernel, plain, *, layer: int, lengths, threshold: float,
     pv_int8 or probs_bf16 was on, so one token's weight may sit one
     8-bit (or bf16) step apart.  ``importance_before``: the layer's
     accumulator before the call, for the dead-group check.  Raises
-    AssertionError on a mismatch; returns counts for the log."""
+    AssertionError on a mismatch; returns counts for the log.
+
+    The remaining flags: ``presoftmax`` (importance sums scores: held to
+    K1_PRESOFTMAX_REL of each row's largest |score|); ``delta``: (kernel,
+    plain) delta-mode importance [B, Hkv or Hq, rung] -- zero past each
+    row's length in the kernel, exact; ``row_stats``: ((m, den) kernel,
+    (m, den) plain) [B, Hq]; ``append_mask`` with ``planes_before`` (the
+    state before the call): rows that do not append keep every plane and
+    scale byte."""
     out_k, st_k, s_k = kernel
     out_p, st_p, s_p = plain
     b, hq = out_k.shape[:2]
@@ -57,6 +85,16 @@ def check_k1(kernel, plain, *, layer: int, lengths, threshold: float,
             if x is not None:
                 check(torch.equal(x, y), f"K1 {name} plane differs from the "
                       "plain version")
+    if append_mask is not None:
+        still = ~append_mask.to(torch.bool)
+        for a, c in ((s_k.cache.k, planes_before.cache.k),
+                     (s_k.cache.v, planes_before.cache.v)):
+            for name in ("full", "msb", "lsb2", "scale"):
+                x, y = getattr(a, name), getattr(c, name)
+                if x is not None:
+                    check(torch.equal(x[:, still], y[:, still]),
+                          f"K1 wrote the {name} plane of a row that does "
+                          "not append")
     # requant decisions: exact unless the max prob is within the margin
     near_t = (st_p.max_prob - threshold).abs() < DECISION_MARGIN
     if threshold <= 0:
@@ -99,15 +137,40 @@ def check_k1(kernel, plain, *, layer: int, lengths, threshold: float,
               f"K1 out differs (max err {float(err[ok].max()):.3e})")
     check(bool(torch.allclose(st_k.max_prob, st_p.max_prob, **K1_MAXP_TOL)),
           "K1 max_prob differs")
+    if row_stats is not None:
+        (m_k, d_k), (m_p, d_p) = row_stats
+        for x, y, what in ((m_k, m_p, "m"), (d_k, d_p, "den")):
+            if not torch.allclose(x[ok], y[ok], **K1_ROW_STATS_TOL):
+                raise AssertionError(f"K1 row stat {what} differs (max err "
+                                     f"{float((x - y)[ok].abs().max()):.3e})")
+    if delta is not None:
+        dk, dp = delta
+        check(dk.shape == dp.shape, f"K1 delta shape {tuple(dk.shape)}")
+        rows_near = near_t if dk.shape[1] == hkv else row_near
+        for bi, n in enumerate(lengths):
+            keep_rows = ~rows_near[bi]
+            check(not bool(dk[bi, :, n:].any()), "K1 delta is not zero past "
+                  "the length")
+            x, y = dk[bi, keep_rows, :n], dp[bi, keep_rows, :n]
+            close = (_presoftmax_close(x, y) if presoftmax
+                     else bool(torch.allclose(x, y, **K1_IMP_TOL)))
+            if not close:
+                raise AssertionError("K1 importance delta differs (max err "
+                                     f"{float((x - y).abs().max()):.3e})")
     imp_k, imp_p = s_k.importance[layer], s_p.importance[layer]
     tol = K1_IMP_BF16_TOL if imp_k.dtype == torch.bfloat16 else K1_IMP_TOL
     live = torch.zeros(s_k.importance.shape, dtype=torch.bool,
                        device=s_k.importance.device)
     for bi, n in enumerate(lengths):
         heads = ~near_t[bi]
-        check(bool(torch.allclose(imp_k[bi, heads, :n].float(),
-                                  imp_p[bi, heads, :n].float(), **tol)),
-              "K1 importance differs")
+        x, y = imp_k[bi, heads, :n].float(), imp_p[bi, heads, :n].float()
+        if presoftmax and importance_before is not None \
+                and imp_k.dtype == torch.float32:
+            close = _presoftmax_close(
+                x, y, importance_before[bi, heads, :n].float())
+        else:
+            close = bool(torch.allclose(x, y, **tol))
+        check(close, "K1 importance differs")
         live[layer, bi, :, :n] = True
     # everywhere else the accumulator keeps its bytes: the other layers,
     # and the columns at or past a row's length, which the head mask
@@ -158,11 +221,14 @@ def random_state(cfg, batch: int, generator: torch.Generator,
 
 
 def k1_pair(state, q, k_new, v_new, lengths, *, layer: int, threshold: float,
-            v_block: int, keep_blocks_for, head_mask=None, **flags) -> dict:
+            v_block: int, keep_blocks_for, head_mask=None,
+            delta_mode: bool = False, **flags) -> dict:
     """Run K1 and its plain version from two clones of ``state`` on the
     same inputs and hold them against each other (``check_k1``).
     ``keep_blocks_for(rung)``: the layer's V keep-block count in the
-    call's window (0 = V pruning off)."""
+    call's window (0 = V pruning off).  ``delta_mode``: importance as this
+    step's delta (no accumulator); ``flags`` may hold the split-K flags
+    (``append_mask``, ``return_row_stats``, ``per_row_importance``)."""
     from spatten_tpu_torch.ops import fused_decode as fd
     a, c = state.clone(), state.clone()
     b, hq = q.shape[:2]
@@ -173,22 +239,32 @@ def k1_pair(state, q, k_new, v_new, lengths, *, layer: int, threshold: float,
               head_mask=head_mask, **flags)
     imp_before = state.importance[layer].clone()
     before = fd.fused_decode_attention.launches
-    out_k, st_k, _, _ = fd.fused_decode_attention(
+    res_k = fd.fused_decode_attention(
         q, a.cache.k, a.cache.v, k_new, v_new, lengths,
-        importance_in=a.importance, keep_out=keep, **kw)
-    out_p, st_p, _, _ = fd.fused_decode_attention_plain(
+        importance_in=None if delta_mode else a.importance, keep_out=keep,
+        **kw)
+    res_p = fd.fused_decode_attention_plain(
         q, c.cache.k, c.cache.v, k_new, v_new, lengths,
-        importance_in=c.importance, **kw)
+        importance_in=None if delta_mode else c.importance, **kw)
     torch.cuda.synchronize()
     check(fd.fused_decode_attention.launches == before + 1,
           "K1 did not count its launch")
+    (out_k, st_k), (out_p, st_p) = res_k[:2], res_p[:2]
+    am = flags.get("append_mask")
     return check_k1((out_k, st_k, a), (out_p, st_p, c), layer=layer,
                     lengths=lengths.tolist(), threshold=threshold,
                     keep_blocks=keep_blocks_for(rung), v_block=v_block,
                     keep_out=keep, head_mask=head_mask,
                     importance_before=imp_before,
                     rounded_weights=bool(flags.get("pv_int8")
-                                         or flags.get("probs_bf16")))
+                                         or flags.get("probs_bf16")),
+                    presoftmax=flags.get("importance_kind") == "presoftmax",
+                    delta=((st_k.importance_delta, st_p.importance_delta)
+                           if delta_mode else None),
+                    row_stats=((res_k[4], res_p[4])
+                               if flags.get("return_row_stats") else None),
+                    append_mask=None if am is None else torch.as_tensor(am),
+                    planes_before=state if am is not None else None)
 
 
 def split_threshold(max_prob: torch.Tensor) -> float:

@@ -1,13 +1,13 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-Each ``csrc/<name>.cu`` exposes a plain C function and compiles on its own
-with ``nvcc`` for ``sm_90a`` into ``build/cuda/lib<name>.so`` at the repo
-root (listed in ``.gitignore``), the first time a kernel is needed or when
-its source is newer than the library.  ``build_all`` starts one ``nvcc``
-per source at once, so a fresh checkout builds in the time of the slowest
-file.  Libraries load with ``ctypes``; the wrappers in ``ops/`` pass
-pointers (``tensor.data_ptr()``) and PyTorch's current stream, and raise
-when the C function returns a CUDA error code.
+Each ``csrc/<source>.cu`` exposes plain C functions and compiles on its
+own with ``nvcc`` for ``sm_90a`` into ``build/cuda/lib<source>.so`` at the
+repo root (listed in ``.gitignore``), the first time one of its kernels
+is needed or when the source is newer than the library.  ``build_all``
+starts one ``nvcc`` per source at once, so a fresh checkout builds in the
+time of the slowest file.  Libraries load with ``ctypes``; the wrappers
+pass pointers (``tensor.data_ptr()``) and PyTorch's current stream, and
+raise when the C function returns a CUDA error code.
 
 Nothing here runs at import time: a CPU-only host imports every module.
 """
@@ -27,13 +27,21 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-# name -> (C function, argtypes); every pointer and the stream are c_void_p
+# kernel -> (source, C function, argtypes); every pointer and the stream
+# are c_void_p
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "fused_decode": ("spatten_fused_decode",
-                     [_P] * 18 + [_I] * 8 + [_F] * 3 + [_I] * 9 + [_P]),
-    "compact_gather": ("spatten_compact_gather", [_P] * 5 + [_I] * 5 + [_P]),
+    "fused_decode": ("fused_decode", "spatten_fused_decode",
+                     [_P] * 22 + [_I] * 8 + [_F] * 3 + [_I] * 11 + [_P]),
+    "compact_gather": ("compact_gather", "spatten_compact_gather",
+                       [_P] * 5 + [_I] * 5 + [_P]),
+    "probe_bare": ("launch_probe", "spatten_probe_bare", [_P] * 3),
+    "probe_gridded": ("launch_probe", "spatten_probe_gridded", [_P] * 3),
+    "probe_dma": ("launch_probe", "spatten_probe_dma", [_P] * 3),
+    "probe_aliased": ("launch_probe", "spatten_probe_aliased", [_P] * 3),
+    "probe_spref": ("launch_probe", "spatten_probe_spref", [_P] * 4),
 }
+SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -48,22 +56,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+def library_path(source: str) -> Path:
+    return BUILD_DIR / f"lib{source}.so"
 
 
-def _stale(name: str) -> bool:
-    lib = library_path(name)
-    src = CSRC / f"{name}.cu"
+def _stale(source: str) -> bool:
+    lib = library_path(source)
+    src = CSRC / f"{source}.cu"
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
 def build_all(names=None, force: bool = False) -> tuple[float, dict]:
-    """Compile the given kernels (default: all) in parallel.
+    """Compile the given sources (default: all) in parallel.
 
-    Returns (seconds, {name: ptxas report}).  Raises RuntimeError with the
-    compiler output when a build fails."""
-    names = list(SIGNATURES) if names is None else list(names)
+    Returns (seconds, {source: ptxas report}).  Raises RuntimeError with
+    the compiler output when a build fails."""
+    names = list(SOURCES) if names is None else list(names)
     todo = [n for n in names if force or _stale(n)]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -85,25 +93,33 @@ def build_all(names=None, force: bool = False) -> tuple[float, dict]:
     return time.perf_counter() - t0, reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built first if needed)."""
-    lib = _loaded.get(name)
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source`` (built first if needed), with the
+    argument types of its entry points set."""
+    lib = _loaded.get(source)
     if lib is None:
-        if _stale(name):
-            build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = lib
+        if _stale(source):
+            build_all([source])
+        lib = ctypes.CDLL(str(library_path(source)))
+        for src, fn_name, argtypes in SIGNATURES.values():
+            if src == source:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _loaded[source] = lib
     return lib
+
+
+def entry(name: str):
+    """Kernel ``name``'s C entry point (a ctypes function)."""
+    source, fn_name, _ = SIGNATURES[name]
+    return getattr(load(source), fn_name)
 
 
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s C entry point with ``args`` followed by the
     current CUDA stream; raise on a non-zero CUDA error code."""
-    fn = getattr(load(name), SIGNATURES[name][0])
+    fn = entry(name)
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*args, stream)
     if err != 0:

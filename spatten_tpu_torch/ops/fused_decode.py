@@ -118,12 +118,14 @@ def fused_decode_attention_plain(
     head_mask=None, importance_kind="prob", importance_in=None,
     track_importance=True, importance_ema=1.0, layer=None, quant_bits=None,
     quantize_queries=False, pv_int8=False, probs_bf16=False,
-    cap_override=None,
+    cap_override=None, append_mask=None, return_row_stats=False,
+    per_row_importance=False,
 ):
     """Plain PyTorch version of the kernel (same signature, same in-place
-    contract).  Returns (out, stats, k_quant, v_quant); ``stats.probs``
-    carries the normalized probabilities the kernel ranks and weights
-    with, head-masked, [B, Hq, 1, rung]."""
+    contract).  Returns (out, stats, k_quant, v_quant), and ``(m, den)``
+    after them under ``return_row_stats``; ``stats.probs`` carries the
+    normalized probabilities the kernel ranks and weights with,
+    head-masked, [B, Hq, 1, rung]."""
     kq, vq, imp = _layer_views(k_quant, v_quant, importance_in, layer)
     cap = _rung(kq.tokens, cap_override, v_block_size)
     kq, vq = _prefix(kq, cap), _prefix(vq, cap)
@@ -141,13 +143,21 @@ def fused_decode_attention_plain(
     bits = _layer_bits(quant_enabled, quant_bits, layer, has_lsb2)
 
     # ---- append: dense mode keeps no nibble planes up to date, and the
-    # 2-bit plane is maintained only under a mixed profile
+    # 2-bit plane is maintained only under a mixed profile.  A sequence
+    # whose append_mask is False writes nothing: its idx column is a
+    # stored token like any other (a split-K shard that does not own the
+    # tail slot), and it may hold no live token at all
     idx = lengths.to(torch.int64) - 1
+    if append_mask is None:
+        app = torch.ones(b, dtype=torch.bool, device=dev)
+    else:
+        app = torch.as_tensor(append_mask, device=dev).to(torch.bool)
+    rows_app = None if append_mask is None else torch.nonzero(app)[:, 0]
     qz.update_token(kq._replace(msb=kq.msb if quant_enabled else None,
                                 lsb2=kq.lsb2 if has_lsb2 else None),
-                    k_new[..., 0, :], idx)
+                    k_new[..., 0, :], idx, rows_app)
     qz.update_token(vq._replace(msb=vq.msb if quant_enabled else None,
-                                lsb2=None), v_new[..., 0, :], idx)
+                                lsb2=None), v_new[..., 0, :], idx, rows_app)
     _, ksc_new = qz.quantize_rows(k_new[..., 0, :])          # f32 [B, Hkv]
     vq8_new, vsc_new = qz.quantize_rows(v_new[..., 0, :])
 
@@ -186,16 +196,18 @@ def fused_decode_attention_plain(
     vsc = rows(vq.scale.to(f32))
     cols = torch.arange(cap, device=dev)
     live = cols[None, None, :] < lengths[:, None, None]        # [B, 1, C]
-    at_idx = cols[None, None, :] == idx[:, None, None]
+    at_idx = (cols[None, None, :] == idx[:, None, None]) & app[:, None, None]
 
     def softmax(s):
+        # a row with no live column (an empty shard) keeps m = MASK_VALUE
+        # and e = 0, as the Pallas body does
         s = torch.where(live, s * ksc, MASK_VALUE)
         m = s.amax(-1, keepdim=True)
-        e = torch.exp(s - m)
+        e = torch.where(live, torch.exp(s - m), 0.0)
         return s, m, e, e.sum(-1, keepdim=True)
 
     s, m, e, den = softmax(x)
-    col_idx = idx.reshape(b, 1, 1).expand(b, hq, 1)
+    col_idx = torch.clamp(idx, min=0).reshape(b, 1, 1).expand(b, hq, 1)
 
     def at_col(t):                          # [B, Hq, C] -> [B, Hq, 1]
         return t.gather(-1, col_idx)
@@ -225,7 +237,9 @@ def fused_decode_attention_plain(
     e_st = e.to(torch.bfloat16).to(f32) if probs_bf16 else e
     wrow = hmf * (1.0 / torch.clamp(den, min=1e-30))
     # the appended column's probability with the new row's f32 scale
-    e_idx = torch.exp(x_idx * rows(ksc_new[..., None]) - m)
+    # (non-appending rows weight their idx column from the planes)
+    e_idx = torch.where(app[:, None, None],
+                        torch.exp(x_idx * rows(ksc_new[..., None]) - m), 0.0)
 
     kb = _v_keep_blocks(v_keep, v_block_size, cap, layer)
     nvb = cap // v_block_size
@@ -264,10 +278,14 @@ def fused_decode_attention_plain(
     if importance_kind == "prob":
         dsrc = e_st * wrow
     elif importance_kind == "presoftmax":
+        # the last scoring pass's masked scaled scores, head-masked
         dsrc = torch.where(live, s, 0.0) * hmf
     else:
         raise ValueError(importance_kind)
-    delta = dsrc.reshape(b, hkv, group, cap).sum(2)            # [B, Hkv, C]
+    if per_row_importance and imp is None and group > 1:
+        delta = dsrc                                           # [B, Hq, C]
+    else:
+        delta = dsrc.reshape(b, hkv, group, cap).sum(2)        # [B, Hkv, C]
     if not track_importance:
         delta = torch.zeros_like(delta)
     elif imp is not None:
@@ -283,6 +301,9 @@ def fused_decode_attention_plain(
     stats = AttentionStats(max_prob=mp, need_requant=need,
                            importance_delta=delta,
                            probs=(e_st * wrow)[:, :, None, :])
+    if return_row_stats:
+        return out[:, :, None, :], stats, k_quant, v_quant, (
+            m[..., 0], torch.clamp(den, min=1e-30)[..., 0])
     return out[:, :, None, :], stats, k_quant, v_quant
 
 
@@ -318,8 +339,11 @@ def fused_decode_attention(
     pv_int8: bool = False,
     probs_bf16: bool = False,
     cap_override: Optional[int] = None,             # capacity rung
+    append_mask: Optional[torch.Tensor] = None,     # bool [B]
+    return_row_stats: bool = False,
+    per_row_importance: bool = False,
     keep_out: Optional[torch.Tensor] = None,        # uint8 [B, Hq, rung/vb]
-) -> tuple[torch.Tensor, AttentionStats, qz.QuantizedKV, qz.QuantizedKV]:
+):
     """One fused decode step.  Returns (out [B, Hq, 1, D] f32, stats,
     k_quant, v_quant): the cache planes (and the importance accumulator,
     when given) are updated IN PLACE, so the inputs are consumed.
@@ -328,8 +352,19 @@ def fused_decode_attention(
     only layer ``layer`` is read or written.  ``cap_override`` sizes the
     call to a prefix of the stored capacity (lengths stay at or under
     it).  ``stats.importance_delta`` is the accumulator itself when
-    ``importance_in`` is given.  ``keep_out`` (CUDA only, for checks)
-    receives the per-row kept V-block mask when V pruning is on.
+    ``importance_in`` is given; without it (delta mode) it is this step's
+    delta [B, Hkv, rung], zero outside the live columns, or per query row
+    [B, Hq, rung] under ``per_row_importance`` with GQA.
+    ``importance_kind``: "prob" (softmax probabilities) or "presoftmax"
+    (the masked scaled scores of the last scoring pass).
+
+    The split-K flags: ``append_mask`` False leaves a sequence's planes
+    untouched and scores its idx column as a stored token (such a
+    sequence may hold no live token: zero output, m = MASK_VALUE, den =
+    1e-30); ``return_row_stats`` adds ``(m, den)`` [B, Hq], the per-row
+    softmax max and denominator, as a fifth result.  ``keep_out`` (CUDA
+    only, for checks) receives the per-row kept V-block mask when V
+    pruning is on.
     """
     flags = dict(
         sm_scale=sm_scale, requant_threshold=requant_threshold,
@@ -339,19 +374,17 @@ def fused_decode_attention(
         track_importance=track_importance, importance_ema=importance_ema,
         layer=layer, quant_bits=quant_bits,
         quantize_queries=quantize_queries, pv_int8=pv_int8,
-        probs_bf16=probs_bf16, cap_override=cap_override)
+        probs_bf16=probs_bf16, cap_override=cap_override,
+        append_mask=append_mask, return_row_stats=return_row_stats,
+        per_row_importance=per_row_importance)
     if not q.is_cuda:
         if keep_out is not None:
             raise ValueError("keep_out is a kernel check output (CUDA only)")
         return fused_decode_attention_plain(
             q, k_quant, v_quant, k_new, v_new, lengths, **flags)
 
-    if importance_kind != "prob":
-        raise NotImplementedError("K1 on CUDA: importance_kind "
-                                  f"{importance_kind!r} is not ported yet")
-    if track_importance and importance_in is None:
-        raise NotImplementedError("K1 on CUDA: delta-mode importance is not "
-                                  "ported yet (pass importance_in)")
+    if importance_kind not in ("prob", "presoftmax"):
+        raise ValueError(importance_kind)
     kq, vq, imp = _layer_views(k_quant, v_quant, importance_in, layer)
     b, hq, q_len, d = q.shape
     hkv, cap_total = kq.heads, kq.tokens
@@ -380,7 +413,10 @@ def fused_decode_attention(
         if tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"cache plane {tuple(t.shape)} {t.dtype} is not "
                              f"a contiguous {dt} {shape}")
-    meta = [kq.scale, vq.scale] + ([imp] if track_importance else [])
+    accumulate = track_importance and imp is not None
+    per_row = per_row_importance and track_importance and not accumulate \
+        and group > 1
+    meta = [kq.scale, vq.scale] + ([imp] if accumulate else [])
     for t in meta:
         if (tuple(t.shape) != (b, hkv, cap_total) or t.dtype not in
                 _META_DTYPES or not t.is_contiguous()):
@@ -409,13 +445,27 @@ def fused_decode_attention(
     if mixed:
         qbits = torch.as_tensor(quant_bits, dtype=torch.int32,
                                 device=dev).contiguous()
+    appm = None
+    if append_mask is not None:
+        appm = torch.as_tensor(append_mask, device=dev).to(
+            torch.uint8).reshape(b).contiguous()
     for t in (kq.full, vq.full, lens) + tuple(
-            x for x in (hmask, qbits) if x is not None):
+            x for x in (hmask, qbits, appm) if x is not None):
         if t.device != dev:
             raise ValueError("K1 operands must share one CUDA device")
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
     max_prob = torch.empty((b, hkv), dtype=torch.float32, device=dev)
     need = torch.empty((b, hkv), dtype=torch.uint8, device=dev)
+    # delta mode: the kernel writes every column of the rung (zeros past a
+    # row's length), so the output needs no clearing
+    delta = None
+    if track_importance and not accumulate:
+        delta = torch.empty((b, hq if per_row else hkv, cap),
+                            dtype=torch.float32, device=dev)
+    m_rows = den_rows = None
+    if return_row_stats:
+        m_rows = torch.empty((b, hq), dtype=torch.float32, device=dev)
+        den_rows = torch.empty((b, hq), dtype=torch.float32, device=dev)
     kb = _v_keep_blocks(v_keep, v_block_size, cap, layer)
     if keep_out is not None and (tuple(keep_out.shape) != (b, hq, nvb)
                                  or keep_out.dtype != torch.uint8):
@@ -428,23 +478,28 @@ def fused_decode_attention(
         kernels.ptr(kq.lsb2 if has_lsb2 else None),
         kq.scale.data_ptr(), vq.full.data_ptr(),
         kernels.ptr(vq.msb if quant_enabled else None), vq.scale.data_ptr(),
-        kernels.ptr(imp if track_importance else None), kernels.ptr(hmask),
-        kernels.ptr(qbits), out.data_ptr(), max_prob.data_ptr(),
-        need.data_ptr(), kernels.ptr(keep_out),
+        kernels.ptr(imp if accumulate else None), kernels.ptr(hmask),
+        kernels.ptr(qbits), kernels.ptr(appm), out.data_ptr(),
+        max_prob.data_ptr(), need.data_ptr(), kernels.ptr(keep_out),
+        kernels.ptr(delta), kernels.ptr(m_rows), kernels.ptr(den_rows),
         b, hq, hkv, d, cap, cap_total, qz.pack_unit(cap_total),
         0 if layer is None else int(layer),
         float(sm_scale), float(requant_threshold), float(importance_ema),
         int(quant_enabled), int(do_requant), kb, v_block_size,
         int(kq.scale.dtype == torch.bfloat16),
-        int(track_importance and imp.dtype == torch.bfloat16),
-        int(quantize_queries), int(pv_int8), int(probs_bf16))
+        int(accumulate and imp.dtype == torch.bfloat16),
+        int(quantize_queries), int(pv_int8), int(probs_bf16),
+        int(importance_kind == "presoftmax"), int(per_row))
     fused_decode_attention.launches += 1
-    if track_importance:
+    if accumulate:
         delta = importance_in
-    else:
+    elif delta is None:
         delta = torch.zeros((b, hkv, cap), dtype=torch.float32, device=dev)
     stats = AttentionStats(max_prob=max_prob, need_requant=need.bool(),
                            importance_delta=delta, probs=None)
+    if return_row_stats:
+        return (out.reshape(b, hq, 1, d), stats, k_quant, v_quant,
+                (m_rows, den_rows))
     return out.reshape(b, hq, 1, d), stats, k_quant, v_quant
 
 

@@ -200,22 +200,27 @@ def dequantize_6bit(q: QuantizedKV, dtype=torch.float32) -> torch.Tensor:
             * q.scale.to(torch.float32)[..., None]).to(dtype)
 
 
-def update_token(q: QuantizedKV, x_new: torch.Tensor, index: torch.Tensor
-                 ) -> QuantizedKV:
+def update_token(q: QuantizedKV, x_new: torch.Tensor, index: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None) -> QuantizedKV:
     """Write one new token row per sequence into slot ``index[b]``, IN
     PLACE (the input planes are consumed and returned).
 
     q planes: [B, T(/2,/4), H*D], scale [B, H, T]; x_new: [B, H, D]
-    unquantized; index: int [B].  The packed-plane write is a
-    read-modify-write of one byte row touching only the nibble owned by
-    ``index`` (the batched form of the JAX ``vmap(update_token)``).
+    unquantized; index: int [B].  ``rows`` (int64 batch indices): write
+    only those sequences (the others keep every byte).  The packed-plane
+    write is a read-modify-write of one byte row touching only the nibble
+    owned by ``index`` (the batched form of the JAX
+    ``vmap(update_token)``).
     """
     t = q.tokens
-    b = x_new.shape[0]
-    bi = torch.arange(b, device=x_new.device)
     index = index.to(torch.int64)
+    if rows is None:
+        bi = torch.arange(x_new.shape[0], device=x_new.device)
+    else:
+        bi, x_new, index = rows, x_new[rows], index[rows]
+    b = x_new.shape[0]
     q8_new, scale_new = quantize_rows(x_new)              # [B, H, D], [B, H]
-    fused_row = q8_new.reshape(b, -1)                     # [B, H*D]
+    fused_row = q8_new.reshape(b, q.full.shape[-1])       # [B, H*D]
     q.full[bi, index] = fused_row
     hi_ = torch.arange(q.heads, device=x_new.device)
     q.scale[bi[:, None], hi_[None, :], index[:, None]] = \

@@ -20,6 +20,59 @@ from spatten_tpu_torch.config import PruningConfig
 _NEG_INF = float("-inf")
 
 
+def pruned_length(cfg: PruningConfig, num_coming: int) -> int:
+    """Number of tokens kept after a prune."""
+    recent_keep = cfg.recent_size - num_coming
+    if recent_keep < 0:
+        raise ValueError(
+            f"num_coming={num_coming} exceeds recent_size={cfg.recent_size}")
+    return cfg.start_size + cfg.important_size + recent_keep
+
+
+def select_keep_indices(
+    importance: torch.Tensor,       # [..., C]
+    length,                         # int, or int tensor broadcastable to [...]
+    start_size: int,
+    important_size: int,
+    recent_size: int,
+    num_coming: int,
+) -> torch.Tensor:
+    """Kept token indices, ascending: int32 [..., keep_total] with
+    keep_total = start + important + (recent - num_coming).
+
+    Entries of ``importance`` at or past ``length`` are ignored.  The
+    result is meaningful when ``length + num_coming`` exceeds the cache
+    size; callers gate on that.  The top-``important`` selection of the
+    middle region breaks ties toward the lower index, as
+    ``jax.lax.top_k`` does.
+    """
+    capacity = importance.shape[-1]
+    lead = importance.shape[:-1]
+    dev = importance.device
+    recent_keep = recent_size - num_coming
+    if recent_keep < 0:
+        raise ValueError(
+            f"num_coming={num_coming} exceeds recent_size={recent_size}")
+    keep_total = start_size + important_size + recent_keep
+    if keep_total > capacity:
+        raise ValueError(f"keep {keep_total} exceeds capacity {capacity}")
+    pos = torch.arange(capacity, device=dev)
+    length = torch.as_tensor(length, dtype=torch.int64, device=dev
+                             ).broadcast_to(lead)
+    recent_begin = length - recent_keep                        # [...]
+    parts = [torch.arange(start_size, device=dev).expand(lead + (start_size,))]
+    if important_size > 0:
+        in_middle = (pos >= start_size) & (pos < recent_begin[..., None])
+        masked = torch.where(in_middle, importance.to(torch.float32),
+                             _NEG_INF)
+        idx = torch.sort(masked, dim=-1, descending=True, stable=True
+                         ).indices[..., :important_size]
+        parts.append(torch.sort(idx, dim=-1).values)
+    parts.append(recent_begin[..., None]
+                 + torch.arange(recent_keep, device=dev))
+    return torch.cat(parts, dim=-1).to(torch.int32)
+
+
 def layer_budgets_static(cfg: PruningConfig, num_layers: int
                          ) -> tuple[int, ...]:
     """Per-layer important-region budgets as plain ints."""

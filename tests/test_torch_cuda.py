@@ -10,7 +10,11 @@ and nvcc, from the repository root:
 does not use.)  K1 runs every GQA group / head_dim instance class it
 supports and each serving flag alone (head masks, bf16 metadata, int8
 queries, integer P·V, the bf16 probability plane, a capacity rung, 6- and
-8-bit layers) and combined; the rules and tolerances are those of
+8-bit layers) and combined, presoftmax and delta-mode importance, and
+the split-K flags (rows that do not append, an empty shard, row stats,
+per-row importance under GQA); a small split-K step runs K1 per shard
+against one unsharded K1 call; P1-P5 of the launch probe equal their
+plain versions.  The rules and tolerances are those of
 ``spatten_tpu_torch/kernel_checks.py``, shared with ``chip_smoke.py``.
 """
 
@@ -30,6 +34,9 @@ from spatten_tpu_torch.engine.state import init_state
 from spatten_tpu_torch.models import transformer as tr
 from spatten_tpu_torch.ops import compact_gather as cg
 from spatten_tpu_torch.ops import fused_decode as fd
+from spatten_tpu_torch.ops import quantize as qz
+from spatten_tpu_torch.parallel import split_k as sk
+from spatten_tpu_torch.tools import launch_overhead as lo
 
 pytestmark = pytest.mark.cuda
 
@@ -76,7 +83,7 @@ def serving_small(*, cap=256, hq=4, hkv=2, d=128, bf16=True,
 
 
 def run_pair(dev, cfg, g, lengths, *, requant, v_keep, layer=1,
-             head_mask=None, **flags):
+             head_mask=None, delta_mode=False, **flags):
     """K1 vs its plain version on one layer of a random stacked cache."""
     m = cfg.model
     b, vb = len(lengths), cfg.pruning.v_block_size
@@ -95,14 +102,14 @@ def run_pair(dev, cfg, g, lengths, *, requant, v_keep, layer=1,
     threshold = 0.0
     if requant:
         probe = st.clone()
-        _, sp, _, _ = fd.fused_decode_attention_plain(
+        sp = fd.fused_decode_attention_plain(
             q, probe.cache.k, probe.cache.v, kn, vn, lens, layer=layer,
             v_block_size=vb, importance_in=probe.importance,
-            head_mask=head_mask, **kw)
+            head_mask=head_mask, **kw)[1]
         threshold = kc.split_threshold(sp.max_prob)
     return kc.k1_pair(
         st, q, kn, vn, lens, layer=layer, threshold=threshold, v_block=vb,
-        head_mask=head_mask,
+        head_mask=head_mask, delta_mode=delta_mode,
         keep_blocks_for=lambda rung: fd._v_keep_blocks(v_keep, vb, rung,
                                                        layer), **kw)
 
@@ -147,18 +154,109 @@ def test_k1_serving_flags_match_plain(dev, case):
         assert res["dead_groups"] > 0
 
 
-def test_k1_raises_on_unported_flags(dev):
-    cfg = small_cfg(4, 2, 64, 128)
-    st = init_state(cfg, 1, device=dev)
-    q = torch.zeros((1, 4, 1, 64), device=dev)
-    kn = torch.zeros((1, 2, 1, 64), device=dev)
-    args = (q, st.cache.k, st.cache.v, kn, kn,
-            torch.ones(1, dtype=torch.int32, device=dev))
-    with pytest.raises(NotImplementedError):
-        fd.fused_decode_attention(*args, layer=0, importance_in=st.importance,
-                                  importance_kind="presoftmax")
-    with pytest.raises(NotImplementedError):
-        fd.fused_decode_attention(*args, layer=0, importance_in=None)
+# name -> (GQA group, lengths, call options): importance kinds and the
+# split-K flags, f32 metadata, capacity 256
+SPLIT_K_CASES = {
+    "presoftmax_accumulated": (1, [256, 129, 40, 1],
+                               dict(importance_kind="presoftmax")),
+    "presoftmax_delta": (2, [256, 129, 40, 1],
+                         dict(importance_kind="presoftmax", delta_mode=True)),
+    "prob_delta": (1, [256, 129, 40, 1], dict(delta_mode=True)),
+    "append_mask": (1, [256, 129, 40, 0],
+                    dict(append_mask=[True, False, True, False],
+                         delta_mode=True, return_row_stats=True)),
+    "row_stats_dead_group": (2, [256, 129, 40, 1],
+                             dict(return_row_stats=True,
+                                  head_mask=[True, True, False, False])),
+    "per_row_gqa": (4, [256, 129, 40, 0],
+                    dict(per_row_importance=True, delta_mode=True,
+                         return_row_stats=True,
+                         append_mask=[False, True, False, False])),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_K_CASES))
+def test_k1_split_k_flags_match_plain(dev, case):
+    group, lengths, flags = SPLIT_K_CASES[case]
+    cfg = serving_small(hq=2 * group, hkv=2, bf16=False)
+    g = torch.Generator(device=dev).manual_seed(100 + len(case))
+    flags = dict(flags)
+    for k in ("append_mask", "head_mask"):
+        if k in flags:
+            flags[k] = torch.tensor(flags[k], device=dev)
+    res = run_pair(dev, cfg, g, lengths, requant=True, v_keep=(40, 48),
+                   **flags)
+    assert res["max_abs_err"] <= 1e-4
+
+
+def test_split_k_matches_unsharded_k1(dev):
+    """Four shards on one card: K1 per shard and the exact recombination vs
+    one unsharded K1 call over the globally packed cache of the same
+    tokens; then a prune and one more step over the kept set."""
+    n, b, hq, hkv, d, cl = 4, 2, 4, 2, 64, 256
+    cap = n * cl
+    mesh = sk.make_kv_mesh([dev] * n)
+    rng = np.random.default_rng(5)
+    x = {k: torch.from_numpy(rng.standard_normal(sh).astype(np.float32)
+                             ).to(dev)
+         for k, sh in (("q", (b, hq, 1, d)), ("k", (b, hkv, cap, d)),
+                       ("v", (b, hkv, cap, d)), ("kn", (b, hkv, 1, d)),
+                       ("vn", (b, hkv, 1, d)))}
+    imp0 = torch.from_numpy(rng.uniform(size=(b, hkv, cap)).astype(
+        np.float32)).to(dev)
+    ks = sk.quantize_sharded(x["k"], mesh)
+    vs = sk.quantize_sharded(x["v"], mesh, with_msb=False)
+    kg = qz.quantize(x["k"])
+    vg = qz.quantize(x["v"], with_msb=False)
+    own = torch.tensor([100, 37], dtype=torch.int32)
+    local = torch.cat([torch.full((n - 1, b), cl, dtype=torch.int32),
+                       own[None]]).to(dev)
+    glob = local.sum(0)
+    imp_s = sk.shard_tokens(imp0.clone(), mesh, -1)
+    kw = dict(sm_scale=0.125, quant_enabled=True)
+    before = fd.fused_decode_attention.launches
+    out, ks, vs, imp_s, _, _ = sk.split_k_decode_fused(
+        x["q"], ks, vs, x["kn"], x["vn"], local, mesh, importance_in=imp_s,
+        **kw)
+    assert fd.fused_decode_attention.launches == before + n
+    imp_g = imp0.clone()
+    want, _, kg, vg = fd.fused_decode_attention(
+        x["q"], kg, vg, x["kn"], x["vn"], glob, importance_in=imp_g, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+    joined = sk.join_kv(ks)
+    assert torch.equal(joined.full, kg.full)
+    imp = sk.join_tokens(imp_s)
+    for bi in range(b):
+        m = int(glob[bi])
+        torch.testing.assert_close(imp[bi, :, :m], imp_g[bi, :, :m],
+                                   atol=1e-5, rtol=1e-4)
+    ks, vs, imp_s, local = sk.split_k_prune(
+        ks, vs, imp_s, local, mesh, start_size=4, important_size=300,
+        recent_size=100)
+    assert local[:, 0].tolist() == [256, 148, 0, 0]
+    local[1] += 1                               # the owner of slot 404
+    out2, _, _, _, _, _ = sk.split_k_decode_fused(
+        x["q"], ks, vs, x["kn"], x["vn"], local, mesh, **kw)
+    kg2, vg2 = sk.join_kv(ks), sk.join_kv(vs)
+    kg2 = kg2._replace(msb=qz.pack_msb(kg2.full))
+    glob2 = local.sum(0)
+    # the shards already hold the appended row: the unsharded call
+    # rewrites the same bytes at the same slot
+    want2, _, _, _ = fd.fused_decode_attention(
+        x["q"], kg2, vg2, x["kn"], x["vn"], glob2, track_importance=False,
+        **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out2, want2, atol=1e-4, rtol=1e-4)
+
+
+def test_launch_probes_match_plain(dev):
+    ops = lo.inputs(dev, seed=3)
+    before = {pid: k.launches for pid, (k, _, _, _) in lo.PROBES.items()}
+    errs = lo.check_probes(ops)
+    assert errs == {pid: 0.0 for pid in lo.PROBES}
+    assert all(k.launches == before[pid] + 1
+               for pid, (k, _, _, _) in lo.PROBES.items())
 
 
 def test_k2_matches_plain(dev):
