@@ -17,7 +17,13 @@ failures is caught:
    accumulated and in delta mode, prob in delta mode, rows that do not
    append with an empty one, row stats) and per-row importance at a GQA
    shape (32 query heads over 8 kv heads of 128); rules and tolerances
-   in ``spatten_tpu_torch/kernel_checks.py``;
+   in ``spatten_tpu_torch/kernel_checks.py``.  K1's times (``time_k1``)
+   are device times per call from CUDA events over back-to-back calls
+   that walk the stacked layers, so each call finds its planes cold in
+   L2 as decode does; the kernel streams them through its shared-memory
+   tile ring (``csrc/fused_decode.cu``), whose registers and spills per
+   <G, D> instance phase 1 prints (``<1, 128>``, the main path's, must not
+   spill);
 3. K2 (prune compaction) vs its plain version at both slices' shapes;
 4. split-K decode (``phase_split_k``): 4 shards of 2048 tokens on the
    card, MHA and GQA, one K1 launch per shard against one unsharded K1
@@ -1112,15 +1118,23 @@ def main() -> int:
 
     secs, reports = kernels.build_all(force=True)
     log(f"built {sorted(reports)} in {secs:.1f} s")
+    spills = {}
     for name, rep in reports.items():
+        inst = None
         for line in rep.splitlines():
             if "Function properties for" in line:
                 # the instance's template arguments, <G, D> for K1
                 fn = line.split("for", 1)[1].strip()
                 args = re.findall(r"Li(\d+)E", fn)
-                log(f"  {name}: {'<' + ', '.join(args) + '>' if args else fn}")
+                inst = "<" + ", ".join(args) + ">" if args else fn
+                log(f"  {name}: {inst}")
             elif "registers" in line or "spill" in line:
                 log(f"  {name}:   {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m:
+                    spills[(name, inst)] = int(m.group(1))
+    check(spills.get(("fused_decode", "<1, 128>")) == 0,
+          "K1 <1, 128> (the main path's instance) spills registers")
 
     k1_pr1 = phase_k1_slice1(slice_config(), dev)
     k1_srv = phase_k1_serving(dev)

@@ -58,21 +58,66 @@
 // (one msb row and one lsb2 row serve a hi and a lo token), unpacks in
 // registers, keeps scores and probabilities in shared memory (never in
 // device memory), and skips the loads of V blocks no query row keeps and
-// of dead head groups.  Each warp keeps kUnroll rows' loads in flight.
+// of dead head groups.
+//
+// What held the first design far from that bound was latency, not bytes:
+// each warp kept 4 rows of 4 bytes per lane in flight (~4 KB per CTA), and
+// every token's scale was a dependent global load.  So the three
+// streaming passes (pass 1, the requant recompute, P·V) now read from a
+// ring of kStages tiles of 16 KB in shared memory.  Warp 0 fills it: a
+// full tile is one TMA box (a 2-D tensor map over the layer's plane, D
+// bytes x the tile's rows at the plane's F = Hkv*D stride; the maps are
+// encoded on the host once per plane and layer and cached), a ragged last
+// tile one cp.async.bulk per live row, and each stage completes on its own
+// mbarrier (expect_tx).  After a tile is consumed a __syncthreads() frees
+// its stage and warp 0 refills it, so ~kStages * 16 KB stay in flight per
+// CTA.  (128-byte row copies cost ~30-75 ns each per CTA on this card, so
+// a tile of them could not keep up; one box per tile does.)  Each tile
+// carries its metadata: the K (or V) scale segment of its tokens is one
+// more bulk copy into the same stage (two for a packed msb tile: its hi
+// and lo tokens; one per kept block piece for P·V), so no scale is read
+// from device memory inside a per-token loop.  Only live rows are
+// fetched: packed rows whose hi token is below the length, int8 rows of
+// [0, len) (the requant pass only where it fires), V rows of kept blocks
+// other than the appended one.  Compute warps read a tile with D/16 lanes
+// per row, 16 B per lane (4 rows per warp instruction at D = 128, no bank
+// conflicts), two row steps at a time so that their loads and shuffles
+// overlap, and reduce a row over its lanes in log2(D/16) shuffles; the
+// row's leader writes the scaled score with the scale from the tile.  The
+// dot products avoid int-to-float conversions (a quarter-rate unit that
+// bounded the first ring): exact dp4a integer sums under int8 queries,
+// else bytes read as floats by placing them under the exponent of 2^23
+// (exact).  P·V gives each lane 16 columns of the accumulator.  GQA group
+// 8 uses 8 B per lane so that its query rows and accumulators fit in
+// registers.  The importance column and the pv_int8 V-scale maximum are
+// read in 8-column vectors.  The append writes the cache with ordinary
+// stores, which the copies (async proxy) may read back: every thread
+// fences the async proxy before the __syncthreads() that follows the
+// append.  The shared-memory plan is smem_bytes() below, mirrored by
+// smem_bytes() in spatten_tpu_torch/ops/fused_decode.py (which checks it
+// before a launch).
 // The TPU scheduling machinery (heads/batches per program, DMA slot
 // rotation, cross-instance prefetch, scale-ladder rungs, gate words) has
 // no counterpart here.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <unordered_map>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;
+constexpr int kStages = 4;               // tiles in flight per CTA
+constexpr int kStageBytes = 16384;       // plane rows of one tile
+constexpr int kSegBytes = 2304;          // the tile's scale segments
+constexpr int kSegHalf = kSegBytes / 2;  // a packed tile's lo-token segment
+constexpr int kStageStride = kStageBytes + kSegBytes;
+constexpr int kRowSteps = 2;             // row steps a warp overlaps
 constexpr int kMisc = 8;                 // per-row scalars in shared memory
 constexpr float kMsbMidpoint = 7.5f;     // qz.MSB_MIDPOINT
 constexpr float kMidpoint6 = 1.5f;       // qz.MIDPOINT6
@@ -105,6 +150,13 @@ struct Params {
   float sm_scale, threshold, ema;
   int quant, requant, keep_blocks, v_block;
   int sc_bf16, imp_bf16, qq, pv_int8, probs_bf16, presoftmax, per_row;
+  // the ring's geometry (host-computed): packed rows of a msb tile, V
+  // rows of a P·V tile and of one of its pieces (inside one V block)
+  int t_msb, tpv, piece;
+  int v_box;             // a P·V piece may be one box (128-byte aligned)
+  // TMA tensor maps over this layer's planes, rows of D bytes at stride
+  // F: boxes of kRows (int8 K), t_msb (msb, lsb2) and piece (int8 V) rows
+  CUtensorMap kf_map, km_map, kl2_map, vf_map;
 };
 
 // per-row scalars: misc[k * G + g]
@@ -142,11 +194,6 @@ __device__ float block_reduce(float v, float* red, float init, Op op) {
   return op(lane < kWarps ? red[lane] : init);
 }
 
-__device__ __forceinline__ float load_meta(const void* p, size_t i, int bf) {
-  return bf ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-            : static_cast<const float*>(p)[i];
-}
-
 __device__ __forceinline__ void store_meta(void* p, size_t i, float v,
                                            int bf) {
   if (bf) {
@@ -158,26 +205,6 @@ __device__ __forceinline__ void store_meta(void* p, size_t i, float v,
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Load VEC consecutive bytes (VEC in {2, 4, 8}) as one aligned word.
-template <int VEC>
-__device__ __forceinline__ void load_bytes(const uint8_t* p, uint8_t (&b)[VEC]) {
-  if constexpr (VEC == 8) {
-    uint2 w = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) b[i] = (w.x >> (8 * i)) & 0xFF;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) b[4 + i] = (w.y >> (8 * i)) & 0xFF;
-  } else if constexpr (VEC == 4) {
-    uint32_t w = *reinterpret_cast<const uint32_t*>(p);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) b[i] = (w >> (8 * i)) & 0xFF;
-  } else {
-    uint16_t w = *reinterpret_cast<const uint16_t*>(p);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) b[i] = (w >> (8 * i)) & 0xFF;
-  }
 }
 
 // Quantize one head's new row (one warp): int8 + scale into slot idx of
@@ -223,6 +250,284 @@ __device__ void append_row(const float* x, int8_t* full_row, void* scale,
   }
 }
 
+// Sum / max over the N lanes (an aligned group) that hold one row.
+template <int N>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = N / 2; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int N>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = N / 2; o; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Eight consecutive metadata values from element i (a multiple of 8, so
+// one 16-byte load for bf16, two for f32), and their store.
+__device__ __forceinline__ void load_meta8(const void* p, size_t i, int bf,
+                                           float (&v)[8]) {
+  if (bf) {
+    const uint4 w = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p) + i);
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = __uint_as_float(ws[k] << 16);
+      v[2 * k + 1] = __uint_as_float(ws[k] & 0xFFFF0000u);
+    }
+  } else {
+    const float4* f =
+        reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+    const float4 a = f[0], b = f[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+}
+
+__device__ __forceinline__ void store_meta8(void* p, size_t i,
+                                            const float (&v)[8], int bf) {
+  if (bf) {
+    uint32_t ws[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      ws[k] = static_cast<uint32_t>(
+                  __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k]))) |
+              (static_cast<uint32_t>(
+                   __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k + 1])))
+               << 16);
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p) + i) =
+        make_uint4(ws[0], ws[1], ws[2], ws[3]);
+  } else {
+    float4* f = reinterpret_cast<float4*>(static_cast<float*>(p) + i);
+    f[0] = make_float4(v[0], v[1], v[2], v[3]);
+    f[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// ---- the tile ring: bulk copies into shared memory on mbarriers --------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void arrive_expect_tx(uint32_t bar,
+                                                 uint32_t bytes) {
+  uint64_t state;
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;"
+      : "=l"(state)
+      : "r"(bar), "r"(bytes)
+      : "memory");
+  (void)state;
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One TMA box (rows of D bytes) at (column c0, row c1) of `map`.
+__device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Wait for a stage's phase; a copy that never lands (a byte count that
+// disagrees with the copies) traps after ~4 s instead of hanging.
+__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 33)) __trap();
+  }
+}
+
+// A tile's metadata segment: the 16-byte-aligned span of a scale column
+// (whose element 0 is 16-byte aligned) that covers tokens [t, t + n).
+// Returns its bytes; copies it into dst on `bar` when `go`.
+__device__ __forceinline__ uint32_t seg_copy(uint8_t* dst, const uint8_t* col,
+                                             int t, int n, int es,
+                                             uint32_t bar, bool go) {
+  const int a = (t * es) & ~15;
+  const int e = ((t + n) * es + 15) & ~15;
+  if (go) bulk_copy(dst, col + a, e - a, bar);
+  return static_cast<uint32_t>(e - a);
+}
+
+// Token t's value in a segment whose first token is tf.
+__device__ __forceinline__ float seg_at(const uint8_t* seg, int tf, int t,
+                                        int bf) {
+  if (bf)
+    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+        seg + 2 * t - ((2 * tf) & ~15)));
+  return *reinterpret_cast<const float*>(seg + 4 * t - ((4 * tf) & ~15));
+}
+
+// Room for one segment of n tokens (its widening to 16 B included).
+__host__ __device__ constexpr int seg_stride(int n, int es) {
+  return (n * es + 28 + 15) & ~15;
+}
+
+// The largest power of two <= rows that divides n (a tile must not cross
+// a half-unit of the packed layout, nor a V block).
+__host__ __device__ inline int tile_rows(int rows, int n) {
+  while (n % rows) rows >>= 1;
+  return rows;
+}
+
+struct Ring {
+  uint8_t* buf;        // kStages stages of kStageStride bytes
+  uint64_t* bar;       // one mbarrier per stage
+  int used;            // tiles streamed so far (every thread agrees)
+};
+
+// Stream n tiles through the ring.  copy(i, stage, bar, go) returns the
+// bytes the calling lane of warp 0 copies for tile i, issuing them when
+// `go`; consume(i, stage) reads a tile that has landed.  Warp 0 keeps
+// kStages tiles in flight: after a tile is consumed a __syncthreads()
+// frees its stage and warp 0 refills it.  Every thread calls this.
+template <class Copy, class Consume>
+__device__ void stream_tiles(Ring& r, int n, Copy copy, Consume consume) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto issue = [&](int i) {
+    const int g = r.used + i;
+    uint8_t* stage = r.buf + (g % kStages) * kStageStride;
+    const uint32_t bar = smem_addr(r.bar + g % kStages);
+    uint32_t bytes = copy(i, stage, bar, false);
+#pragma unroll
+    for (int o = 16; o; o >>= 1) bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
+    if (lane == 0) arrive_expect_tx(bar, bytes);   // before any copy lands
+    __syncwarp();
+    copy(i, stage, bar, true);
+  };
+  if (warp == 0)
+    for (int i = 0; i < n && i < kStages; ++i) issue(i);
+  for (int i = 0; i < n; ++i) {
+    const int g = r.used + i;
+    wait_phase(smem_addr(r.bar + g % kStages), (g / kStages) & 1);
+    consume(i, r.buf + (g % kStages) * kStageStride);
+    __syncthreads();                                // the stage is free
+    if (warp == 0 && i + kStages < n) issue(i + kStages);
+  }
+  r.used += n;
+}
+
+// How a warp reads a tile: LPR lanes per D-byte row, CW bytes (columns)
+// each, RPW rows per warp instruction.  GQA group 8 takes 8 B per lane so
+// that its query rows and P·V accumulators stay in registers.
+template <int G, int D>
+struct Lanes {
+  static constexpr int CW = G <= 4 ? 16 : 8;
+  static constexpr int LPR = D / CW;
+  static constexpr int RPW = 32 / LPR;
+  static constexpr int kRows = kStageBytes / D;    // rows of a full tile
+};
+
+template <int CW>
+__device__ __forceinline__ void lds(const uint8_t* p, uint32_t (&w)[CW / 4]) {
+  if constexpr (CW == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  }
+}
+
+__device__ __forceinline__ int byte_at(const uint32_t* w, int c) {
+  return (w[c >> 2] >> (8 * (c & 3))) & 0xFF;
+}
+
+// K independent group sums at once (their shuffles overlap).
+template <int N, int K, typename V>
+__device__ __forceinline__ void group_sums(V (&v)[K]) {
+#pragma unroll
+  for (int o = N / 2; o; o >>= 1)
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+}
+
+// Byte j of x as the float 2^23 + byte (one prmt: the byte under the
+// exponent of 2^23); subtracting 2^23 (+ 128 for an int8 byte stored as
+// byte ^ 0x80) is exact -- full-rate ALU work instead of int-to-float
+// conversions, which run at a quarter of the rate.
+__device__ __forceinline__ float biased_byte(uint32_t x, int j) {
+  return __int_as_float(static_cast<int>(__byte_perm(x, 0x4B000000u, j | 0x7540)));
+}
+
+constexpr float kBias = 8388608.f;           // 2^23
+constexpr float kBias8 = 8388736.f;          // 2^23 + 128
+
+__device__ __forceinline__ float int8_at(const uint32_t* w, int c) {
+  return biased_byte(w[c >> 2] ^ 0x80808080u, c & 3) - kBias8;
+}
+
+// A lane's dot product q . x over CW bytes x (words w, each byte an
+// unsigned value, biased by `bias`), f32 in column order; and its exact
+// integer form for int8 queries (qi: the query bytes, 4 per word), where
+// the stored values are < 128 or signed int8.
+template <int CW>
+__device__ __forceinline__ float dot_f(const float* q, const uint32_t* w,
+                                       float bias) {
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < CW; ++c)
+    acc = fmaf(q[c], biased_byte(w[c >> 2], c & 3) - bias, acc);
+  return acc;
+}
+
+template <int CW>
+__device__ __forceinline__ int dot_i(const int* qi, const uint32_t* w) {
+  int acc = 0;
+#pragma unroll
+  for (int k = 0; k < CW / 4; ++k)
+    acc = __dp4a(qi[k], static_cast<int>(w[k]), acc);
+  return acc;
+}
+
+// The raw scores of K values per lane (rows, or a row's hi and lo
+// tokens) over their LPR lanes: exact integers under int8 queries, else
+// f32 in column order, reduced over the lanes in shuffle order.
+// wi: the values as signed bytes for the integer form, wf: as unsigned
+// bytes biased by `bias` for the f32 form (the same words for nibbles).
+template <int CW, int LPR, int K>
+__device__ __forceinline__ void row_dots(bool qq, const float* q,
+                                         const int* qi,
+                                         const uint32_t (&wi)[K][CW / 4],
+                                         const uint32_t (&wf)[K][CW / 4],
+                                         float bias, float (&out)[K]) {
+  if (qq) {
+    int a[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) a[k] = dot_i<CW>(qi, wi[k]);
+    group_sums<LPR>(a);
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = static_cast<float>(a[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = dot_f<CW>(q, wf[k], bias);
+    group_sums<LPR>(out);
+  }
+}
+
 // Per-row score constants of one pass: s = ksc * (raw * rs + off).
 template <int G>
 struct RowScale {
@@ -230,146 +535,253 @@ struct RowScale {
   float off[G];
 };
 
-// The scaled score of column t from its raw dot product (lane 0 only);
-// the pre-scale value of the appended column is kept for its P·V term.
-__device__ __forceinline__ void finalize(const Params& p, float raw, float rs,
-                                         float off, const void* ksc,
-                                         size_t col0, int t, int idx,
+// The scaled score of column t from its raw dot product (the row's
+// leader lane only); the pre-scale value of the appended column is kept
+// for its P·V term.
+__device__ __forceinline__ void finalize(float raw, float rs, float off,
+                                         float ksc, int t, int idx,
                                          float* srow, float* xidx) {
   const float x = __fadd_rn(__fmul_rn(raw, rs), off);
   if (t == idx) *xidx = x;
-  srow[t] = __fmul_rn(x, load_meta(ksc, col0 + t, p.sc_bf16));
+  srow[t] = __fmul_rn(x, ksc);
 }
 
-// Raw scores of every live token from the int8 plane.
-template <int G, int VEC>
-__device__ void scores_full(const Params& p, const int8_t* kf, const void* ksc,
-                            size_t col0, const float (&qr)[G][VEC],
-                            const RowScale<G>& rsc, int len, int idx, float* s,
-                            float* misc) {
+// Raw scores of every live token from the int8 plane: tiles of kRows
+// tokens (one TMA box, or row copies for a ragged last tile) with their K
+// scale segment.  (b, h): the CTA's batch row and kv head.
+template <int G, int D>
+__device__ void scores_full(const Params& p, int b, int h, Ring& ring,
+                            const int8_t* kf, const uint8_t* kcol,
+                            const float (&qr)[G][Lanes<G, D>::CW],
+                            const int (&qi)[G][Lanes<G, D>::CW / 4],
+                            const RowScale<G>& rsc, int len, int idx,
+                            float* s, float* misc) {
+  using L = Lanes<G, D>;
+  constexpr int T = L::kRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t0 = warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
-    uint8_t raw[kUnroll][VEC];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      if (t < len) {
-        load_bytes<VEC>(reinterpret_cast<const uint8_t*>(kf) +
-                            static_cast<size_t>(t) * p.F + lane * VEC,
-                        raw[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      if (t >= len) break;                       // warp-uniform
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float acc = 0.f;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i)
-          acc = fmaf(qr[g][i], static_cast<float>(static_cast<int8_t>(raw[u][i])),
-                     acc);
-        acc = warp_sum(acc);
+  const int lrow = lane / L::LPR, lcol = lane % L::LPR;
+  const int es = p.sc_bf16 ? 2 : 4;
+  const uint8_t* plane = reinterpret_cast<const uint8_t*>(kf);
+  stream_tiles(
+      ring, (len + T - 1) / T,
+      [&](int i, uint8_t* st, uint32_t bar, bool go) {
+        const int t0 = i * T, rows = min(T, len - t0);
+        uint32_t bytes = 0;
+        if (rows == T) {
+          if (lane == 0) {
+            if (go) tensor_copy(st, &p.kf_map, h * D, b * p.Ct + t0, bar);
+            bytes += T * D;
+          }
+        } else {
+          for (int rr = lane; rr < rows; rr += 32) {
+            if (go)
+              bulk_copy(st + rr * D, plane + static_cast<size_t>(t0 + rr) * p.F,
+                        D, bar);
+            bytes += D;
+          }
+        }
         if (lane == 0)
-          finalize(p, acc, rsc.rs[g], rsc.off[g], ksc, col0, t, idx,
-                   s + g * p.C, misc + kXidx * G + g);
-      }
-    }
-  }
+          bytes += seg_copy(st + kStageBytes, kcol, t0, rows, es, bar, go);
+        return bytes;
+      },
+      [&](int i, const uint8_t* st) {
+        // kRowSteps row steps per warp at once: their loads and shuffles
+        // overlap
+        constexpr int U = kRowSteps, kStep = kWarps * L::RPW;
+        const int t0 = i * T, rows = min(T, len - t0);
+        for (int base = warp * L::RPW; base < rows; base += U * kStep) {
+          int t[U];
+          bool lead[U];
+          uint32_t w[U][L::CW / 4] = {}, x[U][L::CW / 4];
+          float ksc[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int rr = base + u * kStep + lrow;
+            const bool live = rr < rows;             // uniform in the row
+            t[u] = t0 + rr;
+            if (live) lds<L::CW>(st + rr * D + lcol * L::CW, w[u]);
+            lead[u] = live && lcol == 0;
+            ksc[u] = lead[u] ? seg_at(st + kStageBytes, t0, t[u], p.sc_bf16)
+                             : 0.f;
+#pragma unroll
+            for (int k = 0; k < L::CW / 4; ++k)
+              x[u][k] = w[u][k] ^ 0x80808080u;       // int8 as byte ^ 0x80
+          }
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            float acc[U];
+            row_dots<L::CW, L::LPR>(p.qq, qr[g], qi[g], w, x, kBias8, acc);
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              if (lead[u])
+                finalize(acc[u], rsc.rs[g], rsc.off[g], ksc[u], t[u], idx,
+                         s + g * p.C, misc + kXidx * G + g);
+          }
+        }
+      });
 }
 
 // Pass-1 raw scores from the packed msb plane (biased nibbles n = k4 + 8):
-// one packed row carries its hi token (unit*U + r) and lo token (+ U/2).
-// Under a 6-bit profile the lsb2 row of the same unit carries both
-// tokens' 2-bit fields (hi: fields 0/1, lo: fields 2/3), and the raw
-// value is q . (4n + l2).
-template <int G, int VEC>
-__device__ void scores_msb(const Params& p, const uint8_t* km,
-                           const uint8_t* kl2, const void* ksc, size_t col0,
-                           const float (&qr)[G][VEC], const RowScale<G>& rsc,
-                           int len, int idx, float* s, float* misc) {
+// packed row r carries its hi token (unit*U + r % (U/2)) and lo token
+// (+ U/2).  Under a 6-bit profile the lsb2 row of the same unit carries
+// both tokens' 2-bit fields (hi: fields 0/1, lo: fields 2/3), and the raw
+// value is q . (4n + l2).  Live packed rows (hi token below the length)
+// are a prefix; a tile holds T of them (and their lsb2 rows) inside one
+// half-unit (and, under a 6-bit profile, one quarter-unit), with the hi
+// and lo tokens' K scale segments.  A full tile is one TMA box of msb
+// rows (and one of lsb2 rows); a ragged last tile is copied row by row.
+template <int G, int D>
+__device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
+                           const uint8_t* km,
+                           const uint8_t* kl2, const uint8_t* kcol,
+                           const float (&qr)[G][Lanes<G, D>::CW],
+                           const int (&qi)[G][Lanes<G, D>::CW / 4],
+                           const RowScale<G>& rsc, int len, int idx,
+                           float* s, float* misc) {
+  using L = Lanes<G, D>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int half_u = p.pack_unit / 2;
-  const int quarter_u = p.pack_unit / 4;
-  const int nrows = p.C / 2;
-  for (int r0 = warp * kUnroll; r0 < nrows; r0 += kWarps * kUnroll) {
-    uint8_t raw[kUnroll][VEC];
-    uint8_t l2[kUnroll][VEC];
-    int thi[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int r = r0 + u;
-      thi[u] = (r / half_u) * p.pack_unit + r % half_u;
-      if (r < nrows && thi[u] < len) {
-        load_bytes<VEC>(km + static_cast<size_t>(r) * p.F + lane * VEC, raw[u]);
-        if (kl2 != nullptr) {
-          const int lrow = (thi[u] / p.pack_unit) * quarter_u + r % quarter_u;
-          load_bytes<VEC>(kl2 + static_cast<size_t>(lrow) * p.F + lane * VEC,
-                          l2[u]);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int r = r0 + u;
-      if (r >= nrows || thi[u] >= len) continue;  // warp-uniform
-      const int tlo = thi[u] + half_u;
-      const bool lo_live = tlo < len;
-      const int qi = (r % half_u) / quarter_u;     // hi field; lo is qi + 2
-      const int sh_hi = 6 - 2 * qi, sh_lo = 2 - 2 * qi;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float ahi = 0.f, alo = 0.f;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          const int byte = raw[u][i];
-          float nhi = static_cast<float>(byte >> 4);
-          float nlo = static_cast<float>(byte & 0xF);
-          if (kl2 != nullptr) {
-            nhi = fmaf(nhi, 4.f, static_cast<float>((l2[u][i] >> sh_hi) & 3));
-            nlo = fmaf(nlo, 4.f, static_cast<float>((l2[u][i] >> sh_lo) & 3));
+  const int lrow = lane / L::LPR, lcol = lane % L::LPR;
+  const int es = p.sc_bf16 ? 2 : 4;
+  const int u = p.pack_unit, half_u = u / 2, quarter_u = u / 4;
+  const int nr = (len / u) * half_u + min(len % u, half_u);
+  const int T = p.t_msb;
+  auto hi_token = [&](int r) { return (r / half_u) * u + r % half_u; };
+  stream_tiles(
+      ring, (nr + T - 1) / T,
+      [&](int i, uint8_t* st, uint32_t bar, bool go) {
+        const int r0 = i * T, rows = min(T, nr - r0);
+        uint32_t bytes = 0;
+        if (rows == T) {
+          if (lane == 0) {
+            if (go) tensor_copy(st, &p.km_map, h * D, b * (p.Ct / 2) + r0, bar);
+            bytes += T * D;
           }
-          ahi = fmaf(qr[g][i], nhi, ahi);
-          alo = fmaf(qr[g][i], nlo, alo);
+          if (kl2 != nullptr && lane == 2) {
+            const int lr0 = (r0 / half_u) * quarter_u + r0 % quarter_u;
+            if (go)
+              tensor_copy(st + T * D, &p.kl2_map, h * D, b * (p.Ct / 4) + lr0,
+                          bar);
+            bytes += T * D;
+          }
+        } else {
+          for (int rr = lane; rr < rows; rr += 32) {
+            const int r = r0 + rr;
+            if (go)
+              bulk_copy(st + rr * D, km + static_cast<size_t>(r) * p.F, D, bar);
+            bytes += D;
+            if (kl2 != nullptr) {
+              const int lr = (r / half_u) * quarter_u + r % quarter_u;
+              if (go)
+                bulk_copy(st + (T + rr) * D,
+                          kl2 + static_cast<size_t>(lr) * p.F, D, bar);
+              bytes += D;
+            }
+          }
         }
-        ahi = warp_sum(ahi);
-        alo = warp_sum(alo);
-        if (lane == 0) {
-          float* srow = s + g * p.C;
-          float* xi = misc + kXidx * G + g;
-          finalize(p, ahi, rsc.rs[g], rsc.off[g], ksc, col0, thi[u], idx, srow,
-                   xi);
-          if (lo_live)
-            finalize(p, alo, rsc.rs[g], rsc.off[g], ksc, col0, tlo, idx, srow,
-                     xi);
+        const int thi0 = hi_token(r0);
+        if (lane == 0)
+          bytes += seg_copy(st + kStageBytes, kcol, thi0, rows, es, bar, go);
+        if (lane == 1)
+          bytes += seg_copy(st + kStageBytes + kSegHalf, kcol, thi0 + half_u,
+                            rows, es, bar, go);
+        return bytes;
+      },
+      [&](int i, const uint8_t* st) {
+        // kRowSteps row steps per warp at once: their loads and shuffles
+        // overlap
+        constexpr int U = kRowSteps, kStep = kWarps * L::RPW;
+        const int r0 = i * T, rows = min(T, nr - r0);
+        const int thi0 = hi_token(r0);
+        for (int base = warp * L::RPW; base < rows; base += U * kStep) {
+          // per byte: hi and lo nibbles n (biased, 0..15), or under a
+          // 6-bit profile 4n + the token's 2-bit field (0..63); values
+          // 2u and 2u + 1 are row step u's hi and lo tokens
+          uint32_t v[2 * U][L::CW / 4];
+          int tok[2 * U];
+          bool put[2 * U];
+          float ksc[2 * U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int rr = base + u * kStep + lrow;
+            const bool live = rr < rows;             // uniform in the row
+            const int thi = thi0 + rr, tlo = thi + half_u;
+            uint32_t w[L::CW / 4] = {}, l2[L::CW / 4] = {};
+            int sh_hi = 0, sh_lo = 0;
+            if (live) {
+              lds<L::CW>(st + rr * D + lcol * L::CW, w);
+              if (kl2 != nullptr) {
+                lds<L::CW>(st + (T + rr) * D + lcol * L::CW, l2);
+                // the hi token's 2-bit field; the lo token's is field + 2
+                const int field = ((r0 + rr) % half_u) / quarter_u;
+                sh_hi = 6 - 2 * field;
+                sh_lo = 2 - 2 * field;
+              }
+            }
+#pragma unroll
+            for (int k = 0; k < L::CW / 4; ++k) {
+              uint32_t hi = (w[k] >> 4) & 0x0F0F0F0Fu;
+              uint32_t lo = w[k] & 0x0F0F0F0Fu;
+              if (kl2 != nullptr) {
+                hi = (hi << 2) | ((l2[k] >> sh_hi) & 0x03030303u);
+                lo = (lo << 2) | ((l2[k] >> sh_lo) & 0x03030303u);
+              }
+              v[2 * u][k] = hi;
+              v[2 * u + 1][k] = lo;
+            }
+            const bool lead = live && lcol == 0;
+            tok[2 * u] = thi;
+            tok[2 * u + 1] = tlo;
+            put[2 * u] = lead;
+            put[2 * u + 1] = lead && tlo < len;
+            ksc[2 * u] =
+                lead ? seg_at(st + kStageBytes, thi0, thi, p.sc_bf16) : 0.f;
+            ksc[2 * u + 1] =
+                put[2 * u + 1] ? seg_at(st + kStageBytes + kSegHalf,
+                                        thi0 + half_u, tlo, p.sc_bf16)
+                               : 0.f;
+          }
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            float acc[2 * U];
+            row_dots<L::CW, L::LPR>(p.qq, qr[g], qi[g], v, v, kBias, acc);
+#pragma unroll
+            for (int k = 0; k < 2 * U; ++k)
+              if (put[k])
+                finalize(acc[k], rsc.rs[g], rsc.off[g], ksc[k], tok[k], idx,
+                         s + g * p.C, misc + kXidx * G + g);
+          }
         }
-      }
-    }
-  }
+      });
 }
 
 // Softmax statistics over [0, len): the row max, the denominator and, for
 // pv_int8, the running max of e * vscale over the f32 e, into misc; with
 // `write`, also the in-place numerators s <- exp(s - max) (rounded to bf16
 // under probs_bf16).  Presoftmax importance reads the scores first and
-// writes the numerators later (exp_rows), from the same max.
+// writes the numerators later (exp_rows), from the same max.  A thread
+// takes 8 consecutive columns at a time (one vector read of V scales).
 template <int G>
 __device__ void softmax_rows(const Params& p, float* s, int len, float* red,
-                             float* misc, const void* vsc, size_t col0,
-                             bool write) {
+                             float* misc, const uint8_t* vcol, bool write) {
   for (int g = 0; g < G; ++g) {
     float* row = s + g * p.C;
     float m = -INFINITY;
     for (int t = threadIdx.x; t < len; t += kThreads) m = fmaxf(m, row[t]);
     m = block_reduce(m, red, -INFINITY, [](float x) { return warp_max(x); });
     float sum = 0.f, emv = 0.f;
-    for (int t = threadIdx.x; t < len; t += kThreads) {
-      const float e = expf(row[t] - m);
-      if (p.pv_int8)
-        emv = fmaxf(emv, __fmul_rn(e, load_meta(vsc, col0 + t, p.sc_bf16)));
-      if (write) row[t] = p.probs_bf16 ? round_bf16(e) : e;
-      sum += e;
+    for (int c0 = 8 * threadIdx.x; c0 < len; c0 += 8 * kThreads) {
+      float vs[8];
+      if (p.pv_int8) load_meta8(vcol, c0, p.sc_bf16, vs);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int t = c0 + j;
+        if (t < len) {
+          const float e = expf(row[t] - m);
+          if (p.pv_int8) emv = fmaxf(emv, __fmul_rn(e, vs[j]));
+          if (write) row[t] = p.probs_bf16 ? round_bf16(e) : e;
+          sum += e;
+        }
+      }
     }
     sum = block_reduce(sum, red, 0.f, [](float x) { return warp_sum(x); });
     if (p.pv_int8)
@@ -384,17 +796,23 @@ __device__ void softmax_rows(const Params& p, float* s, int len, float* red,
 }
 
 // The numerators softmax_rows(write = false) summed, written in place.
-// Thread t handles the columns importance() reads, so no barrier is
-// needed between the two.
+// Thread x handles the 8-column chunks importance() reads, so no barrier
+// is needed between the two.
 template <int G>
 __device__ void exp_rows(const Params& p, float* s, int len,
                          const float* misc) {
   for (int g = 0; g < G; ++g) {
     float* row = s + g * p.C;
     const float m = misc[kMax * G + g];
-    for (int t = threadIdx.x; t < len; t += kThreads) {
-      const float e = expf(row[t] - m);
-      row[t] = p.probs_bf16 ? round_bf16(e) : e;
+    for (int c0 = 8 * threadIdx.x; c0 < len; c0 += 8 * kThreads) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int t = c0 + j;
+        if (t < len) {
+          const float e = expf(row[t] - m);
+          row[t] = p.probs_bf16 ? round_bf16(e) : e;
+        }
+      }
     }
   }
 }
@@ -402,36 +820,61 @@ __device__ void exp_rows(const Params& p, float* s, int len,
 // This step's importance: delta(g, t) = s[g][t] * wt[g] over the live
 // columns (probabilities times the row weight, or scores times the head
 // mask).  Accumulated into the stacked plane (the appended slot starts
-// from 0), or written to the delta output over the whole window.
+// from 0), or written to the delta output over the whole window; 8
+// columns per thread, read and written as vectors.
 template <int G>
 __device__ void importance(const Params& p, const float* s, const float* wt,
                            int len, int idx, bool do_app, size_t col0,
                            float* dl) {
   if (p.imp != nullptr) {
-    for (int t = threadIdx.x; t < len; t += kThreads) {
-      float delta = 0.f;
+    for (int c0 = 8 * threadIdx.x; c0 < len; c0 += 8 * kThreads) {
+      float v[8];
+      load_meta8(p.imp, col0 + c0, p.imp_bf16, v);
 #pragma unroll
-      for (int g = 0; g < G; ++g) delta += __fmul_rn(s[g * p.C + t], wt[g]);
-      const float prev = (do_app && t == idx)
-                             ? 0.f : load_meta(p.imp, col0 + t, p.imp_bf16);
-      store_meta(p.imp, col0 + t, __fadd_rn(__fmul_rn(prev, p.ema), delta),
-                 p.imp_bf16);
+      for (int j = 0; j < 8; ++j) {
+        const int t = c0 + j;
+        if (t < len) {
+          float delta = 0.f;
+#pragma unroll
+          for (int g = 0; g < G; ++g) delta += __fmul_rn(s[g * p.C + t], wt[g]);
+          const float prev = (do_app && t == idx) ? 0.f : v[j];
+          v[j] = __fadd_rn(__fmul_rn(prev, p.ema), delta);
+        }
+      }
+      if (c0 + 8 <= len) {
+        store_meta8(p.imp, col0 + c0, v, p.imp_bf16);
+      } else {                // columns past the length keep their bytes
+        for (int t = c0; t < len; ++t)
+          store_meta(p.imp, col0 + t, v[t - c0], p.imp_bf16);
+      }
     }
   } else if (dl != nullptr) {
-    for (int t = threadIdx.x; t < p.C; t += kThreads) {
+    for (int c0 = 8 * threadIdx.x; c0 < p.C; c0 += 8 * kThreads) {
       if (p.per_row) {
 #pragma unroll
-        for (int g = 0; g < G; ++g)
-          dl[static_cast<size_t>(g) * p.C + t] =
-              t < len ? __fmul_rn(s[g * p.C + t], wt[g]) : 0.f;
-      } else {
-        float delta = 0.f;
-        if (t < len) {
+        for (int g = 0; g < G; ++g) {
+          float v[8];
 #pragma unroll
-          for (int g = 0; g < G; ++g)
-            delta += __fmul_rn(s[g * p.C + t], wt[g]);
+          for (int j = 0; j < 8; ++j) {
+            const int t = c0 + j;
+            v[j] = t < len ? __fmul_rn(s[g * p.C + t], wt[g]) : 0.f;
+          }
+          store_meta8(dl + static_cast<size_t>(g) * p.C, c0, v, 0);
         }
-        dl[t] = delta;
+      } else {
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int t = c0 + j;
+          float delta = 0.f;
+          if (t < len) {
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              delta += __fmul_rn(s[g * p.C + t], wt[g]);
+          }
+          v[j] = delta;
+        }
+        store_meta8(dl, c0, v, 0);
       }
     }
   }
@@ -455,22 +898,34 @@ __device__ void zero_outputs(const Params& p, int b, int hq0, size_t out0,
 
 template <int G, int D>
 __global__ void __launch_bounds__(kThreads)
-fused_decode_kernel(const Params p) {
+fused_decode_kernel(const __grid_constant__ Params p) {
   constexpr int VEC = D / 32;
-  extern __shared__ float smem[];
+  using L = Lanes<G, D>;
+  constexpr int CW = L::CW;
+  extern __shared__ __align__(128) uint8_t smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lrow = lane / L::LPR, lcol = lane % L::LPR;
   const int C = p.C, F = p.F;
   const int nvb = C / p.v_block;
 
-  float* s = smem;                                  // [G, C]
+  Ring ring{smem, reinterpret_cast<uint64_t*>(smem + kStages * kStageStride),
+            0};
+  float* s = reinterpret_cast<float*>(ring.bar + kStages);   // [G, C]
   float* pv = s + G * C;                            // [kWarps, G, D]
   float* mass = pv + kWarps * G * D;                // [G, nvb]
   float* red = mass + G * nvb;                      // [kWarps]
   float* misc = red + kWarps;                       // [kMisc, G]
   float* app = misc + kMisc * G;                    // k, v f32 new scales
-  uint8_t* keep = reinterpret_cast<uint8_t*>(app + 2);   // [G, nvb]
-  uint8_t* keep_any = keep + G * nvb;                    // [nvb]
+  int* kblk = reinterpret_cast<int*>(app + 2);      // kept blocks, count
+  uint8_t* keep = reinterpret_cast<uint8_t*>(kblk + nvb + 1);   // [G, nvb]
+  uint8_t* keep_any = keep + G * nvb;                            // [nvb]
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+          smem_addr(ring.bar + i)));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
 
   const int len = p.lengths[b];
   const bool do_app = p.appmask == nullptr || p.appmask[b] != 0;
@@ -514,11 +969,14 @@ fused_decode_kernel(const Params p) {
   const size_t packed_b = static_cast<size_t>(b) * (p.Ct / 2) * F;
   const size_t lsb2_b = static_cast<size_t>(b) * (p.Ct / 4) * F;
   const size_t col0 = (static_cast<size_t>(b) * p.Hkv + h) * p.Ct;
+  const int es = p.sc_bf16 ? 2 : 4;
   int8_t* kf = p.kfull + plane_b + h * D;
   int8_t* vf = p.vfull + plane_b + h * D;
   uint8_t* km = p.kmsb ? p.kmsb + packed_b + h * D : nullptr;
   uint8_t* kl2 = p.klsb2 ? p.klsb2 + lsb2_b + h * D : nullptr;
   uint8_t* vm = p.vmsb ? p.vmsb + packed_b + h * D : nullptr;
+  const uint8_t* kcol = static_cast<const uint8_t*>(p.kscale) + col0 * es;
+  const uint8_t* vcol = static_cast<const uint8_t*>(p.vscale) + col0 * es;
 
   // ---- append (warp 0: K, warp 1: V) -------------------------------------
   if (do_app) {
@@ -526,21 +984,24 @@ fused_decode_kernel(const Params p) {
     const int r_u = idx % u;
     const bool is_hi = r_u < u / 2;
     const size_t prow = static_cast<size_t>(idx / u) * (u / 2) + r_u % (u / 2);
-    const size_t lrow = static_cast<size_t>(idx / u) * (u / 4) + r_u % (u / 4);
+    const size_t lrow2 = static_cast<size_t>(idx / u) * (u / 4) + r_u % (u / 4);
     const int l2_shift = 6 - 2 * (r_u / (u / 4));
     const size_t src = (static_cast<size_t>(b) * p.Hkv + h) * D;
     if (warp == 0) {
       append_row<VEC>(p.k_new + src, kf + static_cast<size_t>(idx) * F,
                       p.kscale, col0 + idx, p.sc_bf16, app,
                       km ? km + prow * F : nullptr, is_hi,
-                      kl2 ? kl2 + lrow * F : nullptr, l2_shift);
+                      kl2 ? kl2 + lrow2 * F : nullptr, l2_shift);
     } else if (warp == 1) {
       append_row<VEC>(p.v_new + src, vf + static_cast<size_t>(idx) * F,
                       p.vscale, col0 + idx, p.sc_bf16, app + 1,
                       vm ? vm + prow * F : nullptr, is_hi, nullptr, 0);
     }
   }
-  __syncthreads();                                  // the block sees its row
+  // the bulk copies (async proxy) read what the append stored (generic
+  // proxy): fence, then the block sees its row
+  asm volatile("fence.proxy.async;" ::: "memory");
+  __syncthreads();
 
   // ---- head gating: a dead group appended, and does nothing else, but
   // for its row stats (the Pallas body scores every row)
@@ -553,30 +1014,44 @@ fused_decode_kernel(const Params p) {
     return;
   }
 
-  // ---- queries in registers (lane holds d = lane*VEC + i), optionally
-  // quantized to int8 per row; every warp derives the same row constants
-  float qr[G][VEC];
+  // ---- queries in registers (a lane holds columns lcol*CW + c of every
+  // row), optionally quantized to int8 per row; every row group derives
+  // the same row constants
+  float qr[G][CW];
   float rowscale[G], qsum[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     float amax = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      qr[g][i] = p.q[out0 + g * D + lane * VEC + i];
-      amax = fmaxf(amax, fabsf(qr[g][i]));
+    for (int c = 0; c < CW; ++c) {
+      qr[g][c] = p.q[out0 + g * D + lcol * CW + c];
+      amax = fmaxf(amax, fabsf(qr[g][c]));
     }
     rowscale[g] = 1.f;
     if (p.qq) {
-      rowscale[g] = fmaxf(warp_max(amax), 1e-20f) / 127.f;
+      rowscale[g] = fmaxf(group_max<L::LPR>(amax), 1e-20f) / 127.f;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        qr[g][i] = fminf(fmaxf(rintf(qr[g][i] / rowscale[g]), -127.f), 127.f);
+      for (int c = 0; c < CW; ++c)
+        qr[g][c] = fminf(fmaxf(rintf(qr[g][c] / rowscale[g]), -127.f), 127.f);
     }
     float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) sum += qr[g][i];
-    qsum[g] = warp_sum(sum);
+    for (int c = 0; c < CW; ++c) sum += qr[g][c];
+    qsum[g] = group_sum<L::LPR>(sum);
   }
+  // int8 queries, 4 per word, for the integer dot products
+  int qi[G][CW / 4];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int k = 0; k < CW / 4; ++k) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v |= (static_cast<uint32_t>(static_cast<int>(qr[g][4 * k + j])) & 0xFFu)
+             << (8 * j);
+      qi[g][k] = static_cast<int>(v);
+    }
 
   // ---- pass 1 on the layer's profile + softmax + requant decision -------
   const int bits = !p.quant ? 8 : (p.qbits ? p.qbits[p.layer] : 4);
@@ -595,15 +1070,15 @@ fused_decode_kernel(const Params p) {
     rs2.off[g] = 0.f;
   }
   if (p1_full) {
-    scores_full<G, VEC>(p, kf, p.kscale, col0, qr, rs1, len, idx, s, misc);
+    scores_full<G, D>(p, b, h, ring, kf, kcol, qr, qi, rs1, len, idx, s,
+                      misc);
   } else {
-    scores_msb<G, VEC>(p, km, use6 ? kl2 : nullptr, p.kscale, col0, qr, rs1,
-                       len, idx, s, misc);
+    scores_msb<G, D>(p, b, h, ring, km, use6 ? kl2 : nullptr, kcol, qr, qi,
+                     rs1, len, idx, s, misc);
   }
-  __syncthreads();
   // presoftmax keeps the scores until its importance has read them
   const bool write_e = !p.presoftmax;
-  softmax_rows<G>(p, s, len, red, misc, p.vscale, col0, write_e);
+  softmax_rows<G>(p, s, len, red, misc, vcol, write_e);
   float mp = 0.f;
 #pragma unroll
   for (int g = 0; g < G; ++g)
@@ -617,9 +1092,9 @@ fused_decode_kernel(const Params p) {
   }
   if (fire) {
     __syncthreads();
-    scores_full<G, VEC>(p, kf, p.kscale, col0, qr, rs2, len, idx, s, misc);
-    __syncthreads();
-    softmax_rows<G>(p, s, len, red, misc, p.vscale, col0, write_e);
+    scores_full<G, D>(p, b, h, ring, kf, kcol, qr, qi, rs2, len, idx, s,
+                      misc);
+    softmax_rows<G>(p, s, len, red, misc, vcol, write_e);
   }
   if (p.mrow != nullptr && threadIdx.x < G) {
     p.mrow[row0 + threadIdx.x] = misc[kMax * G + threadIdx.x];
@@ -656,6 +1131,7 @@ fused_decode_kernel(const Params p) {
 
   // ---- local V pruning: per-row block keep mask --------------------------
   const bool vprune = p.keep_blocks > 0;
+  int nk = (len + p.v_block - 1) / p.v_block;      // blocks P·V streams
   if (vprune) {
     for (int i = threadIdx.x; i < G * nvb; i += kThreads) {
       const int g = i / nvb, j = i % nvb;
@@ -693,85 +1169,145 @@ fused_decode_kernel(const Params p) {
       keep_any[j] = any;
     }
     __syncthreads();
+    // the blocks some row keeps, in order (warp 0, 32 at a time)
+    if (warp == 0) {
+      int n = 0;
+      for (int j0 = 0; j0 < nvb; j0 += 32) {
+        const int j = j0 + lane;
+        const bool k = j < nvb && keep_any[j];
+        const unsigned bal = __ballot_sync(0xffffffffu, k);
+        if (k) kblk[n + __popc(bal & ((1u << lane) - 1u))] = j;
+        n += __popc(bal);
+      }
+      if (lane == 0) kblk[nvb] = n;
+    }
+    __syncthreads();
+    nk = kblk[nvb];
   }
 
-  // ---- P·V over the kept blocks; the appended column comes last, from
-  // the new row's f32 V scale (pv_int8: 8-bit row weights w8 =
-  // rint(w * 127 / wmax) on the stored int8 rows, int32 sums)
-  float accf[G][VEC];
-  int acci[G][VEC];
+  // ---- P·V over the kept blocks, streamed as a run of "virtual rows"
+  // (the kept blocks' rows back to back); a tile is tpv of them, made of
+  // pieces that lie inside one block, each with its V scale segment.  The
+  // appended column comes last, from the new row's f32 V scale (pv_int8:
+  // 8-bit row weights w8 = rint(w * 127 / wmax) on the stored int8 rows,
+  // int32 sums, kept in the f32 accumulators' bits)
+  const int tpv = p.tpv, piece = p.piece;
+  const int sstride = seg_stride(piece, es);
+  const int nvr = nk * p.v_block;
+  auto token = [&](int vr) {
+    const int k = vr / p.v_block;
+    return (vprune ? kblk[k] : k) * p.v_block + vr % p.v_block;
+  };
+  auto fetched = [&](int t) { return t < len && (t != idx || !do_app); };
+  // a piece of n virtual rows from token tf is one TMA box when all of
+  // its rows are fetched
+  auto whole = [&](int tf, int n) {
+    return p.v_box && n == piece && tf + piece <= len &&
+           !(do_app && idx >= tf && idx < tf + piece);
+  };
+  float acc[G][CW];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      accf[g][i] = 0.f;
-      acci[g][i] = 0;
-    }
+    for (int c = 0; c < CW; ++c) acc[g][c] = 0.f;
   float wrecip[G];
 #pragma unroll
   for (int g = 0; g < G; ++g)
     wrecip[g] = 127.f / fmaxf(misc[kWmax * G + g], 1e-30f);
-  for (int t0 = warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
-    uint8_t raw[kUnroll][VEC];
-    bool live[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      live[u] = t < len && (t != idx || !do_app) &&
-                (!vprune || keep_any[t / p.v_block]);
-      if (live[u]) {
-        load_bytes<VEC>(reinterpret_cast<const uint8_t*>(vf) +
-                            static_cast<size_t>(t) * F + lane * VEC,
-                        raw[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (!live[u]) continue;
-      const int t = t0 + u;
-      const float sc = load_meta(p.vscale, col0 + t, p.sc_bf16);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const bool kept = !vprune || keep[g * nvb + t / p.v_block];
-        const float w = kept ? __fmul_rn(__fmul_rn(s[g * C + t], wrow[g]), sc)
-                             : 0.f;
-        if (p.pv_int8) {
-          const int w8 = static_cast<int>(
-              fminf(fmaxf(rintf(__fmul_rn(w, wrecip[g])), 0.f), 127.f));
-#pragma unroll
-          for (int i = 0; i < VEC; ++i)
-            acci[g][i] += w8 * static_cast<int>(static_cast<int8_t>(raw[u][i]));
-        } else {
-#pragma unroll
-          for (int i = 0; i < VEC; ++i)
-            accf[g][i] = fmaf(w, static_cast<float>(static_cast<int8_t>(raw[u][i])),
-                              accf[g][i]);
+  const uint8_t* vplane = reinterpret_cast<const uint8_t*>(vf);
+  stream_tiles(
+      ring, (nvr + tpv - 1) / tpv,
+      [&](int i, uint8_t* st, uint32_t bar, bool go) {
+        const int vr0 = i * tpv, rows = min(tpv, nvr - vr0);
+        uint32_t bytes = 0;
+        for (int rr = lane; rr < rows; rr += 32) {
+          const int j = rr / piece;
+          const int t = token(vr0 + rr);
+          if (fetched(t) &&
+              !whole(t - rr % piece, min(piece, rows - j * piece))) {
+            if (go)
+              bulk_copy(st + rr * D, vplane + static_cast<size_t>(t) * F, D,
+                        bar);
+            bytes += D;
+          }
         }
+        for (int j = lane; j * piece < rows; j += 32) {
+          const int tf = token(vr0 + j * piece);
+          const int n = min(piece, rows - j * piece);
+          bytes += seg_copy(st + kStageBytes + j * sstride, vcol, tf, n, es,
+                            bar, go);
+          if (whole(tf, n)) {
+            if (go)
+              tensor_copy(st + j * piece * D, &p.vf_map, h * D, b * p.Ct + tf,
+                          bar);
+            bytes += piece * D;
+          }
+        }
+        return bytes;
+      },
+      [&](int i, const uint8_t* st) {
+        const int vr0 = i * tpv, rows = min(tpv, nvr - vr0);
+        for (int base = warp * L::RPW; base < rows; base += kWarps * L::RPW) {
+          const int rr = base + lrow;
+          const int t = rr < rows ? token(vr0 + rr) : len;
+          if (!fetched(t)) continue;                 // no shuffles below
+          uint32_t w[CW / 4];
+          lds<CW>(st + rr * D + lcol * CW, w);
+          const float sc = seg_at(st + kStageBytes + (rr / piece) * sstride,
+                                  t - rr % piece, t, p.sc_bf16);
+          const int j = t / p.v_block;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const bool kept = !vprune || keep[g * nvb + j];
+            const float wt = kept ? __fmul_rn(__fmul_rn(s[g * C + t], wrow[g]), sc)
+                                  : 0.f;
+            if (p.pv_int8) {
+              const int w8 = static_cast<int>(
+                  fminf(fmaxf(rintf(__fmul_rn(wt, wrecip[g])), 0.f), 127.f));
+#pragma unroll
+              for (int c = 0; c < CW; ++c)
+                acc[g][c] = __int_as_float(
+                    __float_as_int(acc[g][c]) +
+                    w8 * static_cast<int>(static_cast<int8_t>(byte_at(w, c))));
+            } else {
+#pragma unroll
+              for (int c = 0; c < CW; ++c)
+                acc[g][c] = fmaf(wt, int8_at(w, c), acc[g][c]);
+            }
+          }
+        }
+      });
+  // the warp's row groups hold partial sums of the same columns
+#pragma unroll
+  for (int o = L::LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const float other = __shfl_xor_sync(0xffffffffu, acc[g][c], o);
+        acc[g][c] = p.pv_int8 ? __int_as_float(__float_as_int(acc[g][c]) +
+                                               __float_as_int(other))
+                              : acc[g][c] + other;
       }
-    }
   }
-  int* pvi = reinterpret_cast<int*>(pv);
+  if (lrow == 0) {
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const int at = (warp * G + g) * D + lane * VEC + i;
-      if (p.pv_int8) {
-        pvi[at] = acci[g][i];
-      } else {
-        pv[at] = accf[g][i];
-      }
-    }
+      for (int c = 0; c < CW; ++c)
+        pv[(warp * G + g) * D + lcol * CW + c] = acc[g][c];
+  }
   __syncthreads();
+  const int* pvi = reinterpret_cast<const int*>(pv);
   const float kept_scale = 1.f / 127.f;
   for (int i = threadIdx.x; i < G * D; i += kThreads) {
     const int g = i / D, dd = i % D;
     float o;
     if (p.pv_int8) {
-      int acc = 0;
+      int sum = 0;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) acc += pvi[w * G * D + i];
-      o = __fmul_rn(static_cast<float>(acc),
+      for (int w = 0; w < kWarps; ++w) sum += pvi[w * G * D + i];
+      o = __fmul_rn(static_cast<float>(sum),
                     __fmul_rn(misc[kWmax * G + g], kept_scale));
     } else {
       o = 0.f;
@@ -791,10 +1327,13 @@ fused_decode_kernel(const Params p) {
   }
 }
 
+// Shared memory of one CTA; spatten_tpu_torch/ops/fused_decode.py::
+// smem_bytes mirrors it (and raises before a launch past the limit).
 size_t smem_bytes(int G, int D, int C, int v_block) {
   const int nvb = C / v_block;
-  return sizeof(float) * (static_cast<size_t>(G) * C + kWarps * G * D +
-                          G * nvb + kWarps + kMisc * G + 2) +
+  return static_cast<size_t>(kStages) * (kStageStride + sizeof(uint64_t)) +
+         sizeof(float) * (static_cast<size_t>(G) * C + kWarps * G * D +
+                          G * nvb + kWarps + kMisc * G + 2 + nvb + 1) +
          static_cast<size_t>(G + 1) * nvb;
 }
 
@@ -822,10 +1361,108 @@ cudaError_t launch_g(const Params& p, int B, int G, cudaStream_t stream) {
   }
 }
 
+bool misaligned(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) != 0;
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+struct MapKey {
+  uintptr_t base;
+  uint64_t rows;
+  int F, D, box;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && rows == o.rows && F == o.F && D == o.D &&
+           box == o.box;
+  }
+};
+
+struct MapHash {
+  size_t operator()(const MapKey& k) const {
+    return k.base ^ (k.rows * 0x9E3779B97F4A7C15ull) ^
+           (static_cast<size_t>(k.F) << 40) ^ (static_cast<size_t>(k.D) << 20) ^
+           static_cast<size_t>(k.box);
+  }
+};
+
+// The TMA tensor map of a plane of `rows` rows of F bytes, read in boxes
+// of D bytes x `box` rows; encoded once per (base, shape, box) -- once per
+// plane allocation and layer -- and cached, so a call only looks it up.
+cudaError_t plane_map(const void* base, uint64_t rows, int F, int D, int box,
+                      CUtensorMap* out) {
+  static std::unordered_map<MapKey, CUtensorMap, MapHash> cache;
+  static EncodeTiled encode = nullptr;
+  const MapKey key{reinterpret_cast<uintptr_t>(base), rows, F, D, box};
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return cudaSuccess;
+  }
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (fn == nullptr || found != cudaDriverEntryPointSuccess)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  CUtensorMap m;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(F), rows};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(F)};
+  const cuuint32_t boxd[2] = {static_cast<cuuint32_t>(D),
+                              static_cast<cuuint32_t>(box)};
+  const cuuint32_t elem[2] = {1, 1};
+  if (encode(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+             dims, strides, boxd, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  cache.emplace(key, m);
+  *out = m;
+  return cudaSuccess;
+}
+
+// The ring's geometry and the tensor maps of this call's planes.
+cudaError_t plan_ring(Params& p, int B, int D) {
+  const int k_rows = kStageBytes / D;
+  const int u = p.pack_unit;
+  p.t_msb = tile_rows(p.klsb2 ? k_rows / 2 : k_rows, p.klsb2 ? u / 4 : u / 2);
+  if (p.v_block >= k_rows) {
+    p.tpv = tile_rows(k_rows, p.v_block);
+    p.piece = p.tpv;
+  } else {
+    int nb = k_rows / p.v_block;
+    while (nb > 1 && nb * seg_stride(p.v_block, p.sc_bf16 ? 2 : 4) > kSegBytes)
+      --nb;
+    p.tpv = nb * p.v_block;
+    p.piece = p.v_block;
+  }
+  // a box lands 128-byte aligned: piece j at j*piece*D (the lsb2 half at
+  // t_msb*D is: t_msb is even, as Ct % 8 == 0 makes U/4 even)
+  p.v_box = p.piece * D % 128 == 0;
+  const uint64_t rows = static_cast<uint64_t>(B) * p.Ct;
+  cudaError_t e = plane_map(p.kfull, rows, p.F, D, k_rows, &p.kf_map);
+  if (e == cudaSuccess && p.kmsb)
+    e = plane_map(p.kmsb, rows / 2, p.F, D, p.t_msb, &p.km_map);
+  if (e == cudaSuccess && p.klsb2)
+    e = plane_map(p.klsb2, rows / 4, p.F, D, p.t_msb, &p.kl2_map);
+  if (e == cudaSuccess)
+    e = plane_map(p.vfull, rows, p.F, D, p.piece, &p.vf_map);
+  return e;
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = success); the wrapper
 // (spatten_tpu_torch/ops/fused_decode.py) validates shapes and flags.
+// The bulk copies and vector reads need 16-byte-aligned planes, scale and
+// importance columns (the wrapper keeps Ct a multiple of 8) and delta rows.
 extern "C" int spatten_fused_decode(
     const float* q, const float* k_new, const float* v_new, const int* lengths,
     int8_t* kfull, uint8_t* kmsb, uint8_t* klsb2, void* kscale, int8_t* vfull,
@@ -836,12 +1473,21 @@ extern "C" int spatten_fused_decode(
     float sm_scale, float threshold, float ema, int quant, int requant,
     int keep_blocks, int v_block, int sc_bf16, int imp_bf16, int qq,
     int pv_int8, int probs_bf16, int presoftmax, int per_row, void* stream) {
+  if (Ct % 8 || C % 8 || misaligned(kfull) || misaligned(kmsb) ||
+      misaligned(klsb2) || misaligned(kscale) || misaligned(vfull) ||
+      misaligned(vmsb) || misaligned(vscale) || misaligned(imp) ||
+      misaligned(delta))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   Params p{q, k_new, v_new, lengths, kfull, kmsb, klsb2, kscale, vfull, vmsb,
            vscale, imp, hmask, qbits, appmask, out, max_prob, need, keep_out,
            delta, mrow, drow, Hq, C, Ct, Hkv * D, Hkv, pack_unit, layer,
            sm_scale, threshold, ema, quant, requant, keep_blocks, v_block,
            sc_bf16, imp_bf16, qq, pv_int8, probs_bf16, presoftmax, per_row};
   const int G = Hq / Hkv;
+  if (D != 64 && D != 128 && D != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = plan_ring(p, B, D);
+  if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return static_cast<int>(launch_g<64>(p, B, G, s));

@@ -42,6 +42,9 @@ _SMEM_LIMIT = 227 * 1024
 _THREADS = 256
 _WARPS = _THREADS // 32
 _MISC_PER_ROW = 8           # per-row scalars the CUDA kernel keeps in smem
+_STAGES = 4                 # the CUDA kernel's tile ring: stages of 16 KB
+_STAGE_STRIDE = 16384 + 2304  # of plane rows + their scale segments, and
+_BARRIER = 8                # one mbarrier each
 _META_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -308,11 +311,25 @@ def fused_decode_attention_plain(
 
 
 def smem_bytes(group: int, head_dim: int, cap: int, v_block: int) -> int:
-    """Shared memory of one K1 CTA (mirrors ``smem_bytes`` in the .cu)."""
+    """Shared memory of one K1 CTA (mirrors ``smem_bytes`` in
+    ``csrc/fused_decode.cu``): the tile ring, the [G, cap] score plane,
+    the per-warp P·V partials, the V-block masses, scalars, the kept-block
+    list and the keep masks."""
     nvb = cap // v_block
-    return (4 * (group * cap + _WARPS * group * head_dim + group * nvb
-                 + _WARPS + _MISC_PER_ROW * group + 2)
+    return (_STAGES * (_STAGE_STRIDE + _BARRIER)
+            + 4 * (group * cap + _WARPS * group * head_dim + group * nvb
+                   + _WARPS + _MISC_PER_ROW * group + 2 + nvb + 1)
             + (group + 1) * nvb)
+
+
+def check_smem(group: int, head_dim: int, cap: int, v_block: int) -> int:
+    """The shared memory of a K1 launch; NotImplementedError past the
+    card's 227 KB per block."""
+    smem = smem_bytes(group, head_dim, cap, v_block)
+    if smem > _SMEM_LIMIT:
+        raise NotImplementedError(f"K1 on CUDA: window {cap} x GQA group "
+                                  f"{group} needs {smem} B of shared memory")
+    return smem
 
 
 def fused_decode_attention(
@@ -426,11 +443,12 @@ def fused_decode_attention(
         raise ValueError("K and V scales must share one dtype")
     if cap % v_block_size or cap % 2:
         raise ValueError("capacity must be even and a multiple of v_block")
+    if cap_total % 8 or cap % 8:
+        raise NotImplementedError("K1 on CUDA: the stored capacity and the "
+                                  "rung must be multiples of 8 (16-byte "
+                                  "scale and importance vectors)")
     nvb = cap // v_block_size
-    smem = smem_bytes(group, d, cap, v_block_size)
-    if smem > _SMEM_LIMIT:
-        raise NotImplementedError(f"K1 on CUDA: window {cap} x GQA group "
-                                  f"{group} needs {smem} B of shared memory")
+    check_smem(group, d, cap, v_block_size)
 
     dev = q.device
     qf = q.reshape(b, hq, d).to(torch.float32).contiguous()

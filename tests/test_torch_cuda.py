@@ -83,8 +83,9 @@ def serving_small(*, cap=256, hq=4, hkv=2, d=128, bf16=True,
 
 
 def run_pair(dev, cfg, g, lengths, *, requant, v_keep, layer=1,
-             head_mask=None, delta_mode=False, **flags):
-    """K1 vs its plain version on one layer of a random stacked cache."""
+             head_mask=None, delta_mode=False, threshold=None, **flags):
+    """K1 vs its plain version on one layer of a random stacked cache
+    (``threshold``: a fixed requant threshold instead of a split one)."""
     m = cfg.model
     b, vb = len(lengths), cfg.pruning.v_block_size
     st = kc.random_state(cfg, b, g, dev)
@@ -99,8 +100,9 @@ def run_pair(dev, cfg, g, lengths, *, requant, v_keep, layer=1,
               importance_ema=1.0, **flags)
     if cfg.quant.layer_bits is not None:
         kw["quant_bits"] = st.quant_bits
-    threshold = 0.0
-    if requant:
+    if threshold is None and not requant:
+        threshold = 0.0
+    elif threshold is None:
         probe = st.clone()
         sp = fd.fused_decode_attention_plain(
             q, probe.cache.k, probe.cache.v, kn, vn, lens, layer=layer,
@@ -186,6 +188,62 @@ def test_k1_split_k_flags_match_plain(dev, case):
             flags[k] = torch.tensor(flags[k], device=dev)
     res = run_pair(dev, cfg, g, lengths, requant=True, v_keep=(40, 48),
                    **flags)
+    assert res["max_abs_err"] <= 1e-4
+
+
+# K1's tile ring at capacity 256 and head_dim 128: T = 64 rows per 8 KB
+# tile (32 packed rows per 6-bit tile), pack unit U = 256.  Lengths 1,
+# T-1, T, T+1 (and 31-33 for the 6-bit tile), U/2 and U/2+1 (the first
+# lo token), and the full rung.
+RING_LENGTHS = [1, 31, 32, 33, 63, 64, 65, 128, 129, 256]
+RING_CASES = {
+    "bits4": (dict(bf16=False), {}),
+    "bits6": (dict(layer_bits=(4, 6)), {}),
+    "bits8": (dict(layer_bits=(4, 8)), {}),
+    "dense": (dict(quant=False), {}),
+    "serving_flags": (dict(layer_bits=(4, 6)),
+                      dict(quantize_queries=True, pv_int8=True,
+                           probs_bf16=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(RING_CASES))
+def test_k1_ring_edges_match_plain(dev, case):
+    opts, flags = RING_CASES[case]
+    cfg = serving_small(hq=2, hkv=2, **opts)
+    g = torch.Generator(device=dev).manual_seed(200 + len(case))
+    res = run_pair(dev, cfg, g, RING_LENGTHS,
+                   requant=opts.get("quant", True), v_keep=(40, 48), **flags)
+    if not flags:                    # rounded weights have their own rule
+        assert res["max_abs_err"] <= 1e-4
+
+
+def test_k1_ring_requant_with_unkept_blocks(dev):
+    """Every live group requantizes (threshold 1) while V pruning keeps 3
+    of 16 blocks, so runs of whole blocks are never fetched."""
+    cfg = serving_small(hq=2, hkv=2, bf16=False)
+    g = torch.Generator(device=dev).manual_seed(301)
+    res = run_pair(dev, cfg, g, [256, 200, 129, 65], requant=True,
+                   threshold=1.0, v_keep=(40, 40))
+    assert res["fired"] == 8 and res["max_abs_err"] <= 1e-4
+
+
+def test_k1_ring_rows_without_append(dev):
+    cfg = serving_small(hq=2, hkv=2, bf16=False)
+    g = torch.Generator(device=dev).manual_seed(302)
+    res = run_pair(dev, cfg, g, [65, 129, 64, 0], requant=True,
+                   v_keep=(40, 48), delta_mode=True, return_row_stats=True,
+                   append_mask=torch.tensor([False, True, False, False],
+                                            device=dev))
+    assert res["max_abs_err"] <= 1e-4
+
+
+def test_k1_ring_gqa4_long_f32(dev):
+    """GQA group 4 over 2048 tokens with f32 metadata."""
+    cfg = serving_small(cap=2048, hq=8, hkv=2, bf16=False)
+    g = torch.Generator(device=dev).manual_seed(303)
+    res = run_pair(dev, cfg, g, [2048, 1999, 1025, 64], requant=True,
+                   v_keep=(300, 300))
     assert res["max_abs_err"] <= 1e-4
 
 
