@@ -30,11 +30,17 @@ failures is caught:
    call over the same 8192 tokens, before and after ``split_k_prune``
    (which leaves two shards empty); device times printed;
 5. the launch probe (``phase_launch_probe``): P1-P5 vs their plain
-   versions (exact), then their eager, graph and device times and the
-   yardsticks of ``spatten_tpu_torch/tools/launch_overhead.py``;
+   versions (exact; P4 and P5 at each CTA shape they were chosen from),
+   then their eager, graph and device times, the launch floor (an empty
+   kernel) beside their byte bounds, and the yardsticks of
+   ``spatten_tpu_torch/tools/launch_overhead.py``; P4 and P5 against
+   their same-function PyTorch calls as medians of interleaved repeats;
 6. a small-model reference check (f32 weights, kernels vs plain versions
-   on the card), then the paths, each with its launch counts set to 0
-   just before it and read just after:
+   on the card); the decode gate (``phase_gate``): ``generate`` on two
+   configurations whose shapes K1 does not take (``gate_configs()``:
+   head_dim 8, and GQA 8 at capacity 4096) with K1's count 0, logits
+   against the CPU's run of the same path; then the paths, each with its
+   launch counts set to 0 just before it and read just after:
    a. the first slice: ``generate`` at Llama-2-7B width, depth cut to 8,
       batch 4, prompt 1152, 128 new tokens;
    b. ``serving_config()``: the JAX package's benchmarked SpAtten
@@ -230,6 +236,39 @@ def parity_config(num_layers: int = 32):
         engine=EngineConfig(max_batch_size=PARITY_BATCH, cache_capacity=1024,
                             prefill_chunk=128),
     ).validate()
+
+
+def gate_configs() -> dict:
+    """Two configurations whose decode shapes K1 does not take on the card,
+    so the decode gate (``transformer.decode_uses_kernel``) sends them to
+    the reference path, as the JAX gate sends its kernel's misfits to the
+    jnp path: ``ModelConfig.tiny()`` (head_dim 8), under the pipeline of
+    the tiny parity tests, and a narrow model with Llama-2-70B's GQA group
+    (8 query heads over 1 kv head of 128) at capacity 4096, whose score
+    plane overflows K1's shared memory.  name -> (cfg, batch, prompt
+    length, new tokens); each run prunes (K2 moves the GQA-8 model's rows
+    on the card; head_dim 8 takes the gather)."""
+    from spatten_tpu_torch.config import (
+        EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
+    )
+    tiny = SpAttenConfig(
+        model=ModelConfig.tiny(),
+        pruning=PruningConfig(start_size=2, important_size=8, recent_size=16,
+                              v_block_size=8),
+        quant=QuantConfig(requant_threshold=0.2),
+        engine=EngineConfig(max_batch_size=2, cache_capacity=64,
+                            prefill_chunk=8, decode_window=8),
+    ).validate()
+    gqa8 = SpAttenConfig(
+        model=ModelConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                          num_heads=8, num_kv_heads=1, head_dim=128,
+                          intermediate_size=512),
+        pruning=PruningConfig(v_block_size=64),
+        engine=EngineConfig(max_batch_size=2, cache_capacity=4096,
+                            decode_window=16),
+    ).validate()
+    return {"tiny (head_dim 8)": (tiny, 2, 72, 32),
+            "GQA 8 x 128, capacity 4096": (gqa8, 2, 2040, 32)}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -825,6 +864,68 @@ def phase_launch_probe(dev) -> dict:
     return dict(res=res, errs=errs, counts=counts)
 
 
+def phase_gate(dev) -> dict:
+    """The decode gate on the card: ``generate`` on each of
+    ``gate_configs()`` (f32 weights from the seed) with K1's launch count
+    set to 0 just before and read just after, which must stay 0; the
+    card's logits against the CPU's run of the same path, call by call
+    (``kernel_checks.check_off_kernel_path``)."""
+    from spatten_tpu_torch import kernel_checks as kc
+    from spatten_tpu_torch.models import transformer as tr
+    out = {}
+    for name, (cfg, batch, plen, new) in gate_configs().items():
+        params = tr.init_params(cfg.model, SEED, dtype=torch.float32,
+                                device="cpu")
+        prompt = np.random.default_rng(SEED).integers(
+            0, cfg.model.vocab_size, (batch, plen))
+        r = kc.check_off_kernel_path(cfg, params, prompt, new, dev)
+        log(f"gate, {name}: generate on the card off K1 (K1 launches "
+            f"{r['k1']}, K2 launches {r['k2']}, prune points "
+            f"{r['prune_points']}, requant events {r['requant_events']}); "
+            f"logits vs the CPU's run of the same path max |diff| "
+            f"{r['max_logit_err']:.2e} (tolerance "
+            f"{kc.OFF_KERNEL_LOGIT_TOL}), call by call; tokens equal where "
+            f"the top-2 margin is clear ({r['clear_share']:.3f} of steps); "
+            f"a free CPU run fed the same tokens drifts to "
+            f"{r['free_run_drift']:.2e} (printed, no check)")
+        out[name] = r
+    return out
+
+
+def probe_entries(probe: dict, launches: dict) -> list:
+    """The ``kernels`` JSON entries of P1-P5 from ``phase_launch_probe``'s
+    result; ``launches``: each probe's count on the serving path."""
+    from spatten_tpu_torch.tools import launch_overhead as lo
+    pres, out = probe["res"], []
+    for pid, (kern, _, replaces, _) in lo.PROBES.items():
+        r = pres[pid]
+        entry = dict(
+            name=f"{pid} {kern.__name__}", route="cuda",
+            source="spatten_tpu_torch/csrc/launch_probe.cu",
+            replaces=replaces, launches=launches[pid],
+            max_abs_err=probe["errs"][pid], ms=r["device_us"] / 1e3,
+            plain_ms=r["plain_us"] / 1e3, bound_ms=r["bound_us"] / 1e3,
+            bound_by="bytes", library_ms=r["library_us"] / 1e3,
+            floor_ms=r["floor_us"] / 1e3,
+            probe_launches=probe["counts"][pid],
+            eager_us=r["eager_us"], graph_us=r["graph_us"])
+        med = pres["interleaved"].get(pid)
+        if med is not None:
+            # the redesigned probes: interleaved medians of one call
+            chosen = lo.shape_name(pid, {"P4": lo.P4_THREADS,
+                                         "P5": lo.P5_CTAS}[pid])
+            library = {"P4": "plane[:8].add_(1)",
+                       "P5": "torch.add(x, s[0], out=o)"}[pid]
+            entry.update(ms=med[chosen] / 1e3, library_ms=med[library] / 1e3,
+                         floor_ms=med["launch floor"] / 1e3,
+                         interleaved_us=med)
+        if pid == "P5":
+            entry["library_host_scalar_ms"] = \
+                r["library_host_scalar_us"] / 1e3
+        out.append(entry)
+    return out
+
+
 def small_reference_check(dev):
     """A small GQA model (head_dim 64, group 2) in f32: the kernels vs the
     plain versions, both on the card, from the same weights and prompt.
@@ -1151,6 +1252,7 @@ def main() -> int:
     split = phase_split_k(dev)
     probe = phase_launch_probe(dev)
     small_reference_check(dev)
+    phase_gate(dev)
     log(f"kernel phases done at {time.perf_counter() - t_start:.0f} s")
 
     pr1 = run_path("first slice (depth 8)", slice_config(8), dev, batch=4,
@@ -1203,27 +1305,19 @@ def main() -> int:
              first_slice=dict(k2_pr1, launches=pr1["k2"]),
              parity_launches=parity["k2"]),
     ]
-    from spatten_tpu_torch.tools import launch_overhead as lo
-    pres = probe["res"]
-    for pid, (kern, _, replaces, _) in lo.PROBES.items():
-        r = pres[pid]
-        kernels_out.append(dict(
-            name=f"{pid} {kern.__name__}", route="cuda",
-            source="spatten_tpu_torch/csrc/launch_probe.cu",
-            replaces=replaces, launches=serving["probe_launches"][pid],
-            max_abs_err=probe["errs"][pid], ms=r["device_us"] / 1e3,
-            plain_ms=r["plain_us"] / 1e3, bound_ms=r["bound_us"] / 1e3,
-            bound_by="bytes", library_ms=r["library_us"] / 1e3,
-            probe_launches=probe["counts"][pid],
-            eager_us=r["eager_us"], graph_us=r["graph_us"]))
+    kernels_out += probe_entries(probe, serving["probe_launches"])
     out = {"kernels": kernels_out}
     log("library_ms: fused_decode_attention has no single PyTorch call "
         "computing its function (append + 4/6/8-bit scoring + requant + "
         "importance + V top-k + 8-bit P·V); gather_compact_rows is timed "
         "against two torch.gather calls (K and V planes, out of place); "
-        "P1/P2/P5 against torch.add(x, 1.0), P3 against big[:256].sum(), "
-        "P4 against big[:8].add_(1).  The probes' launches on the paths "
-        "are 0 (they are off every path); probe_launches counts their own "
+        "P1/P2 against torch.add(x, 1.0), P3 against big[:256].sum(), "
+        "P4 against big[:8].add_(1), P5 against torch.add(x, s[0], out=o) "
+        "(the scalar read on the card; library_host_scalar_ms: "
+        "torch.add(x, 1.0)); P4's and P5's ms, library_ms and floor_ms "
+        "are medians of interleaved repeats in one call, floor_ms an "
+        "empty kernel's launch.  The probes' launches on the paths are 0 "
+        "(they are off every path); probe_launches counts their own "
         "phase")
     print(json.dumps(out), flush=True)
     print(smi, flush=True)

@@ -15,17 +15,31 @@
 //               DMA semaphore) of rows 0-255 of an int8 [1024, 512] plane
 //               (128 KB of dynamic shared memory), then o = sum of those
 //               bytes, summed in int32 (exact), broadcast to (8, 128);
-//   P4 aliased  bulk copy of rows 0-7 into shared memory, +1 with int8
-//               wrap-around, bulk copy back into the same plane (in place:
-//               the aliased read-modify-write), o = 0;
-//   P5 spref    o = x + s[0] over a grid of 4 CTAs, s an int32 array read
-//               from device memory (scalar prefetch has no counterpart: a
-//               block loads its own scalars).
+//   P4 aliased  rows 0-7 of the plane +1 with int8 wrap-around, in place
+//               (the aliased read-modify-write), and o = 0;
+//   P5 spref    o = x + s[0], s an int32 array read from device memory
+//               (scalar prefetch has no counterpart: a block loads its
+//               own scalars).
 //
-// Bound on this card: launch latency.  The bytes (8 KB; 132 KB for P3,
-// 12 KB for P4) take 2.4-40 ns at 3.35 TB/s, far below a launch; the
-// probes measure what a launch costs, eager, from a CUDA graph and
-// through ctypes.
+// Bound on this card: the launch, not the bytes.  The bytes (8 KB; 132 KB
+// for P3, 12 KB for P4) take 2.4-40 ns at 3.35 TB/s, far below a launch
+// (spatten_probe_empty, an empty kernel, is the floor the tools print
+// beside them); the probes measure what a launch costs, eager, from a
+// CUDA graph and through ctypes.
+//
+// P4 and P5 do not stage through shared memory.  The Pallas probes had to
+// (a TPU kernel computes on VMEM, so the aliased plane came in and went
+// back by DMA), but on Hopper each thread can read, change and write its
+// own 16-byte segments where they lie: P4 stores its float4 of o = 0
+// first (it depends on nothing), then loads one int4 of rows 0-7, adds 1
+// to each byte with __vadd4 (per-byte, modulo 256: int8 wrap-around) and
+// stores it back, one vector each at 256 threads; P5 loads s[0] and its
+// float4 of x, both before any use so the two latencies overlap, in one
+// CTA.  Staged, P4 paid an mbarrier, two bulk copies and a wait for the
+// global writes in series.  P3 keeps the bulk copy: it is the probe of
+// Hopper's asynchronous copy.  The entries take the CTA shape as an
+// argument so that tools/launch_overhead.py can time the alternatives
+// (P4 at 128/256/512 threads, P5 in 1 or 4 CTAs) in one call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,6 +47,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxThreads = 512;         // P4's largest CTA
 constexpr int kBlock = 8 * 128;          // f32 elements of the (8, 128) block
 constexpr int kPlaneCols = 512;          // int8 plane [1024, 512]
 constexpr int kDmaBytes = 256 * kPlaneCols;
@@ -112,34 +127,38 @@ dma_sum_kernel(const int8_t* __restrict__ plane, float* __restrict__ o) {
   for (int i = threadIdx.x; i < kBlock; i += kThreads) o[i] = t;
 }
 
-__global__ void __launch_bounds__(kThreads)
-aliased_rmw_kernel(int8_t* plane, float* __restrict__ o) {
-  __shared__ __align__(128) int8_t buf[kRmwBytes];
-  __shared__ __align__(8) uint64_t bar;
-  bulk_load(buf, plane, kRmwBytes, &bar);
-  for (int i = threadIdx.x; i < kRmwBytes; i += kThreads)
-    buf[i] = static_cast<int8_t>(static_cast<int>(buf[i]) + 1);
-  // the generic-proxy writes must be visible to the async proxy's store
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-            plane),
-        "r"(smem_addr(buf)), "r"(kRmwBytes)
-        : "memory");
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+// o = 0 as float4s, then rows 0-7 (kRmwBytes) +1 per byte, in place, as
+// 16-byte segments: one of each per thread at 256 threads.
+__global__ void __launch_bounds__(kMaxThreads)
+aliased_rmw_kernel(uint4* plane, float4* __restrict__ o) {
+  for (int i = threadIdx.x; i < kBlock / 4; i += blockDim.x)
+    o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = threadIdx.x; i < kRmwBytes / 16; i += blockDim.x) {
+    uint4 w = plane[i];
+    w.x = __vadd4(w.x, 0x01010101u);
+    w.y = __vadd4(w.y, 0x01010101u);
+    w.z = __vadd4(w.z, 0x01010101u);
+    w.w = __vadd4(w.w, 0x01010101u);
+    plane[i] = w;
   }
-  for (int i = threadIdx.x; i < kBlock; i += kThreads) o[i] = 0.f;
 }
 
+// o = x + s[0], one float4 per thread over the grid's CTAs.
 __global__ void __launch_bounds__(kThreads)
-spref_kernel(const int* __restrict__ s, const float* __restrict__ x,
-             float* __restrict__ o) {
-  const float add = static_cast<float>(s[0]);
-  for (int i = threadIdx.x; i < kBlock; i += kThreads) o[i] = x[i] + add;
+spref_kernel(const int* __restrict__ s, const float4* __restrict__ x,
+             float4* __restrict__ o) {
+  const int add = __ldg(s);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float4 v = __ldg(x + i);
+  const float a = static_cast<float>(add);
+  v.x += a;
+  v.y += a;
+  v.z += a;
+  v.w += a;
+  o[i] = v;
 }
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -170,14 +189,28 @@ extern "C" int spatten_probe_dma(const int8_t* plane, float* o, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int spatten_probe_aliased(int8_t* plane, float* o, void* stream) {
-  aliased_rmw_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      plane, o);
+// threads: 128, 256 or 512 (one CTA)
+extern "C" int spatten_probe_aliased(int8_t* plane, float* o, int threads,
+                                     void* stream) {
+  if (threads != 128 && threads != 256 && threads != 512)
+    return static_cast<int>(cudaErrorInvalidValue);
+  aliased_rmw_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<uint4*>(plane), reinterpret_cast<float4*>(o));
   return static_cast<int>(cudaGetLastError());
 }
 
+// ctas: 1 or 4, each owning an equal share of the block's float4s
 extern "C" int spatten_probe_spref(const int* s, const float* x, float* o,
-                                   void* stream) {
-  spref_kernel<<<4, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(s, x, o);
+                                   int ctas, void* stream) {
+  if (ctas != 1 && ctas != 4) return static_cast<int>(cudaErrorInvalidValue);
+  spref_kernel<<<ctas, kBlock / 4 / ctas, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      s, reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(o));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch floor: an empty kernel, one warp.
+extern "C" int spatten_probe_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,10 +36,12 @@ class DecodeState(NamedTuple):
     def device(self) -> torch.device:
         return self.importance.device
 
-    def clone(self) -> "DecodeState":
-        """A deep copy (every tensor cloned)."""
+    def clone(self, device: torch.device | None = None) -> "DecodeState":
+        """A deep copy (every tensor cloned), on ``device`` when given."""
         def c(x):
-            return None if x is None else x.clone()
+            if x is None:
+                return None
+            return x.clone() if device is None else x.to(device, copy=True)
         cache = LayerKVCache(
             k=type(self.cache.k)(*(c(x) for x in self.cache.k)),
             v=type(self.cache.v)(*(c(x) for x in self.cache.v)))

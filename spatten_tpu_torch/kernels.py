@@ -38,8 +38,11 @@ SIGNATURES = {
     "probe_bare": ("launch_probe", "spatten_probe_bare", [_P] * 3),
     "probe_gridded": ("launch_probe", "spatten_probe_gridded", [_P] * 3),
     "probe_dma": ("launch_probe", "spatten_probe_dma", [_P] * 3),
-    "probe_aliased": ("launch_probe", "spatten_probe_aliased", [_P] * 3),
-    "probe_spref": ("launch_probe", "spatten_probe_spref", [_P] * 4),
+    "probe_aliased": ("launch_probe", "spatten_probe_aliased",
+                      [_P] * 2 + [_I, _P]),
+    "probe_spref": ("launch_probe", "spatten_probe_spref",
+                    [_P] * 3 + [_I, _P]),
+    "probe_empty": ("launch_probe", "spatten_probe_empty", [_P]),
 }
 SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
 

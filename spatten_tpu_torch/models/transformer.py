@@ -7,14 +7,15 @@ plain dict with layer-stacked tensors ``[L, ...]`` laid out as in the JAX
 package (``x @ w`` with ``w`` [in, out]).  The forward pass loops over
 layers in Python:
 
-* a single-token step (``s == 1``) with ``EngineConfig.use_pallas`` takes
-  the fused decode kernel K1 (``ops/fused_decode``), which appends to and
-  reads the stacked cache in place, one call per layer with the layer's
-  capacity rung (``token_pruning.layer_capacity_groups``) and the serving
-  flags of ``QuantConfig``;
-* a prompt chunk (``s > 1``), or ``use_pallas=False``, appends with
-  ``append_tokens`` and attends with ``prefill_attention`` (chunks) or the
-  reference (single tokens).
+* a single-token step (``s == 1``) that ``decode_uses_kernel`` admits
+  takes the fused decode kernel K1 (``ops/fused_decode``), which appends
+  to and reads the stacked cache in place, one call per layer with the
+  layer's capacity rung (``token_pruning.layer_capacity_groups``) and the
+  serving flags of ``QuantConfig``;
+* a prompt chunk (``s > 1``), or a step the gate sends elsewhere
+  (``use_pallas=False``, "read" rope mode, or on the card a shape K1 does
+  not take), appends with ``append_tokens`` and attends with
+  ``prefill_attention`` (chunks) or the reference (single tokens).
 
 The cache planes and the importance accumulator of the state are updated
 IN PLACE: ``forward`` consumes its input state.
@@ -42,7 +43,7 @@ from spatten_tpu_torch.models.weight_quant import (
 )
 from spatten_tpu_torch.ops import rope as rope_ops
 from spatten_tpu_torch.ops.attention_ref import spatten_attention_reference
-from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+from spatten_tpu_torch.ops.fused_decode import fused_decode_attention, k1_takes
 from spatten_tpu_torch.ops.prefill_attention import prefill_attention
 from spatten_tpu_torch.pruning.token_pruning import (
     layer_budgets_static, layer_capacity_groups,
@@ -257,6 +258,28 @@ def _layer_leaf(w, l: int):
     return w[l]
 
 
+def decode_uses_kernel(cfg: SpAttenConfig, device_type: str) -> bool:
+    """Whether a single-token step on a ``device_type`` tensor goes through
+    K1, decided from the configuration alone, as the JAX gate does: K1
+    computes no RoPE (so "read" rope mode keeps the reference path), its
+    6-bit append needs capacity >= 32, and on the card it must take the
+    shape at the stored capacity and at every capacity rung
+    (``fused_decode.k1_takes``; the reference's ``(hkv*dh) % 128 == 0 or
+    on_cpu`` term).  On the CPU the wrapper runs K1's plain version, which
+    takes every shape."""
+    m, q, e = cfg.model, cfg.quant, cfg.engine
+    if not (e.use_pallas and (m.use_abs_pos_emb or e.rope_mode == "cached")
+            # the 6-bit path's 2-bit append needs cap >= 32
+            and not (q.needs_lsb2 and e.cache_capacity < 32)):
+        return False
+    if device_type != "cuda":
+        return True
+    cap = e.cache_capacity
+    rungs = {cap} | {rung for _, _, rung in layer_capacity_groups(cfg)}
+    return all(k1_takes(m.q_heads_per_kv, m.head_dim, cap, rung,
+                        cfg.pruning.v_block_size) for rung in rungs)
+
+
 def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
                x: torch.Tensor,
                rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
@@ -280,10 +303,7 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
     v_keep_layers = v_keep_budgets(cfg, cap)
     track_importance = p.enable_token_pruning or p.enable_head_pruning
     accum = track_importance and p.cascade_accumulate
-    use_kernel = (e.use_pallas and s == 1
-                  and (m.use_abs_pos_emb or e.rope_mode == "cached")
-                  # the 6-bit path's 2-bit append needs cap >= 32
-                  and not (q.needs_lsb2 and e.cache_capacity < 32))
+    use_kernel = s == 1 and decode_uses_kernel(cfg, x.device.type)
     if head_kept is not None and not use_kernel:
         raise NotImplementedError(
             "head-compacted projections are a decode-kernel-path feature "

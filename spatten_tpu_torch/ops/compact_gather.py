@@ -37,6 +37,13 @@ def _check(k_plane, v_plane, keep_idx, lengths, triggered, keep_count):
             raise ValueError(f"{name} must be [B]")
 
 
+def k2_takes(head_dim: int) -> bool:
+    """Whether K2 on the card takes rows of ``head_dim`` int8 values (it
+    moves them as 16-byte vectors).  The prune compaction sends other
+    shapes to its gather path, as the JAX gate does."""
+    return head_dim % 16 == 0
+
+
 def gather_compact_rows_plain(
     k_plane: torch.Tensor, v_plane: torch.Tensor, keep_idx: torch.Tensor,
     lengths: torch.Tensor, triggered: torch.Tensor, *,
@@ -89,7 +96,7 @@ def gather_compact_rows(
         raise TypeError("K2 takes int8 planes")
     if not (k_plane.is_contiguous() and v_plane.is_contiguous()):
         raise ValueError("K2 takes contiguous planes")
-    if d % 16:
+    if not k2_takes(d):
         raise NotImplementedError(f"K2 needs head_dim % 16 == 0, got {d}")
     for t in (v_plane, keep_idx, triggered):
         if t.device != dev:

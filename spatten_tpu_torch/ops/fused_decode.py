@@ -45,6 +45,9 @@ _MISC_PER_ROW = 8           # per-row scalars the CUDA kernel keeps in smem
 _STAGES = 4                 # the CUDA kernel's tile ring: stages of 16 KB
 _STAGE_STRIDE = 16384 + 2304  # of plane rows + their scale segments, and
 _BARRIER = 8                # one mbarrier each
+_GROUPS = (1, 2, 4, 8)      # the CUDA kernel's <G, D> instances
+_HEAD_DIMS = (64, 128, 256)
+_CAP_UNIT = 8               # 16-byte scale and importance vectors
 _META_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -322,14 +325,44 @@ def smem_bytes(group: int, head_dim: int, cap: int, v_block: int) -> int:
             + (group + 1) * nvb)
 
 
+def _smem_error(group: int, head_dim: int, cap: int, v_block: int
+                ) -> Optional[str]:
+    smem = smem_bytes(group, head_dim, cap, v_block)
+    if smem > _SMEM_LIMIT:
+        return (f"K1 on CUDA: window {cap} x GQA group {group} needs {smem} "
+                "B of shared memory")
+    return None
+
+
 def check_smem(group: int, head_dim: int, cap: int, v_block: int) -> int:
     """The shared memory of a K1 launch; NotImplementedError past the
     card's 227 KB per block."""
-    smem = smem_bytes(group, head_dim, cap, v_block)
-    if smem > _SMEM_LIMIT:
-        raise NotImplementedError(f"K1 on CUDA: window {cap} x GQA group "
-                                  f"{group} needs {smem} B of shared memory")
-    return smem
+    err = _smem_error(group, head_dim, cap, v_block)
+    if err:
+        raise NotImplementedError(err)
+    return smem_bytes(group, head_dim, cap, v_block)
+
+
+def k1_shape_error(group: int, head_dim: int, cap_total: int, rung: int,
+                   v_block: int) -> Optional[str]:
+    """Why K1 on the card does not take a call of this shape, or None when
+    it does: a ``<G, D>`` instance the kernel lacks, a stored capacity or
+    rung off the 16-byte vectors, or a shared-memory plan past 227 KB.
+    The wrapper raises ``NotImplementedError`` with this message; the
+    decode gate (``transformer.decode_uses_kernel``) sends such shapes to
+    the reference path instead."""
+    if group not in _GROUPS or head_dim not in _HEAD_DIMS:
+        return (f"K1 on CUDA: GQA group {group}, head_dim {head_dim} "
+                "(supported: 1/2/4/8 and 64/128/256)")
+    if cap_total % _CAP_UNIT or rung % _CAP_UNIT:
+        return ("K1 on CUDA: the stored capacity and the rung must be "
+                "multiples of 8 (16-byte scale and importance vectors)")
+    return _smem_error(group, head_dim, rung, v_block)
+
+
+def k1_takes(group: int, head_dim: int, cap_total: int, rung: int,
+             v_block: int) -> bool:
+    return k1_shape_error(group, head_dim, cap_total, rung, v_block) is None
 
 
 def fused_decode_attention(
@@ -409,9 +442,6 @@ def fused_decode_attention(
     cap = _rung(cap_total, cap_override, v_block_size)
     if q_len != 1:
         raise ValueError("K1 is a single-query decode step")
-    if group not in (1, 2, 4, 8) or d not in (64, 128, 256):
-        raise NotImplementedError(f"K1 on CUDA: GQA group {group}, head_dim "
-                                  f"{d} (supported: 1/2/4/8 and 64/128/256)")
     if quant_enabled and kq.msb is None:
         raise ValueError("quant_enabled needs the K msb plane")
     mixed = quant_enabled and quant_bits is not None
@@ -443,12 +473,10 @@ def fused_decode_attention(
         raise ValueError("K and V scales must share one dtype")
     if cap % v_block_size or cap % 2:
         raise ValueError("capacity must be even and a multiple of v_block")
-    if cap_total % 8 or cap % 8:
-        raise NotImplementedError("K1 on CUDA: the stored capacity and the "
-                                  "rung must be multiples of 8 (16-byte "
-                                  "scale and importance vectors)")
+    shape_error = k1_shape_error(group, d, cap_total, cap, v_block_size)
+    if shape_error:
+        raise NotImplementedError(shape_error)
     nvb = cap // v_block_size
-    check_smem(group, d, cap, v_block_size)
 
     dev = q.device
     qf = q.reshape(b, hq, d).to(torch.float32).contiguous()

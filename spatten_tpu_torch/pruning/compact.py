@@ -9,13 +9,14 @@ requantization + prefix nibble repack (port of
 * The packed nibble planes use a unit-local layout, so repacking the kept
   prefix touches only the units it covers.
 
-On CUDA tensors the int8 K/V payload moves through kernel K2
+On CUDA tensors whose head_dim K2 takes (``compact_gather.k2_takes``)
+the int8 K/V payload moves through kernel K2
 (``ops/compact_gather.gather_compact_rows``) in place, and this module
 only re-rotates, repacks and compacts the metadata over the compacted
-prefix; on CPU tensors it gathers with ``torch.gather`` (the JAX
-``use_gather_kernel=False`` path).  Slots past the live keep count hold
-garbage that the engine's ``layer_lengths`` contract keeps dead; its bytes
-differ between the two paths.
+prefix; on CPU tensors, and for other head_dims, it gathers with
+``torch.gather`` (the JAX ``use_gather_kernel=False`` path).  Slots past
+the live keep count hold garbage that the engine's ``layer_lengths``
+contract keeps dead; its bytes differ between the two paths.
 
 Everything is updated IN PLACE: the input cache and importance are
 consumed and returned.
@@ -29,6 +30,7 @@ import torch
 
 from spatten_tpu_torch.engine.kv_cache import LayerKVCache
 from spatten_tpu_torch.ops import quantize as qz
+from spatten_tpu_torch.ops.compact_gather import gather_compact_rows, k2_takes
 
 
 def _rope_cos_sin(mag: torch.Tensor, head_dim: int, theta: float
@@ -96,7 +98,7 @@ def compact_layer(
     triggered: Optional[torch.Tensor] = None,   # [B]; False rows identity
     keep_count: Optional[torch.Tensor] = None,  # [B] live keep entries
     window: Optional[int] = None,        # static bound on keep positions
-    use_gather_kernel: Optional[bool] = None,   # None: K2 iff on CUDA
+    use_gather_kernel: Optional[bool] = None,   # None: K2 where it takes d
 ) -> tuple[LayerKVCache, Optional[torch.Tensor]]:
     """Compact one layer's planes to ``keep_idx`` IN PLACE.
 
@@ -116,7 +118,7 @@ def compact_layer(
     if win % u or win < keep_pad:
         win = cap
     if use_gather_kernel is None:
-        use_gather_kernel = kq.full.is_cuda
+        use_gather_kernel = kq.full.is_cuda and k2_takes(d)
 
     keep_idx = keep_idx.to(torch.int64)
     if keep_pad > keep_max:
@@ -162,7 +164,6 @@ def compact_layer(
     # ---- payload ----------------------------------------------------------
     gidx = kidx.transpose(1, 2)[..., None].expand(b, keep_pad, h, d)
     if use_gather_kernel:
-        from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
         if lengths is None:
             lengths = torch.full((b,), cap, dtype=torch.int32, device=dev)
         if triggered is None:

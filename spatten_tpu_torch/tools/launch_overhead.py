@@ -18,7 +18,11 @@ Beside them: torch's ``c + 1.0`` eager and in a graph (the JAX tool's
 "xla add"), "8x bare" per iteration, a bare ctypes call of P1's entry
 point against ``kernels.launch`` and the wrapper, and (from
 ``chip_smoke.py``) the host time of one K1 wrapper call at the serving
-shapes.
+shapes.  P4 and P5 are also held against their same-function PyTorch
+calls (``plane[:8].add_(1)``; ``torch.add(x, s[0], out=o)``, with the
+host-scalar ``torch.add(x, 1.0)`` beside it), their other CTA shapes and
+the launch floor (an empty kernel through ``kernels.launch``), as medians
+of interleaved device timings (``interleaved_us``).
 
 Run on a machine with a card: ``python -m spatten_tpu_torch.tools.
 launch_overhead`` prints one line per probe.  The timing harness raises
@@ -41,6 +45,9 @@ N = 64
 BLOCK = (8, 128)               # f32 block of P1, P2, P5 and every output
 PLANE = (1024, 512)            # int8 plane of P3 and P4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+P4_THREADS = 256               # P4's CTA (of 128 / 256 / 512, the fastest)
+P5_CTAS = 1                    # P5's grid (of 1 / 4 CTAs, the faster)
+REPEATS = 5                    # interleaved repeats of a comparison
 
 
 # ------------------------------------------------------------ plain versions
@@ -77,6 +84,12 @@ def spref_plain(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def _check(t: torch.Tensor, shape, dtype, what: str) -> None:
     if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{what} must be a contiguous {dtype} {shape}")
+
+
+def _check_aligned(t: torch.Tensor, what: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must be 16-byte aligned (the kernel moves "
+                         "16-byte vectors)")
 
 
 def _out(out: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
@@ -130,7 +143,10 @@ def aliased(plane: torch.Tensor, out: Optional[torch.Tensor] = None
         return aliased_plain(plane)
     _check(plane, PLANE, torch.int8, "plane")
     out = _out(out, plane)
-    kernels.launch("probe_aliased", plane.data_ptr(), out.data_ptr())
+    _check_aligned(plane, "plane")
+    _check_aligned(out, "out")
+    kernels.launch("probe_aliased", plane.data_ptr(), out.data_ptr(),
+                   P4_THREADS)
     aliased.launches += 1
     return out
 
@@ -146,13 +162,41 @@ def spref(s: torch.Tensor, x: torch.Tensor,
             or s.device != x.device:
         raise ValueError("s must be a non-empty int32 vector on x's device")
     out = _out(out, x)
-    kernels.launch("probe_spref", s.data_ptr(), x.data_ptr(), out.data_ptr())
+    _check_aligned(x, "x")
+    _check_aligned(out, "out")
+    kernels.launch("probe_spref", s.data_ptr(), x.data_ptr(), out.data_ptr(),
+                   P5_CTAS)
     spref.launches += 1
     return out
 
 
 for _fn in (bare, gridded, dma, aliased, spref):
     _fn.launches = 0
+
+
+def empty() -> None:
+    """The launch floor: an empty kernel, through ``kernels.launch``."""
+    kernels.launch("probe_empty")
+
+
+# the CTA shapes that P4 (threads) and P5 (CTAs) were chosen from
+SHAPES = {"P4": (128, 256, 512), "P5": (1, 4)}
+
+
+def shape_name(pid: str, shape: int) -> str:
+    return f"{pid} {shape} " + ("threads" if pid == "P4" else
+                                "CTA" + "s" * (shape > 1))
+
+
+def shape_step(pid: str, shape: int, ops: dict, out: torch.Tensor):
+    """A step launching P4 or P5 at one of its CTA shapes, straight
+    through ``kernels.launch`` (uncounted: these time the choice)."""
+    if pid == "P4":
+        return lambda: kernels.launch("probe_aliased", ops["plane"].data_ptr(),
+                                      out.data_ptr(), shape)
+    return lambda: kernels.launch("probe_spref", ops["s"].data_ptr(),
+                                  ops["x"].data_ptr(), out.data_ptr(), shape)
+
 
 # id -> (kernel wrapper, plain version, the Pallas call it replaces, bytes
 # the function must move: inputs read once, outputs written once)
@@ -282,7 +326,31 @@ def check_probes(ops: dict) -> dict:
             raise AssertionError(f"{pid}: plane differs from the plain "
                                  "version's")
         errs[pid] = float((got - want).abs().max())
+    for pid, shapes in SHAPES.items():
+        for shape in shapes:
+            a = {k: v.clone() for k, v in ops.items()}
+            c = {k: v.clone() for k, v in ops.items()}
+            got = torch.empty_like(a["x"])
+            shape_step(pid, shape, a, got)()
+            want = PROBES[pid][1](*args_of(pid, c))
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want)
+                    and torch.equal(a["plane"], c["plane"])):
+                raise AssertionError(f"{shape_name(pid, shape)}: differs "
+                                     "from the plain version")
     return errs
+
+
+def interleaved_us(steps: dict, repeats: int = REPEATS) -> dict:
+    """Median device time (``device_us``) of each of ``steps`` ({name:
+    step}) over ``repeats`` rounds whose order alternates forward and
+    backward (for two: kernel, yardstick, yardstick, kernel, ...)."""
+    names = list(steps)
+    times = {n: [] for n in names}
+    for r in range(repeats):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            times[n].append(device_us(steps[n]))
+    return {n: statistics.median(t) for n, t in times.items()}
 
 
 def measure(ops: dict, k1_call: Optional[Callable[[], object]] = None
@@ -292,22 +360,36 @@ def measure(ops: dict, k1_call: Optional[Callable[[], object]] = None
     _require_cuda()
     x, plane, s = ops["x"], ops["plane"], ops["s"]
     o1, o2 = torch.empty_like(x), torch.empty_like(x)
+    s0 = s[0]                  # a 0-d int32 view: the scalar stays on the card
     library = {
         "P1": lambda: torch.add(x, 1.0, out=o2),
         "P2": lambda: torch.add(x, 1.0, out=o2),
         "P3": lambda: plane[:256].sum(),
         "P4": lambda: plane[:8].add_(1),
-        "P5": lambda: torch.add(x, 1.0, out=o2),
+        "P5": lambda: torch.add(x, s0, out=o2),
     }
-    res = {}
+    res = {"launch floor": three_ways(empty)}
+    floor = res["launch floor"]["device_us"]
     for pid, (kern, plain, replaces, nbytes) in PROBES.items():
         args = args_of(pid, ops)
         r = three_ways(lambda: kern(*args, out=o1))
         r.update(plain_us=device_us(lambda: plain(*args)),
                  library_us=device_us(library[pid]),
-                 bound_us=nbytes / HBM_BYTES_PER_S * 1e6, bytes=nbytes,
-                 replaces=replaces)
+                 bound_us=nbytes / HBM_BYTES_PER_S * 1e6, floor_us=floor,
+                 bytes=nbytes, replaces=replaces)
         res[pid] = r
+    res["P5"]["library_host_scalar_us"] = device_us(library["P1"])
+    # the redesigned probes against their yardsticks, in turns
+    yardsticks = {
+        "P4": {"plane[:8].add_(1)": library["P4"]},
+        "P5": {"torch.add(x, s[0], out=o)": library["P5"],
+               "torch.add(x, 1.0, out=o)": library["P1"]}}
+    res["interleaved"] = {
+        pid: interleaved_us({
+            **{shape_name(pid, sh): shape_step(pid, sh, ops, o1)
+               for sh in shapes},
+            **yardsticks[pid], "launch floor": empty})
+        for pid, shapes in SHAPES.items()}
 
     def eight():
         for _ in range(4):
@@ -332,9 +414,15 @@ def measure(ops: dict, k1_call: Optional[Callable[[], object]] = None
 def report(res: dict) -> list[str]:
     """One line per probe and yardstick, as the JAX tool prints them."""
     lines = []
+    for pid, med in res.get("interleaved", {}).items():
+        lines.append(f"{pid} interleaved medians ({REPEATS} repeats, "
+                     "device): " + ", ".join(f"{k} {v:.2f} us"
+                                             for k, v in med.items()))
     for name, r in res.items():
-        parts = [f"{k[:-3]} {v:8.2f} us" for k, v in r.items()
-                 if k.endswith("_us")]
+        if name == "interleaved":
+            continue
+        parts = [f"{k[:-3]} {v:8.{4 if k == 'bound_us' else 2}f} us"
+                 for k, v in r.items() if k.endswith("_us")]
         lines.append(f"{name:22s}: " + ", ".join(parts))
     return lines
 

@@ -14,8 +14,12 @@ queries, integer P·V, the bf16 probability plane, a capacity rung, 6- and
 the split-K flags (rows that do not append, an empty shard, row stats,
 per-row importance under GQA); a small split-K step runs K1 per shard
 against one unsharded K1 call; P1-P5 of the launch probe equal their
-plain versions.  The rules and tolerances are those of
-``spatten_tpu_torch/kernel_checks.py``, shared with ``chip_smoke.py``.
+plain versions (P4 at its int8 wrap edges, P5 at negative and large
+scalars) and refuse misaligned views.  The configurations whose decode
+shapes K1 does not take (``chip_smoke.gate_configs()``) run ``generate``
+on the card off K1 against the CPU's run of the same path.  The rules
+and tolerances are those of ``spatten_tpu_torch/kernel_checks.py``,
+shared with ``chip_smoke.py``.
 """
 
 import dataclasses
@@ -25,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from spatten_tpu_torch import kernel_checks as kc
 from spatten_tpu_torch.config import (
     EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
@@ -315,6 +320,65 @@ def test_launch_probes_match_plain(dev):
     assert errs == {pid: 0.0 for pid in lo.PROBES}
     assert all(k.launches == before[pid] + 1
                for pid, (k, _, _, _) in lo.PROBES.items())
+
+
+def test_p4_wraps_in_place_twice(dev):
+    """P4 at the int8 wrap edges, applied twice to the same plane: rows
+    0-7 equal the plain version's, rows 8-1023 keep their bytes."""
+    ops = lo.inputs(dev, seed=5)
+    plane = ops["plane"]
+    plane[:8, 0::3] = 127
+    plane[:8, 1::3] = -128
+    plane[:8, 2::3] = -1
+    before = plane.clone()
+    want = plane.clone()
+    for _ in range(2):
+        got_o = lo.aliased(plane)
+        want_o = lo.aliased_plain(want)
+    torch.cuda.synchronize()
+    assert torch.equal(got_o, want_o)
+    assert torch.equal(plane, want)
+    assert torch.equal(plane[8:], before[8:])
+    assert int(plane[0, 0]) == -127 and int(plane[0, 2]) == 1
+
+
+@pytest.mark.parametrize("scalar", [-7, 2 ** 20])
+def test_p5_reads_the_scalar_on_the_card(dev, scalar):
+    ops = lo.inputs(dev, seed=6)
+    ops["s"][0] = scalar
+    got = lo.spref(ops["s"], ops["x"])
+    want = lo.spref_plain(ops["s"], ops["x"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_p4_p5_refuse_misaligned_views(dev):
+    ops = lo.inputs(dev, seed=7)
+    raw = torch.zeros(1024 * 512 + 16, dtype=torch.int8, device=dev)
+    plane = raw[1:1 + 1024 * 512].view(1024, 512)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lo.aliased(plane)
+    xs = torch.zeros(8 * 128 + 4, device=dev)
+    x_off = xs[1:1 + 8 * 128].view(8, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lo.spref(ops["s"], x_off)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lo.spref(ops["s"], ops["x"], out=x_off)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lo.aliased(ops["plane"], out=x_off)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.gate_configs()))
+def test_gate_sends_unsupported_shapes_off_k1(dev, name):
+    """``generate`` on a configuration whose decode shapes K1 does not take:
+    no K1 launch, no raise; logits within 1e-3 of the CPU's run of the
+    same path, greedy tokens equal where its top-2 margin is clear."""
+    cfg, batch, plen, new = chip_smoke.gate_configs()[name]
+    params = tr.init_params(cfg.model, 0, dtype=torch.float32, device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.model.vocab_size,
+                                               (batch, plen))
+    res = kc.check_off_kernel_path(cfg, params, prompt, new, dev)
+    assert res["k1"] == 0 and res["prune_points"] > 0
 
 
 def test_k2_matches_plain(dev):
