@@ -16,31 +16,35 @@ failures is caught:
    then K1's remaining flags at the serving shapes (presoftmax importance
    accumulated and in delta mode, prob in delta mode, rows that do not
    append with an empty one, row stats) and per-row importance at a GQA
-   shape (32 query heads over 8 kv heads of 128); rules and tolerances
-   in ``spatten_tpu_torch/kernel_checks.py``.  K1's times (``time_k1``)
+   shape (32 query heads over 8 kv heads of 128); then K1 with its score
+   plane in device memory (``phase_k1_device_scores``: Llama-2-70B's
+   attention at capacity 4096, Llama-3-8B's at 16384); rules and
+   tolerances in ``spatten_tpu_torch/kernel_checks.py``.  K1's times (``time_k1``)
    are device times per call from CUDA events over back-to-back calls
    that walk the stacked layers, so each call finds its planes cold in
    L2 as decode does; the kernel streams them through its shared-memory
    tile ring (``csrc/fused_decode.cu``), whose registers and spills per
-   <G, D> instance phase 1 prints (``<1, 128>``, the main path's, must not
-   spill);
+   <G, D, score plane in shared memory> instance phase 1 prints
+   (``<1, 128, true>``, the main path's, must not spill);
 3. K2 (prune compaction) vs its plain version at both slices' shapes;
 4. split-K decode (``phase_split_k``): 4 shards of 2048 tokens on the
    card, MHA and GQA, one K1 launch per shard against one unsharded K1
    call over the same 8192 tokens, before and after ``split_k_prune``
    (which leaves two shards empty); device times printed;
 5. the launch probe (``phase_launch_probe``): P1-P5 vs their plain
-   versions (exact; P4 and P5 at each CTA shape they were chosen from),
-   then their eager, graph and device times, the launch floor (an empty
-   kernel) beside their byte bounds, and the yardsticks of
-   ``spatten_tpu_torch/tools/launch_overhead.py``; P4 and P5 against
-   their same-function PyTorch calls as medians of interleaved repeats;
+   versions (exact), then their eager, graph and device times, the
+   launch floor (an empty kernel) beside their byte bounds, and the
+   yardsticks of ``spatten_tpu_torch/tools/launch_overhead.py``; P4 and
+   P5 against their same-function PyTorch calls as medians of
+   interleaved repeats, with the kernels each of those calls launches;
 6. a small-model reference check (f32 weights, kernels vs plain versions
-   on the card); the decode gate (``phase_gate``): ``generate`` on two
-   configurations whose shapes K1 does not take (``gate_configs()``:
-   head_dim 8, and GQA 8 at capacity 4096) with K1's count 0, logits
-   against the CPU's run of the same path; then the paths, each with its
-   launch counts set to 0 just before it and read just after:
+   on the card); the decode gate (``phase_gate``): ``generate`` on the
+   tiny model, which the gate sends off K1 (``gate_configs()``: K1's
+   count stays 0), and on a GQA-8 model at capacity 4096, whose K1 score
+   plane lies in device memory (``device_scores_configs()``: one launch
+   per layer and step), each call held against its replay on the CPU;
+   then the paths, each with its launch counts set to 0 just before it
+   and read just after:
    a. the first slice: ``generate`` at Llama-2-7B width, depth cut to 8,
       batch 4, prompt 1152, 128 new tokens;
    b. ``serving_config()``: the JAX package's benchmarked SpAtten
@@ -239,15 +243,12 @@ def parity_config(num_layers: int = 32):
 
 
 def gate_configs() -> dict:
-    """Two configurations whose decode shapes K1 does not take on the card,
-    so the decode gate (``transformer.decode_uses_kernel``) sends them to
-    the reference path, as the JAX gate sends its kernel's misfits to the
-    jnp path: ``ModelConfig.tiny()`` (head_dim 8), under the pipeline of
-    the tiny parity tests, and a narrow model with Llama-2-70B's GQA group
-    (8 query heads over 1 kv head of 128) at capacity 4096, whose score
-    plane overflows K1's shared memory.  name -> (cfg, batch, prompt
-    length, new tokens); each run prunes (K2 moves the GQA-8 model's rows
-    on the card; head_dim 8 takes the gather)."""
+    """A configuration whose decode steps the card's gate sends off K1
+    (``transformer.decode_uses_kernel``), as the JAX gate sends them to
+    its jnp path: ``ModelConfig.tiny()``, whose fused lane width (2 kv
+    heads of 8) is not a multiple of 128, under the pipeline of the tiny
+    parity tests.  name -> (cfg, batch, prompt length, new tokens); the
+    run prunes (head_dim 8 takes the gather, not K2)."""
     from spatten_tpu_torch.config import (
         EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
     )
@@ -259,6 +260,19 @@ def gate_configs() -> dict:
         engine=EngineConfig(max_batch_size=2, cache_capacity=64,
                             prefill_chunk=8, decode_window=8),
     ).validate()
+    return {"tiny (head_dim 8)": (tiny, 2, 72, 32)}
+
+
+def device_scores_configs() -> dict:
+    """Configurations whose K1 score plane [G, capacity] does not fit the
+    kernel's shared memory, so the wrapper gives K1 a plane in device
+    memory: a narrow model with Llama-2-70B's GQA group (8 query heads
+    over 1 kv head of 128) at capacity 4096, which the JAX gate sends to
+    its kernel (lane width 128).  name -> (cfg, batch, prompt length, new
+    tokens); the run prunes (K2 moves its rows)."""
+    from spatten_tpu_torch.config import (
+        EngineConfig, ModelConfig, PruningConfig, SpAttenConfig,
+    )
     gqa8 = SpAttenConfig(
         model=ModelConfig(vocab_size=256, hidden_size=256, num_layers=2,
                           num_heads=8, num_kv_heads=1, head_dim=128,
@@ -267,8 +281,7 @@ def gate_configs() -> dict:
         engine=EngineConfig(max_batch_size=2, cache_capacity=4096,
                             decode_window=16),
     ).validate()
-    return {"tiny (head_dim 8)": (tiny, 2, 72, 32),
-            "GQA 8 x 128, capacity 4096": (gqa8, 2, 2040, 32)}
+    return {"GQA 8 x 128, capacity 4096": (gqa8, 2, 2040, 32)}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -865,30 +878,83 @@ def phase_launch_probe(dev) -> dict:
 
 
 def phase_gate(dev) -> dict:
-    """The decode gate on the card: ``generate`` on each of
-    ``gate_configs()`` (f32 weights from the seed) with K1's launch count
-    set to 0 just before and read just after, which must stay 0; the
-    card's logits against the CPU's run of the same path, call by call
-    (``kernel_checks.check_off_kernel_path``)."""
+    """The decode gate on the card: ``generate`` on ``gate_configs()``
+    (off K1: its launch count must stay 0) and on
+    ``device_scores_configs()`` (K1 with its score plane in device memory:
+    one launch per layer and step), f32 weights from the seed, each call
+    of the run held against its replay on the CPU
+    (``kernel_checks.check_against_cpu``)."""
     from spatten_tpu_torch import kernel_checks as kc
     from spatten_tpu_torch.models import transformer as tr
     out = {}
-    for name, (cfg, batch, plen, new) in gate_configs().items():
+    runs = {**gate_configs(), **device_scores_configs()}
+    for name, (cfg, batch, plen, new) in runs.items():
         params = tr.init_params(cfg.model, SEED, dtype=torch.float32,
                                 device="cpu")
         prompt = np.random.default_rng(SEED).integers(
             0, cfg.model.vocab_size, (batch, plen))
-        r = kc.check_off_kernel_path(cfg, params, prompt, new, dev)
-        log(f"gate, {name}: generate on the card off K1 (K1 launches "
-            f"{r['k1']}, K2 launches {r['k2']}, prune points "
+        r = kc.check_against_cpu(cfg, params, prompt, new, dev)
+        path = ("K1" if tr.decode_uses_kernel(cfg, "cuda")
+                else "the reference path")
+        log(f"gate, {name}: generate on the card through {path} (K1 "
+            f"launches {r['k1']}, K2 launches {r['k2']}, prune points "
             f"{r['prune_points']}, requant events {r['requant_events']}); "
-            f"logits vs the CPU's run of the same path max |diff| "
-            f"{r['max_logit_err']:.2e} (tolerance "
-            f"{kc.OFF_KERNEL_LOGIT_TOL}), call by call; tokens equal where "
-            f"the top-2 margin is clear ({r['clear_share']:.3f} of steps); "
-            f"a free CPU run fed the same tokens drifts to "
-            f"{r['free_run_drift']:.2e} (printed, no check)")
+            f"each of {r['calls']} calls vs its CPU replay: logits max "
+            f"|diff| {r['max_logit_err']:.2e} (tolerance "
+            f"{kc.CPU_REPLAY_LOGIT_TOL}); tokens equal where the top-2 "
+            f"margin is clear ({r['clear_share']:.3f} of steps)")
         out[name] = r
+        free()
+    return out
+
+
+def phase_k1_device_scores(dev) -> dict:
+    """K1 with its score plane in device memory, at full attention widths
+    under the serving flags (f32 metadata, depth 2): Llama-2-70B's (64
+    query heads over 8 kv heads of 128) at capacity 4096, batch 8, and
+    Llama-3-8B's (32 over 8) at capacity 16384, batch 2; each held against
+    its plain version, then timed."""
+    from spatten_tpu_torch.config import ModelConfig
+    from spatten_tpu_torch.ops import fused_decode as fd
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    base = serving_config(2)
+    shapes = {
+        "Llama-2-70B attention, capacity 4096": (
+            dict(hidden_size=8192, num_heads=64, intermediate_size=28672),
+            4096, [4096, 3900, 3500, 3001, 2049, 1500, 700, 33]),
+        "Llama-3-8B attention, capacity 16384": (
+            dict(intermediate_size=14336), 16384, [16384, 9001]),
+    }
+    out = {}
+    for name, (widths, cap, lengths) in shapes.items():
+        model = dataclasses.replace(ModelConfig.llama2_7b(), num_layers=2,
+                                    num_kv_heads=8, **widths)
+        cfg = dataclasses.replace(
+            base, model=model,
+            engine=dataclasses.replace(base.engine, cache_capacity=cap,
+                                       max_batch_size=len(lengths)),
+            quant=dataclasses.replace(base.quant, scale_dtype="float32"),
+            pruning=dataclasses.replace(base.pruning,
+                                        importance_dtype="float32"),
+        ).validate()
+        vb = cfg.pruning.v_block_size
+        check(not fd.scores_in_smem(model.q_heads_per_kv, 128, cap, vb),
+              f"{name}: the score plane fits shared memory")
+        st, q, kn, vn = k1_inputs(cfg, dev, gen, len(lengths))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        r = k1_case(st, q, kn, vn, lens, cfg, 0, cap)
+        t = time_k1(st, q, kn, vn, lens, cfg, [0, 1], cap, r["threshold"])
+        del st
+        free()
+        log(f"K1, score plane in device memory, {name} (GQA "
+            f"{model.q_heads_per_kv}, v_block {vb}, batch {len(lengths)}): "
+            f"fires {r['fired']}, near rows {r['near_rows']}, max |out err| "
+            f"{r['max_abs_err']:.2e}; {t['ms']:.4f} ms kernel, "
+            f"{t['plain_ms']:.4f} ms plain, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']})")
+        out[name] = dict(max_abs_err=r["max_abs_err"], ms=t["ms"],
+                         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                         bound_by=t["bound_by"])
     return out
 
 
@@ -911,14 +977,15 @@ def probe_entries(probe: dict, launches: dict) -> list:
             eager_us=r["eager_us"], graph_us=r["graph_us"])
         med = pres["interleaved"].get(pid)
         if med is not None:
-            # the redesigned probes: interleaved medians of one call
-            chosen = lo.shape_name(pid, {"P4": lo.P4_THREADS,
-                                         "P5": lo.P5_CTAS}[pid])
+            # the redesigned probes: interleaved medians of one call, and
+            # the kernels that the same-function call launches
             library = {"P4": "plane[:8].add_(1)",
                        "P5": "torch.add(x, s[0], out=o)"}[pid]
-            entry.update(ms=med[chosen] / 1e3, library_ms=med[library] / 1e3,
+            entry.update(ms=med[f"{pid} kernel"] / 1e3,
+                         library_ms=med[library] / 1e3,
                          floor_ms=med["launch floor"] / 1e3,
-                         interleaved_us=med)
+                         interleaved_us=med,
+                         library_kernels=pres["kernels per call"][library])
         if pid == "P5":
             entry["library_host_scalar_ms"] = \
                 r["library_host_scalar_us"] / 1e3
@@ -1224,9 +1291,12 @@ def main() -> int:
         inst = None
         for line in rep.splitlines():
             if "Function properties for" in line:
-                # the instance's template arguments, <G, D> for K1
+                # the instance's template arguments: for K1, <G, D,
+                # whether the score plane is in shared memory>
                 fn = line.split("for", 1)[1].strip()
-                args = re.findall(r"Li(\d+)E", fn)
+                args = [("true" if a == "b1" else "false") if a[0] == "b"
+                        else a[1:]
+                        for a in re.findall(r"L([ib]\d+)E", fn)]
                 inst = "<" + ", ".join(args) + ">" if args else fn
                 log(f"  {name}: {inst}")
             elif "registers" in line or "spill" in line:
@@ -1234,12 +1304,13 @@ def main() -> int:
                 m = re.search(r"(\d+) bytes spill stores", line)
                 if m:
                     spills[(name, inst)] = int(m.group(1))
-    check(spills.get(("fused_decode", "<1, 128>")) == 0,
-          "K1 <1, 128> (the main path's instance) spills registers")
+    check(spills.get(("fused_decode", "<1, 128, true>")) == 0,
+          "K1 <1, 128, true> (the main path's instance) spills registers")
 
     k1_pr1 = phase_k1_slice1(slice_config(), dev)
     k1_srv = phase_k1_serving(dev)
     k1_flags_res = phase_k1_flags(dev)
+    k1_dev_scores = phase_k1_device_scores(dev)
     k2_pr1 = phase_k2(dev, b=4, cap=1024, hkv=32, d=128, keep_max=772,
                       window=1024, lengths=[1024, 1024, 900, 1000],
                       triggered=[1, 0, 1, 1], keep_count=[772, 772, 600, 772])
@@ -1288,8 +1359,9 @@ def main() -> int:
     free()
     log(f"total {time.perf_counter() - t_start:.0f} s")
 
-    k1_srv["max_abs_err"] = max(k1_srv["max_abs_err"],
-                                k1_flags_res["max_abs_err"])
+    k1_srv["max_abs_err"] = max(
+        [k1_srv["max_abs_err"], k1_flags_res["max_abs_err"]]
+        + [r["max_abs_err"] for r in k1_dev_scores.values()])
     kernels_out = [
         dict(name="fused_decode_attention", route="cuda",
              source="spatten_tpu_torch/csrc/fused_decode.cu",
@@ -1297,7 +1369,8 @@ def main() -> int:
              launches=serving["k1"], **k1_srv,
              first_slice=dict(k1_pr1, launches=pr1["k1"]),
              parity=dict(k1_flags_res["parity"], launches=parity["k1"]),
-             split_k={k: dict(v) for k, v in split.items()}),
+             split_k={k: dict(v) for k, v in split.items()},
+             device_scores=k1_dev_scores),
         dict(name="gather_compact_rows", route="cuda",
              source="spatten_tpu_torch/csrc/compact_gather.cu",
              replaces="spatten_tpu/ops/compact_gather.py:335",

@@ -56,9 +56,20 @@
 // importance columns, against ~4*G flops per K byte -- far below the
 // H100's ~20 f32 flops/byte ridge.  The design reads each packed row once
 // (one msb row and one lsb2 row serve a hi and a lo token), unpacks in
-// registers, keeps scores and probabilities in shared memory (never in
-// device memory), and skips the loads of V blocks no query row keeps and
-// of dead head groups.
+// registers, keeps scores and probabilities in shared memory, and skips
+// the loads of V blocks no query row keeps and of dead head groups.
+//
+// The [G, C] score plane grows with the window: where it would take the
+// plan past 227 KB (at head_dim 128 and v_block 64: past 3808 tokens for
+// GQA 8, 8608 for GQA 4, 36928 for MHA), the wrapper passes a plane in
+// device memory instead, one [G, C] slice per CTA that only that CTA
+// writes and reads back (its __syncthreads() order global accesses within
+// the block as they do shared ones).  That is a second instance of each
+// <G, D> (kSmemScores false), so the shared-plane instances compile to
+// the same shared-memory instructions as before.  The slices of a step (B * Hkv * G *
+// C * 4 bytes: 8.4 MB for Llama-2-70B's group at batch 8 and 4096 tokens)
+// fit in the card's 50 MB L2, so the plane should add L2 traffic rather
+// than HBM bytes; the rest of the plan is unchanged.
 //
 // What held the first design far from that bound was latency, not bytes:
 // each warp kept 4 rows of 4 bytes per lane in flight (~4 KB per CTA), and
@@ -146,6 +157,8 @@ struct Params {
   float* delta;          // delta mode: [B, Hkv or Hq, C], or null
   float* mrow;           // [B, Hq] row max, or null (no row stats)
   float* drow;           // [B, Hq] row denominator
+  float* splane;         // [B, Hkv, G, C] score plane in device memory, or
+                         // null (in shared memory)
   int Hq, C, Ct, F, Hkv, pack_unit, layer;
   float sm_scale, threshold, ema;
   int quant, requant, keep_blocks, v_block;
@@ -896,7 +909,10 @@ __device__ void zero_outputs(const Params& p, int b, int hq0, size_t out0,
   }
 }
 
-template <int G, int D>
+// kSmemScores: the [G, C] score plane lies in shared memory (p.splane is
+// null), so its loads and stores compile to shared-memory instructions;
+// else it is this CTA's slice of the device-memory plane p.splane.
+template <int G, int D, bool kSmemScores>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_kernel(const __grid_constant__ Params p) {
   constexpr int VEC = D / 32;
@@ -911,8 +927,11 @@ fused_decode_kernel(const __grid_constant__ Params p) {
 
   Ring ring{smem, reinterpret_cast<uint64_t*>(smem + kStages * kStageStride),
             0};
-  float* s = reinterpret_cast<float*>(ring.bar + kStages);   // [G, C]
-  float* pv = s + G * C;                            // [kWarps, G, D]
+  float* scratch = reinterpret_cast<float*>(ring.bar + kStages);
+  float* s = kSmemScores                            // [G, C]
+                 ? scratch
+                 : p.splane + (static_cast<size_t>(b) * p.Hkv + h) * G * C;
+  float* pv = kSmemScores ? s + G * C : scratch;    // [kWarps, G, D]
   float* mass = pv + kWarps * G * D;                // [G, nvb]
   float* red = mass + G * nvb;                      // [kWarps]
   float* misc = red + kWarps;                       // [kMisc, G]
@@ -1327,26 +1346,31 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   }
 }
 
-// Shared memory of one CTA; spatten_tpu_torch/ops/fused_decode.py::
-// smem_bytes mirrors it (and raises before a launch past the limit).
-size_t smem_bytes(int G, int D, int C, int v_block) {
+// Shared memory of one CTA (the [G, C] score plane only when it is not in
+// device memory); spatten_tpu_torch/ops/fused_decode.py::smem_bytes
+// mirrors it (and raises before a launch past the limit).
+size_t smem_bytes(int G, int D, int C, int v_block, bool scores_in_smem) {
   const int nvb = C / v_block;
   return static_cast<size_t>(kStages) * (kStageStride + sizeof(uint64_t)) +
-         sizeof(float) * (static_cast<size_t>(G) * C + kWarps * G * D +
-                          G * nvb + kWarps + kMisc * G + 2 + nvb + 1) +
+         sizeof(float) * ((scores_in_smem ? static_cast<size_t>(G) * C : 0) +
+                          kWarps * G * D + G * nvb + kWarps + kMisc * G + 2 +
+                          nvb + 1) +
          static_cast<size_t>(G + 1) * nvb;
 }
 
 template <int G, int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(G, D, p.C, p.v_block);
+  const bool in_smem = p.splane == nullptr;
+  const size_t smem = smem_bytes(G, D, p.C, p.v_block, in_smem);
+  void (*kernel)(Params) = in_smem ? fused_decode_kernel<G, D, true>
+                                   : fused_decode_kernel<G, D, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_decode_kernel<G, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  fused_decode_kernel<G, D><<<dim3(p.Hkv, B), kThreads, smem, stream>>>(p);
+  kernel<<<dim3(p.Hkv, B), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1463,24 +1487,26 @@ cudaError_t plan_ring(Params& p, int B, int D) {
 // (spatten_tpu_torch/ops/fused_decode.py) validates shapes and flags.
 // The bulk copies and vector reads need 16-byte-aligned planes, scale and
 // importance columns (the wrapper keeps Ct a multiple of 8) and delta rows.
+// `splane`: f32 [B, Hkv, G, C] for the score plane when the wrapper finds
+// that the shared-memory plan with it would pass 227 KB, else null.
 extern "C" int spatten_fused_decode(
     const float* q, const float* k_new, const float* v_new, const int* lengths,
     int8_t* kfull, uint8_t* kmsb, uint8_t* klsb2, void* kscale, int8_t* vfull,
     uint8_t* vmsb, void* vscale, void* imp, const uint8_t* hmask,
     const int* qbits, const uint8_t* appmask, float* out, float* max_prob,
     uint8_t* need, uint8_t* keep_out, float* delta, float* mrow, float* drow,
-    int B, int Hq, int Hkv, int D, int C, int Ct, int pack_unit, int layer,
+    float* splane, int B, int Hq, int Hkv, int D, int C, int Ct, int pack_unit, int layer,
     float sm_scale, float threshold, float ema, int quant, int requant,
     int keep_blocks, int v_block, int sc_bf16, int imp_bf16, int qq,
     int pv_int8, int probs_bf16, int presoftmax, int per_row, void* stream) {
   if (Ct % 8 || C % 8 || misaligned(kfull) || misaligned(kmsb) ||
       misaligned(klsb2) || misaligned(kscale) || misaligned(vfull) ||
       misaligned(vmsb) || misaligned(vscale) || misaligned(imp) ||
-      misaligned(delta))
+      misaligned(delta) || misaligned(splane))
     return static_cast<int>(cudaErrorMisalignedAddress);
   Params p{q, k_new, v_new, lengths, kfull, kmsb, klsb2, kscale, vfull, vmsb,
            vscale, imp, hmask, qbits, appmask, out, max_prob, need, keep_out,
-           delta, mrow, drow, Hq, C, Ct, Hkv * D, Hkv, pack_unit, layer,
+           delta, mrow, drow, splane, Hq, C, Ct, Hkv * D, Hkv, pack_unit, layer,
            sm_scale, threshold, ema, quant, requant, keep_blocks, v_block,
            sc_bf16, imp_bf16, qq, pv_int8, probs_bf16, presoftmax, per_row};
   const int G = Hq / Hkv;

@@ -30,16 +30,14 @@
 // P4 and P5 do not stage through shared memory.  The Pallas probes had to
 // (a TPU kernel computes on VMEM, so the aliased plane came in and went
 // back by DMA), but on Hopper each thread can read, change and write its
-// own 16-byte segments where they lie: P4 stores its float4 of o = 0
-// first (it depends on nothing), then loads one int4 of rows 0-7, adds 1
-// to each byte with __vadd4 (per-byte, modulo 256: int8 wrap-around) and
-// stores it back, one vector each at 256 threads; P5 loads s[0] and its
-// float4 of x, both before any use so the two latencies overlap, in one
-// CTA.  Staged, P4 paid an mbarrier, two bulk copies and a wait for the
-// global writes in series.  P3 keeps the bulk copy: it is the probe of
-// Hopper's asynchronous copy.  The entries take the CTA shape as an
-// argument so that tools/launch_overhead.py can time the alternatives
-// (P4 at 128/256/512 threads, P5 in 1 or 4 CTAs) in one call.
+// own 16-byte segments where they lie.  Each is one CTA of 256 threads,
+// one vector per thread: P4 stores its float4 of o = 0 first (it depends
+// on nothing), then loads one int4 of rows 0-7, adds 1 to each byte with
+// __vadd4 (per-byte, modulo 256: int8 wrap-around) and stores it back; P5
+// loads s[0] and its float4 of x, both before any use so the two
+// latencies overlap.  Staged, P4 paid an mbarrier, two bulk copies and a
+// wait for the global writes in series.  P3 keeps the bulk copy: it is the
+// probe of Hopper's asynchronous copy.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,11 +45,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxThreads = 512;         // P4's largest CTA
 constexpr int kBlock = 8 * 128;          // f32 elements of the (8, 128) block
 constexpr int kPlaneCols = 512;          // int8 plane [1024, 512]
 constexpr int kDmaBytes = 256 * kPlaneCols;
 constexpr int kRmwBytes = 8 * kPlaneCols;
+// P4 and P5: one 16-byte vector of each operand per thread
+static_assert(kBlock / 4 == kThreads && kRmwBytes / 16 == kThreads,
+              "one CTA of kThreads covers the block and the rows");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -128,27 +128,25 @@ dma_sum_kernel(const int8_t* __restrict__ plane, float* __restrict__ o) {
 }
 
 // o = 0 as float4s, then rows 0-7 (kRmwBytes) +1 per byte, in place, as
-// 16-byte segments: one of each per thread at 256 threads.
-__global__ void __launch_bounds__(kMaxThreads)
+// 16-byte segments: one of each per thread.
+__global__ void __launch_bounds__(kThreads)
 aliased_rmw_kernel(uint4* plane, float4* __restrict__ o) {
-  for (int i = threadIdx.x; i < kBlock / 4; i += blockDim.x)
-    o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = threadIdx.x; i < kRmwBytes / 16; i += blockDim.x) {
-    uint4 w = plane[i];
-    w.x = __vadd4(w.x, 0x01010101u);
-    w.y = __vadd4(w.y, 0x01010101u);
-    w.z = __vadd4(w.z, 0x01010101u);
-    w.w = __vadd4(w.w, 0x01010101u);
-    plane[i] = w;
-  }
+  const int i = threadIdx.x;
+  o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  uint4 w = plane[i];
+  w.x = __vadd4(w.x, 0x01010101u);
+  w.y = __vadd4(w.y, 0x01010101u);
+  w.z = __vadd4(w.z, 0x01010101u);
+  w.w = __vadd4(w.w, 0x01010101u);
+  plane[i] = w;
 }
 
-// o = x + s[0], one float4 per thread over the grid's CTAs.
+// o = x + s[0], one float4 per thread.
 __global__ void __launch_bounds__(kThreads)
 spref_kernel(const int* __restrict__ s, const float4* __restrict__ x,
              float4* __restrict__ o) {
   const int add = __ldg(s);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = threadIdx.x;
   float4 v = __ldg(x + i);
   const float a = static_cast<float>(add);
   v.x += a;
@@ -189,22 +187,16 @@ extern "C" int spatten_probe_dma(const int8_t* plane, float* o, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// threads: 128, 256 or 512 (one CTA)
-extern "C" int spatten_probe_aliased(int8_t* plane, float* o, int threads,
+extern "C" int spatten_probe_aliased(int8_t* plane, float* o,
                                      void* stream) {
-  if (threads != 128 && threads != 256 && threads != 512)
-    return static_cast<int>(cudaErrorInvalidValue);
-  aliased_rmw_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  aliased_rmw_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<uint4*>(plane), reinterpret_cast<float4*>(o));
   return static_cast<int>(cudaGetLastError());
 }
 
-// ctas: 1 or 4, each owning an equal share of the block's float4s
 extern "C" int spatten_probe_spref(const int* s, const float* x, float* o,
-                                   int ctas, void* stream) {
-  if (ctas != 1 && ctas != 4) return static_cast<int>(cudaErrorInvalidValue);
-  spref_kernel<<<ctas, kBlock / 4 / ctas, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
+                                   void* stream) {
+  spref_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       s, reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(o));
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,17 +10,15 @@ either way and their rows are excluded; a flipped rounding moves a row's
 output by at most one step of one token, which the per-row tolerance
 allows twice.
 
-The decode paths that the gate sends off K1 on the card
-(``check_off_kernel_path``) are held against the CPU instead, call by
-call: each prefill chunk and decode step runs on the card and again on
-the CPU from a copy of the card's state just before it.  f32 logits
-agree within ``OFF_KERNEL_LOGIT_TOL`` (the card sums in another order)
-and greedy tokens wherever the CPU's top two logits lie more than
-``TOP2_MARGIN`` apart.  Two free runs, card and CPU, drift further apart
-than that (the check reports how far): the projections' last-bit
-differences flip int8 roundings at half a step, a flip across a
-multiple of 16 moves a 4-bit pass-1 nibble by a whole step, and the
-cascade's importance, keep sets and logits follow.
+A whole ``generate`` run on the card is held against the CPU call by
+call (``check_against_cpu``): each prefill chunk and decode step is
+replayed on the CPU from a copy of the card's state just before it.  f32
+logits agree within ``CPU_REPLAY_LOGIT_TOL`` (the card sums in another
+order) and greedy tokens wherever the CPU's top two logits lie more than
+``TOP2_MARGIN`` apart.  Two free runs would drift further apart: the
+projections' last-bit differences flip int8 roundings at half a step, a
+flip across a multiple of 16 moves a 4-bit pass-1 nibble by a whole
+step, and the cascade's importance, keep sets and logits follow.
 """
 
 from __future__ import annotations
@@ -38,7 +36,7 @@ K1_IMP_BF16_TOL = dict(atol=1e-5, rtol=2 ** -7)   # one bf16 step
 # |score| (the scores themselves carry f32 rounding of that size)
 K1_PRESOFTMAX_REL = 1e-4
 K1_ROW_STATS_TOL = dict(atol=1e-6, rtol=1e-5)     # m and den per row
-OFF_KERNEL_LOGIT_TOL = 1e-3     # f32 logits, card vs CPU, same path
+CPU_REPLAY_LOGIT_TOL = 1e-3     # f32 logits, card vs CPU, same call
 TOP2_MARGIN = 1e-3              # closer top-2 logits may pick either token
 
 
@@ -295,104 +293,66 @@ def split_threshold(max_prob: torch.Tensor) -> float:
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
-def stepwise_logits(params, cfg, prompt, tokens, device: torch.device
-                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``generate``'s greedy path on ``device`` fed ``tokens`` [B, T] (its
-    own output), with its prune schedule, head mask updates and decode
-    windows.  Every forward call (prefill chunk or decode step) runs again
-    on the CPU from a copy of the device's state just before it, and a
-    free run on the CPU goes its own way, fed the same tokens.  Returns
-    the logits [T, B, V] of the three (device, CPU call by call, CPU
-    free): the prefill's last logits, then each decode step's but the
-    last.  ``params``: f32, on the CPU."""
-    from spatten_tpu_torch.engine import generate as gen
-    from spatten_tpu_torch.engine.policy import update_head_mask
-    from spatten_tpu_torch.engine.state import init_state
-    from spatten_tpu_torch.models import transformer as tr
-    from spatten_tpu_torch.ops import rope as rope_ops
-    m, cpu = cfg.model, torch.device("cpu")
-    params_dev = _to(params, device)
-    tables = {d: rope_ops.rope_table(cfg.engine.cache_capacity, m.head_dim,
-                                     m.rope_theta, d) for d in (device, cpu)}
-    prompt = torch.as_tensor(prompt, dtype=torch.int64)
-    card = init_state(cfg, prompt.shape[0], device=device)
-    free = init_state(cfg, prompt.shape[0], device=cpu)
-    logits = ([], [], [])
-
-    def forward(card, free, x):
-        twin = card.clone(cpu)
-        lg, card, _ = tr.forward(params_dev, cfg, card, x.to(device),
-                                 tables[device])
-        logits[0].append(lg[:, -1].cpu())
-        logits[1].append(tr.forward(params, cfg, twin, x,
-                                    tables[cpu])[0][:, -1])
-        lg, free, _ = tr.forward(params, cfg, free, x, tables[cpu])
-        logits[2].append(lg[:, -1])
-        return card, free
-
-    host, chunk = [0] * m.num_layers, cfg.engine.prefill_chunk
-    for pos in range(0, prompt.shape[1], chunk):
-        n = min(chunk, prompt.shape[1] - pos)
-        layers, host = gen.prune_schedule_step(cfg, host, n)
-        card, _ = gen.maybe_prune(cfg, card, n, static_layers=layers)
-        free, _ = gen.maybe_prune(cfg, free, n, static_layers=layers)
-        card, free = forward(card, free, prompt[:, pos:pos + n])
-    first = len(logits[0]) - 1            # the prefill's last chunk
-    if cfg.pruning.enable_head_pruning and cfg.pruning.head_keep > 0:
-        card, free = update_head_mask(cfg, card), update_head_mask(cfg, free)
-    steps, t = gen.decode_window_steps(cfg), 0
-    while t < tokens.shape[1]:
-        n = min(steps, tokens.shape[1] - t)
-        card = gen.window_start(cfg, card, n, host)[0]
-        free, host, _, _ = gen.window_start(cfg, free, n, host)
-        for _ in range(n):
-            card, free = forward(card, free,
-                                 tokens[:, t:t + 1].to(torch.int32))
-            t += 1
-    return tuple(torch.stack(v[first:-1]) for v in logits)
-
-
-def check_off_kernel_path(cfg, params, prompt, new_tokens: int,
-                          device: torch.device) -> dict:
-    """Drive ``generate`` on the card for a configuration whose decode
-    shapes K1 does not take: the gate must send every step to the
-    reference path (K1's count stays 0 over the run) and the wrapper must
-    not raise.  Then the path is replayed on the card fed generate's
-    tokens and held against the CPU call by call (``stepwise_logits``).
-    ``params``: f32, on the CPU."""
+def check_against_cpu(cfg, params, prompt, new_tokens: int,
+                      device: torch.device) -> dict:
+    """Drive ``generate`` once on ``device`` and hold every forward call of
+    that run (prefill chunk or decode step) against the CPU: while it
+    runs, ``transformer.forward`` first replays the call on the CPU from a
+    copy of the state it was given, then runs it.  K1 must launch once per
+    layer and step where the card's gate admits the configuration
+    (``transformer.decode_uses_kernel``) and never where it does not (the
+    wrapper must not raise there); logits within
+    ``CPU_REPLAY_LOGIT_TOL``, greedy tokens equal to the CPU's argmax
+    where its top two logits are clear.  ``params``: f32, on the CPU."""
     from spatten_tpu_torch.engine import generate as gen
     from spatten_tpu_torch.models import transformer as tr
     from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
     from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
-    check(not tr.decode_uses_kernel(cfg, "cuda"),
-          "the gate would send this configuration to K1")
+    cpu = torch.device("cpu")
     prompt = torch.as_tensor(prompt, dtype=torch.int64)
     params_dev = _to(params, device)
+    run_forward, got, want = tr.forward, [], []
+
+    def forward(p, cfg_, state, tokens, rope_tables=None, head_compact=None):
+        ref = run_forward(params, cfg_, state.clone(cpu), tokens.to(cpu),
+                          _to(rope_tables, cpu), _to(head_compact, cpu))[0]
+        out = run_forward(p, cfg_, state, tokens, rope_tables, head_compact)
+        got.append(out[0][:, -1].to(cpu))
+        want.append(ref[:, -1])
+        return out
+
     fused_decode_attention.launches = 0
     gather_compact_rows.launches = 0
-    res = gen.generate(params_dev, cfg, prompt, new_tokens, device=device)
+    tr.forward = forward
+    try:
+        res = gen.generate(params_dev, cfg, prompt, new_tokens, device=device)
+    finally:
+        tr.forward = run_forward
     k1, k2 = fused_decode_attention.launches, gather_compact_rows.launches
-    check(k1 == 0, f"K1 launched {k1} times on a path the gate sends off it")
+    on_kernel = device.type == "cuda" and tr.decode_uses_kernel(cfg, "cuda")
+    expect = cfg.model.num_layers * new_tokens if on_kernel else 0
+    check(k1 == expect, f"K1 launched {k1} times, not {expect}")
     tokens = res.tokens.cpu()
     check(tuple(tokens.shape) == (prompt.shape[0], new_tokens),
           "token shape")
-    on_card, on_cpu, free = stepwise_logits(params, cfg, prompt, tokens,
-                                            device)
-    check(bool(torch.isfinite(on_card).all()), "non-finite logits")
-    check(bool((on_card.argmax(-1) == tokens.T)[_clear(on_card)].all()),
-          "the replay does not reproduce generate's tokens")
-    err = float((on_card - on_cpu).abs().max())
-    check(err <= OFF_KERNEL_LOGIT_TOL, f"logits differ from the CPU's by "
+    got, want = torch.stack(got), torch.stack(want)      # [calls, B, V]
+    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    err = float((got - want).abs().max())
+    check(err <= CPU_REPLAY_LOGIT_TOL, f"logits differ from the CPU's by "
           f"{err:.3e}")
-    clear = _clear(on_cpu)
-    check(bool((on_cpu.argmax(-1) == tokens.T)[clear].all()),
+    # the tokens come from the prefill's last logits and every decode step
+    # but the last
+    chosen = want[-new_tokens - 1:-1]
+    clear = _clear(chosen)
+    check(bool((chosen.argmax(-1) == tokens.T)[clear].all()),
           "greedy tokens differ from the CPU's where its top-2 margin is "
           "clear")
-    return dict(k1=k1, k2=k2, max_logit_err=err,
-                free_run_drift=float((on_card - free).abs().max()),
+    return dict(k1=k1, k2=k2, calls=got.shape[0], max_logit_err=err,
                 clear_share=float(clear.float().mean()),
                 prune_points=len(res.pruned_layers),
                 requant_events=int(res.requant_events))

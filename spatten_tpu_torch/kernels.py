@@ -32,16 +32,14 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fused_decode": ("fused_decode", "spatten_fused_decode",
-                     [_P] * 22 + [_I] * 8 + [_F] * 3 + [_I] * 11 + [_P]),
+                     [_P] * 23 + [_I] * 8 + [_F] * 3 + [_I] * 11 + [_P]),
     "compact_gather": ("compact_gather", "spatten_compact_gather",
                        [_P] * 5 + [_I] * 5 + [_P]),
     "probe_bare": ("launch_probe", "spatten_probe_bare", [_P] * 3),
     "probe_gridded": ("launch_probe", "spatten_probe_gridded", [_P] * 3),
     "probe_dma": ("launch_probe", "spatten_probe_dma", [_P] * 3),
-    "probe_aliased": ("launch_probe", "spatten_probe_aliased",
-                      [_P] * 2 + [_I, _P]),
-    "probe_spref": ("launch_probe", "spatten_probe_spref",
-                    [_P] * 3 + [_I, _P]),
+    "probe_aliased": ("launch_probe", "spatten_probe_aliased", [_P] * 3),
+    "probe_spref": ("launch_probe", "spatten_probe_spref", [_P] * 4),
     "probe_empty": ("launch_probe", "spatten_probe_empty", [_P]),
 }
 SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))

@@ -13,9 +13,10 @@ layers in Python:
   layer's capacity rung (``token_pruning.layer_capacity_groups``) and the
   serving flags of ``QuantConfig``;
 * a prompt chunk (``s > 1``), or a step the gate sends elsewhere
-  (``use_pallas=False``, "read" rope mode, or on the card a shape K1 does
-  not take), appends with ``append_tokens`` and attends with
-  ``prefill_attention`` (chunks) or the reference (single tokens).
+  (``use_pallas=False``, "read" rope mode, or on the card a fused lane
+  width ``Hkv * D`` that is not a multiple of 128, as in the JAX gate),
+  appends with ``append_tokens`` and attends with ``prefill_attention``
+  (chunks) or the reference (single tokens).
 
 The cache planes and the importance accumulator of the state are updated
 IN PLACE: ``forward`` consumes its input state.
@@ -43,7 +44,7 @@ from spatten_tpu_torch.models.weight_quant import (
 )
 from spatten_tpu_torch.ops import rope as rope_ops
 from spatten_tpu_torch.ops.attention_ref import spatten_attention_reference
-from spatten_tpu_torch.ops.fused_decode import fused_decode_attention, k1_takes
+from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
 from spatten_tpu_torch.ops.prefill_attention import prefill_attention
 from spatten_tpu_torch.pruning.token_pruning import (
     layer_budgets_static, layer_capacity_groups,
@@ -260,24 +261,19 @@ def _layer_leaf(w, l: int):
 
 def decode_uses_kernel(cfg: SpAttenConfig, device_type: str) -> bool:
     """Whether a single-token step on a ``device_type`` tensor goes through
-    K1, decided from the configuration alone, as the JAX gate does: K1
+    K1, decided from the configuration alone by the JAX gate's terms: K1
     computes no RoPE (so "read" rope mode keeps the reference path), its
-    6-bit append needs capacity >= 32, and on the card it must take the
-    shape at the stored capacity and at every capacity rung
-    (``fused_decode.k1_takes``; the reference's ``(hkv*dh) % 128 == 0 or
-    on_cpu`` term).  On the CPU the wrapper runs K1's plain version, which
-    takes every shape."""
+    6-bit append needs capacity >= 32, and on the card the fused lane width
+    ``Hkv * D`` must be a multiple of 128 (the reference's ``(hkv*dh) % 128
+    == 0 or on_cpu``).  On the CPU the wrapper runs K1's plain version,
+    which takes every shape.  A shape the gate admits and K1 does not take
+    (``fused_decode.k1_shape_error``) raises in the wrapper."""
     m, q, e = cfg.model, cfg.quant, cfg.engine
-    if not (e.use_pallas and (m.use_abs_pos_emb or e.rope_mode == "cached")
+    return (e.use_pallas and (m.use_abs_pos_emb or e.rope_mode == "cached")
+            and (m.num_kv_heads * m.head_dim % 128 == 0
+                 or device_type != "cuda")
             # the 6-bit path's 2-bit append needs cap >= 32
-            and not (q.needs_lsb2 and e.cache_capacity < 32)):
-        return False
-    if device_type != "cuda":
-        return True
-    cap = e.cache_capacity
-    rungs = {cap} | {rung for _, _, rung in layer_capacity_groups(cfg)}
-    return all(k1_takes(m.q_heads_per_kv, m.head_dim, cap, rung,
-                        cfg.pruning.v_block_size) for rung in rungs)
+            and not (q.needs_lsb2 and e.cache_capacity < 32))
 
 
 def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,

@@ -313,30 +313,42 @@ def fused_decode_attention_plain(
     return out[:, :, None, :], stats, k_quant, v_quant
 
 
-def smem_bytes(group: int, head_dim: int, cap: int, v_block: int) -> int:
+def smem_bytes(group: int, head_dim: int, cap: int, v_block: int,
+               in_smem: bool = True) -> int:
     """Shared memory of one K1 CTA (mirrors ``smem_bytes`` in
-    ``csrc/fused_decode.cu``): the tile ring, the [G, cap] score plane,
-    the per-warp P·V partials, the V-block masses, scalars, the kept-block
-    list and the keep masks."""
+    ``csrc/fused_decode.cu``): the tile ring, the [G, cap] score plane
+    (unless it lies in device memory), the per-warp P·V partials, the
+    V-block masses, scalars, the kept-block list and the keep masks."""
     nvb = cap // v_block
     return (_STAGES * (_STAGE_STRIDE + _BARRIER)
-            + 4 * (group * cap + _WARPS * group * head_dim + group * nvb
-                   + _WARPS + _MISC_PER_ROW * group + 2 + nvb + 1)
+            + 4 * (group * cap * in_smem + _WARPS * group * head_dim
+                   + group * nvb + _WARPS + _MISC_PER_ROW * group + 2 + nvb
+                   + 1)
             + (group + 1) * nvb)
 
 
-def _smem_error(group: int, head_dim: int, cap: int, v_block: int
-                ) -> Optional[str]:
-    smem = smem_bytes(group, head_dim, cap, v_block)
+def scores_in_smem(group: int, head_dim: int, cap: int, v_block: int
+                   ) -> bool:
+    """Whether K1 keeps its [G, cap] score plane in shared memory: where
+    the whole plan fits the card's 227 KB per block.  Past that the
+    wrapper gives the kernel a plane in device memory."""
+    return smem_bytes(group, head_dim, cap, v_block) <= _SMEM_LIMIT
+
+
+def _smem_error(group: int, head_dim: int, cap: int, v_block: int,
+                in_smem: bool = True) -> Optional[str]:
+    smem = smem_bytes(group, head_dim, cap, v_block, in_smem)
     if smem > _SMEM_LIMIT:
         return (f"K1 on CUDA: window {cap} x GQA group {group} needs {smem} "
-                "B of shared memory")
+                "B of shared memory"
+                + ("" if in_smem else " with its score plane in device "
+                   "memory"))
     return None
 
 
 def check_smem(group: int, head_dim: int, cap: int, v_block: int) -> int:
-    """The shared memory of a K1 launch; NotImplementedError past the
-    card's 227 KB per block."""
+    """The shared memory of a K1 launch with its score plane in shared
+    memory; NotImplementedError past the card's 227 KB per block."""
     err = _smem_error(group, head_dim, cap, v_block)
     if err:
         raise NotImplementedError(err)
@@ -347,22 +359,17 @@ def k1_shape_error(group: int, head_dim: int, cap_total: int, rung: int,
                    v_block: int) -> Optional[str]:
     """Why K1 on the card does not take a call of this shape, or None when
     it does: a ``<G, D>`` instance the kernel lacks, a stored capacity or
-    rung off the 16-byte vectors, or a shared-memory plan past 227 KB.
-    The wrapper raises ``NotImplementedError`` with this message; the
-    decode gate (``transformer.decode_uses_kernel``) sends such shapes to
-    the reference path instead."""
+    rung off the 16-byte vectors, or a shared-memory plan past 227 KB even
+    with the score plane in device memory.  The wrapper raises
+    ``NotImplementedError`` with this message."""
     if group not in _GROUPS or head_dim not in _HEAD_DIMS:
         return (f"K1 on CUDA: GQA group {group}, head_dim {head_dim} "
                 "(supported: 1/2/4/8 and 64/128/256)")
     if cap_total % _CAP_UNIT or rung % _CAP_UNIT:
         return ("K1 on CUDA: the stored capacity and the rung must be "
                 "multiples of 8 (16-byte scale and importance vectors)")
-    return _smem_error(group, head_dim, rung, v_block)
-
-
-def k1_takes(group: int, head_dim: int, cap_total: int, rung: int,
-             v_block: int) -> bool:
-    return k1_shape_error(group, head_dim, cap_total, rung, v_block) is None
+    return _smem_error(group, head_dim, rung, v_block,
+                       scores_in_smem(group, head_dim, rung, v_block))
 
 
 def fused_decode_attention(
@@ -508,6 +515,11 @@ def fused_decode_attention(
     if track_importance and not accumulate:
         delta = torch.empty((b, hq if per_row else hkv, cap),
                             dtype=torch.float32, device=dev)
+    # the score plane, where the shared-memory plan cannot hold it
+    splane = None
+    if not scores_in_smem(group, d, cap, v_block_size):
+        splane = torch.empty((b, hkv, group, cap), dtype=torch.float32,
+                             device=dev)
     m_rows = den_rows = None
     if return_row_stats:
         m_rows = torch.empty((b, hq), dtype=torch.float32, device=dev)
@@ -528,7 +540,7 @@ def fused_decode_attention(
         kernels.ptr(qbits), kernels.ptr(appm), out.data_ptr(),
         max_prob.data_ptr(), need.data_ptr(), kernels.ptr(keep_out),
         kernels.ptr(delta), kernels.ptr(m_rows), kernels.ptr(den_rows),
-        b, hq, hkv, d, cap, cap_total, qz.pack_unit(cap_total),
+        kernels.ptr(splane), b, hq, hkv, d, cap, cap_total, qz.pack_unit(cap_total),
         0 if layer is None else int(layer),
         float(sm_scale), float(requant_threshold), float(importance_ema),
         int(quant_enabled), int(do_requant), kb, v_block_size,

@@ -19,10 +19,12 @@ Beside them: torch's ``c + 1.0`` eager and in a graph (the JAX tool's
 point against ``kernels.launch`` and the wrapper, and (from
 ``chip_smoke.py``) the host time of one K1 wrapper call at the serving
 shapes.  P4 and P5 are also held against their same-function PyTorch
-calls (``plane[:8].add_(1)``; ``torch.add(x, s[0], out=o)``, with the
-host-scalar ``torch.add(x, 1.0)`` beside it), their other CTA shapes and
-the launch floor (an empty kernel through ``kernels.launch``), as medians
-of interleaved device timings (``interleaved_us``).
+calls (``plane[:8].add_(1)``; ``torch.add(x, s[0], out=o)``, with an f32
+scalar on the card and the host-scalar ``torch.add(x, 1.0)`` beside it)
+and the launch floor (an empty kernel through ``kernels.launch``), as
+medians of interleaved device timings (``interleaved_us``); a
+``torch.profiler`` trace counts the kernels each of those calls launches
+(``kernels_per_call``).
 
 Run on a machine with a card: ``python -m spatten_tpu_torch.tools.
 launch_overhead`` prints one line per probe.  The timing harness raises
@@ -45,8 +47,6 @@ N = 64
 BLOCK = (8, 128)               # f32 block of P1, P2, P5 and every output
 PLANE = (1024, 512)            # int8 plane of P3 and P4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-P4_THREADS = 256               # P4's CTA (of 128 / 256 / 512, the fastest)
-P5_CTAS = 1                    # P5's grid (of 1 / 4 CTAs, the faster)
 REPEATS = 5                    # interleaved repeats of a comparison
 
 
@@ -145,8 +145,7 @@ def aliased(plane: torch.Tensor, out: Optional[torch.Tensor] = None
     out = _out(out, plane)
     _check_aligned(plane, "plane")
     _check_aligned(out, "out")
-    kernels.launch("probe_aliased", plane.data_ptr(), out.data_ptr(),
-                   P4_THREADS)
+    kernels.launch("probe_aliased", plane.data_ptr(), out.data_ptr())
     aliased.launches += 1
     return out
 
@@ -164,8 +163,7 @@ def spref(s: torch.Tensor, x: torch.Tensor,
     out = _out(out, x)
     _check_aligned(x, "x")
     _check_aligned(out, "out")
-    kernels.launch("probe_spref", s.data_ptr(), x.data_ptr(), out.data_ptr(),
-                   P5_CTAS)
+    kernels.launch("probe_spref", s.data_ptr(), x.data_ptr(), out.data_ptr())
     spref.launches += 1
     return out
 
@@ -177,25 +175,6 @@ for _fn in (bare, gridded, dma, aliased, spref):
 def empty() -> None:
     """The launch floor: an empty kernel, through ``kernels.launch``."""
     kernels.launch("probe_empty")
-
-
-# the CTA shapes that P4 (threads) and P5 (CTAs) were chosen from
-SHAPES = {"P4": (128, 256, 512), "P5": (1, 4)}
-
-
-def shape_name(pid: str, shape: int) -> str:
-    return f"{pid} {shape} " + ("threads" if pid == "P4" else
-                                "CTA" + "s" * (shape > 1))
-
-
-def shape_step(pid: str, shape: int, ops: dict, out: torch.Tensor):
-    """A step launching P4 or P5 at one of its CTA shapes, straight
-    through ``kernels.launch`` (uncounted: these time the choice)."""
-    if pid == "P4":
-        return lambda: kernels.launch("probe_aliased", ops["plane"].data_ptr(),
-                                      out.data_ptr(), shape)
-    return lambda: kernels.launch("probe_spref", ops["s"].data_ptr(),
-                                  ops["x"].data_ptr(), out.data_ptr(), shape)
 
 
 # id -> (kernel wrapper, plain version, the Pallas call it replaces, bytes
@@ -326,19 +305,27 @@ def check_probes(ops: dict) -> dict:
             raise AssertionError(f"{pid}: plane differs from the plain "
                                  "version's")
         errs[pid] = float((got - want).abs().max())
-    for pid, shapes in SHAPES.items():
-        for shape in shapes:
-            a = {k: v.clone() for k, v in ops.items()}
-            c = {k: v.clone() for k, v in ops.items()}
-            got = torch.empty_like(a["x"])
-            shape_step(pid, shape, a, got)()
-            want = PROBES[pid][1](*args_of(pid, c))
-            torch.cuda.synchronize()
-            if not (torch.equal(got, want)
-                    and torch.equal(a["plane"], c["plane"])):
-                raise AssertionError(f"{shape_name(pid, shape)}: differs "
-                                     "from the plain version")
     return errs
+
+
+def kernels_per_call(step: Callable[[], object], n: int = 8
+                     ) -> Optional[dict]:
+    """The device work of one ``step()`` from a ``torch.profiler`` trace of
+    n steps: {kernel or copy name: launches per step}, or None when the
+    trace holds no device event (a profiler that cannot see the card)."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    counts: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            counts[evt.name] = counts.get(evt.name, 0) + 1
+    return {k: v / n for k, v in counts.items()} or None
 
 
 def interleaved_us(steps: dict, repeats: int = REPEATS) -> dict:
@@ -361,6 +348,7 @@ def measure(ops: dict, k1_call: Optional[Callable[[], object]] = None
     x, plane, s = ops["x"], ops["plane"], ops["s"]
     o1, o2 = torch.empty_like(x), torch.empty_like(x)
     s0 = s[0]                  # a 0-d int32 view: the scalar stays on the card
+    s0f = s.float()[0]         # the same scalar cast to f32 beforehand
     library = {
         "P1": lambda: torch.add(x, 1.0, out=o2),
         "P2": lambda: torch.add(x, 1.0, out=o2),
@@ -379,17 +367,22 @@ def measure(ops: dict, k1_call: Optional[Callable[[], object]] = None
                  bytes=nbytes, replaces=replaces)
         res[pid] = r
     res["P5"]["library_host_scalar_us"] = device_us(library["P1"])
-    # the redesigned probes against their yardsticks, in turns
-    yardsticks = {
-        "P4": {"plane[:8].add_(1)": library["P4"]},
-        "P5": {"torch.add(x, s[0], out=o)": library["P5"],
+    # the redesigned probes against their yardsticks, in turns, and the
+    # kernels each of those calls launches
+    steps = {
+        "P4": {"P4 kernel": lambda: aliased(plane, out=o1),
+               "plane[:8].add_(1)": library["P4"]},
+        "P5": {"P5 kernel": lambda: spref(s, x, out=o1),
+               "torch.add(x, s[0], out=o)": library["P5"],
+               "torch.add(x, s[0] as f32, out=o)":
+                   lambda: torch.add(x, s0f, out=o2),
                "torch.add(x, 1.0, out=o)": library["P1"]}}
     res["interleaved"] = {
-        pid: interleaved_us({
-            **{shape_name(pid, sh): shape_step(pid, sh, ops, o1)
-               for sh in shapes},
-            **yardsticks[pid], "launch floor": empty})
-        for pid, shapes in SHAPES.items()}
+        pid: interleaved_us({**named, "launch floor": empty})
+        for pid, named in steps.items()}
+    res["kernels per call"] = {
+        name: kernels_per_call(step)
+        for named in steps.values() for name, step in named.items()}
 
     def eight():
         for _ in range(4):
@@ -418,8 +411,12 @@ def report(res: dict) -> list[str]:
         lines.append(f"{pid} interleaved medians ({REPEATS} repeats, "
                      "device): " + ", ".join(f"{k} {v:.2f} us"
                                              for k, v in med.items()))
+    for name, found in res.get("kernels per call", {}).items():
+        lines.append(f"kernels per call of {name}: " + (
+            "not measured (no device event in the trace)" if found is None
+            else ", ".join(f"{k} x{v:g}" for k, v in found.items())))
     for name, r in res.items():
-        if name == "interleaved":
+        if name in ("interleaved", "kernels per call"):
             continue
         parts = [f"{k[:-3]} {v:8.{4 if k == 'bound_us' else 2}f} us"
                  for k, v in r.items() if k.endswith("_us")]

@@ -15,9 +15,12 @@ the split-K flags (rows that do not append, an empty shard, row stats,
 per-row importance under GQA); a small split-K step runs K1 per shard
 against one unsharded K1 call; P1-P5 of the launch probe equal their
 plain versions (P4 at its int8 wrap edges, P5 at negative and large
-scalars) and refuse misaligned views.  The configurations whose decode
-shapes K1 does not take (``chip_smoke.gate_configs()``) run ``generate``
-on the card off K1 against the CPU's run of the same path.  The rules
+scalars) and refuse misaligned views.  K1 with its score plane in device
+memory (GQA 8 at 4096 tokens, GQA 4 at 16384) matches its plain version.
+``generate`` runs on the card for a configuration that the gate sends
+off K1 (``chip_smoke.gate_configs()``) and for one whose K1 score plane
+lies in device memory (``chip_smoke.device_scores_configs()``), each call
+held against its CPU replay.  The rules
 and tolerances are those of ``spatten_tpu_torch/kernel_checks.py``,
 shared with ``chip_smoke.py``.
 """
@@ -368,17 +371,51 @@ def test_p4_p5_refuse_misaligned_views(dev):
         lo.aliased(ops["plane"], out=x_off)
 
 
-@pytest.mark.parametrize("name", list(chip_smoke.gate_configs()))
-def test_gate_sends_unsupported_shapes_off_k1(dev, name):
-    """``generate`` on a configuration whose decode shapes K1 does not take:
-    no K1 launch, no raise; logits within 1e-3 of the CPU's run of the
-    same path, greedy tokens equal where its top-2 margin is clear."""
-    cfg, batch, plen, new = chip_smoke.gate_configs()[name]
+def _generate_against_cpu(dev, cfg, batch, plen, new):
     params = tr.init_params(cfg.model, 0, dtype=torch.float32, device="cpu")
     prompt = np.random.default_rng(0).integers(0, cfg.model.vocab_size,
                                                (batch, plen))
-    res = kc.check_off_kernel_path(cfg, params, prompt, new, dev)
+    return kc.check_against_cpu(cfg, params, prompt, new, dev)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.gate_configs()))
+def test_gate_sends_unsupported_shapes_off_k1(dev, name):
+    """``generate`` on a configuration that the card's gate sends off K1
+    (lane width not a multiple of 128): no K1 launch, no raise; each call
+    within 1e-3 of its CPU replay, greedy tokens equal where the top-2
+    margin is clear."""
+    res = _generate_against_cpu(dev, *chip_smoke.gate_configs()[name])
     assert res["k1"] == 0 and res["prune_points"] > 0
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.device_scores_configs()))
+def test_long_window_generate_through_k1(dev, name):
+    """``generate`` on a GQA-8 model at capacity 4096, whose K1 score plane
+    lies in device memory: K1 launches once per layer and step (checked
+    inside), each call within 1e-3 of its CPU replay."""
+    cfg, batch, plen, new = chip_smoke.device_scores_configs()[name]
+    res = _generate_against_cpu(dev, cfg, batch, plen, new)
+    assert res["k1"] == cfg.model.num_layers * new
+    assert res["prune_points"] > 0
+
+
+# name -> (query heads, kv heads, capacity, lengths): K1 with its [G, C]
+# score plane in device memory, head_dim 128, v_block 16
+DEVICE_SCORE_CASES = {
+    "GQA 8, capacity 4096": (8, 1, 4096, [4096, 3001, 1500, 65]),
+    "GQA 4, capacity 16384": (8, 2, 16384, [16384, 9001, 4097, 1]),
+}
+
+
+@pytest.mark.parametrize("case", list(DEVICE_SCORE_CASES))
+def test_k1_device_score_plane_matches_plain(dev, case):
+    hq, hkv, cap, lengths = DEVICE_SCORE_CASES[case]
+    assert not fd.scores_in_smem(hq // hkv, 128, cap, 16)
+    cfg = serving_small(cap=cap, hq=hq, hkv=hkv, bf16=False)
+    g = torch.Generator(device=dev).manual_seed(400 + hq + hkv)
+    res = run_pair(dev, cfg, g, lengths, requant=True,
+                   v_keep=(cap // 4, cap // 4))
+    assert res["max_abs_err"] <= 1e-4
 
 
 def test_k2_matches_plain(dev):

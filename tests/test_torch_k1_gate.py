@@ -1,17 +1,19 @@
 """The decode gate on the CPU: which single-token steps go through K1.
 
 ``transformer.decode_uses_kernel(cfg, device_type)`` decides from the
-configuration alone, as the JAX gate does (``spatten_tpu/models/
-transformer.py``: the ``(hkv*dh) % 128 == 0 or on_cpu`` term): on the
-CPU, K1's plain version takes every shape; on the card, K1 must take the
-shape at the stored capacity and at every capacity rung
-(``fused_decode.k1_shape_error``, the limits its wrapper raises on).  The
-shapes: ``ModelConfig.tiny()`` (head_dim 8), Llama-2-70B's GQA group at
-capacity 4096 and a GQA-4 model at capacity 16384 (both past K1's shared
-memory), and the serving and parity configurations of ``chip_smoke.py``
-(which must keep K1).  The tiny model then runs the path the card's gate
-picks for it (``use_pallas=False``) against the JAX package's jnp path:
-greedy tokens, layer lengths and requant events exact.
+configuration alone by the JAX gate's terms (``spatten_tpu/models/
+transformer.py``: ``(hkv*dh) % 128 == 0 or on_cpu``): on the CPU, K1's
+plain version takes every shape; on the card, a fused lane width that is
+not a multiple of 128 takes the reference path.  Every other shape goes
+to K1, whose wrapper raises where the kernel does not take it
+(``fused_decode.k1_shape_error``).  The shapes: ``ModelConfig.tiny()``
+(lane width 16: off K1), Llama-2-70B's GQA group at capacity 4096 and a
+GQA-4 model at capacity 16384 (on K1, with the score plane in device
+memory, as their [G, C] planes overflow shared memory), and the serving
+and parity configurations of ``chip_smoke.py`` (on K1, plane in shared
+memory).  The tiny model then runs the path the card's gate picks for it
+(``use_pallas=False``) against the JAX package's jnp path: greedy tokens,
+layer lengths and requant events exact.
 """
 
 import dataclasses
@@ -36,7 +38,8 @@ from spatten_tpu_torch.pruning.token_pruning import layer_capacity_groups
 
 torch.set_num_threads(1)
 
-TINY, GQA8 = list(chip_smoke.gate_configs())
+[TINY] = list(chip_smoke.gate_configs())
+[GQA8] = list(chip_smoke.device_scores_configs())
 
 
 def gqa4_16k():
@@ -50,14 +53,15 @@ def gqa4_16k():
     ).validate()
 
 
-# name -> (configuration, whether the card's gate sends decode to K1)
+# name -> (configuration, whether the card's gate sends decode to K1,
+# whether K1's score plane then lies in device memory)
 SHAPES = {
-    "tiny": (lambda: chip_smoke.gate_configs()[TINY][0], False),
-    "GQA 8 x 128, cap 4096": (lambda: chip_smoke.gate_configs()[GQA8][0],
-                              False),
-    "GQA 4 x 128, cap 16384": (gqa4_16k, False),
-    "serving, rungs 2048/4096": (chip_smoke.serving_config, True),
-    "parity": (chip_smoke.parity_config, True),
+    "tiny": (lambda: chip_smoke.gate_configs()[TINY][0], False, False),
+    "GQA 8 x 128, cap 4096": (
+        lambda: chip_smoke.device_scores_configs()[GQA8][0], True, True),
+    "GQA 4 x 128, cap 16384": (gqa4_16k, True, True),
+    "serving, rungs 2048/4096": (chip_smoke.serving_config, True, False),
+    "parity": (chip_smoke.parity_config, True, False),
 }
 
 
@@ -68,7 +72,7 @@ def gate_rungs(cfg):
 
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_gate_decision(name):
-    make, on_card = SHAPES[name]
+    make, on_card, _ = SHAPES[name]
     cfg = make()
     assert tr.decode_uses_kernel(cfg, "cuda") is on_card
     assert tr.decode_uses_kernel(cfg, "cpu") is True
@@ -78,19 +82,40 @@ def test_gate_decision(name):
     assert not tr.decode_uses_kernel(off, "cpu")
 
 
+@pytest.mark.parametrize("hkv,dh,on_card", [
+    (2, 8, False), (16, 8, True), (1, 64, False), (2, 64, True),
+    (1, 128, True), (3, 96, False)])
+def test_gate_is_the_jax_lane_term(hkv, dh, on_card):
+    """On the card the gate refuses exactly the fused lane widths Hkv * D
+    that are not multiples of 128, as the JAX gate does; on the CPU it
+    refuses none."""
+    m = tcfg.ModelConfig(vocab_size=64, hidden_size=2 * hkv * dh,
+                         num_layers=1, num_heads=2 * hkv, num_kv_heads=hkv,
+                         head_dim=dh, intermediate_size=64)
+    cfg = tcfg.SpAttenConfig(
+        model=m, pruning=tcfg.PruningConfig(start_size=2, important_size=8,
+                                            recent_size=16, v_block_size=8),
+        engine=tcfg.EngineConfig(cache_capacity=64, prefill_chunk=8)
+    ).validate()
+    assert tr.decode_uses_kernel(cfg, "cuda") is on_card
+    assert tr.decode_uses_kernel(cfg, "cpu") is True
+
+
 def test_gate_matches_the_wrappers_limits(monkeypatch):
     """On every shape, the gate's answer and the wrapper's raise agree: the
     wrapper is run down its card branch on CPU tensors (``is_cuda``
     patched, the launch replaced by a recorder) at the stored capacity and
-    at each rung.  A shape the gate sends to K1 reaches the launch; a
-    shape it sends elsewhere raises NotImplementedError at one of them."""
+    at each rung.  A shape the gate sends to K1 reaches the launch, with a
+    score plane in device memory exactly where shared memory cannot hold
+    it; a shape it sends elsewhere raises NotImplementedError at one of
+    them."""
     launched = []
     monkeypatch.setattr(fd.kernels, "launch",
-                        lambda name, *args: launched.append(name))
+                        lambda name, *args: launched.append((name, args)))
     count = fd.fused_decode_attention.launches
     g = torch.Generator().manual_seed(0)
     from spatten_tpu_torch.kernel_checks import random_state
-    for name, (make, on_card) in SHAPES.items():
+    for name, (make, on_card, device_scores) in SHAPES.items():
         cfg = make()
         one = dataclasses.replace(
             cfg, model=dataclasses.replace(cfg.model, num_layers=1))
@@ -118,23 +143,66 @@ def test_gate_matches_the_wrappers_limits(monkeypatch):
                     assert str(e) == err
                     refused.append(rung)
                     continue
-            assert launched[before:] == ["fused_decode"], (name, rung)
+            [(kernel, args)] = launched[before:]
+            assert kernel == "fused_decode", (name, rung)
+            # the score plane's pointer (null: in shared memory)
+            in_smem = fd.scores_in_smem(m.q_heads_per_kv, m.head_dim, rung,
+                                        vb)
+            assert (args[22] is None) is in_smem, (name, rung)
+            if rung == cap:
+                assert in_smem is not device_scores, name
         assert (not refused) is on_card, (name, refused)
     fd.fused_decode_attention.launches = count
 
 
 def test_gate_limits_are_the_smem_plans():
-    """The two shared-memory refusals come from ``smem_bytes`` at
-    v_block 64; the main path's instance fits at both serving rungs."""
+    """``smem_bytes`` at v_block 64: GQA 8 at 4096 tokens and GQA 4 at
+    16384 pass 227 KB with the score plane in shared memory and fit with
+    it in device memory, so K1 takes them; the main path's instance keeps
+    it in shared memory at both serving rungs.  K1 refuses a plan that
+    overflows even without the plane, and the shapes it has no code for."""
     assert fd.smem_bytes(8, 128, 4096, 64) == 241_804
     assert fd.smem_bytes(4, 128, 16384, 64) == 359_884
+    assert fd.smem_bytes(8, 128, 4096, 64, in_smem=False) == 110_732
+    assert fd.smem_bytes(4, 128, 16384, 64, in_smem=False) == 97_740
     for group, cap in ((8, 4096), (4, 16384)):
-        assert "shared memory" in fd.k1_shape_error(group, 128, cap, cap, 64)
-        assert not fd.k1_takes(group, 128, cap, cap, 64)
+        assert not fd.scores_in_smem(group, 128, cap, 64)
+        assert fd.k1_shape_error(group, 128, cap, cap, 64) is None
     for rung in (2048, 4096):
-        assert fd.k1_takes(1, 128, 4096, rung, 64)
+        assert fd.scores_in_smem(1, 128, 4096, 64)
+        assert fd.k1_shape_error(1, 128, 4096, rung, 64) is None
+    assert "score plane in device memory" in fd.k1_shape_error(
+        8, 128, 262144, 262144, 64)
     assert "head_dim 8" in fd.k1_shape_error(2, 8, 64, 64, 8)
     assert "multiples of 8" in fd.k1_shape_error(1, 128, 1020, 1020, 4)
+
+
+def test_admitted_shape_k1_lacks_raises(monkeypatch):
+    """A shape the gate admits (lane width 2 x 64) but K1 has no instance
+    for (GQA group 3) raises NotImplementedError on the card branch rather
+    than leaving the kernel."""
+    monkeypatch.setattr(fd.kernels, "launch", lambda *a: None)
+    cfg = tcfg.SpAttenConfig(
+        model=tcfg.ModelConfig(vocab_size=64, hidden_size=384, num_layers=1,
+                               num_heads=6, num_kv_heads=2, head_dim=64,
+                               intermediate_size=64),
+        pruning=tcfg.PruningConfig(start_size=2, important_size=8,
+                                   recent_size=16, v_block_size=8),
+        engine=tcfg.EngineConfig(cache_capacity=64, prefill_chunk=8)
+    ).validate()
+    assert tr.decode_uses_kernel(cfg, "cuda")
+    from spatten_tpu_torch.kernel_checks import random_state
+    g = torch.Generator().manual_seed(2)
+    st = random_state(cfg, 1, g, "cpu")
+    q = torch.randn((1, 6, 1, 64), generator=g)
+    kv = torch.randn((1, 2, 1, 64), generator=g)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+        with pytest.raises(NotImplementedError, match="GQA group 3"):
+            fd.fused_decode_attention(
+                q, st.cache.k, st.cache.v, kv, kv,
+                torch.tensor([20], dtype=torch.int32), layer=0,
+                v_block_size=8, importance_in=st.importance)
 
 
 @pytest.mark.parametrize("head_dim,k2", [(8, False), (16, True)])
@@ -168,18 +236,23 @@ def test_compaction_sends_head_dims_k2_does_not_take_to_the_gather(
 
 
 def test_off_kernel_check_replays_generate_on_the_cpu():
-    """``kernel_checks.check_off_kernel_path``, which ``chip_smoke.py`` and
-    the card tests run, on the CPU: its replay reproduces ``generate``'s
-    tokens call by call, K1 stays at 0 and the run prunes."""
+    """``kernel_checks.check_against_cpu``, which ``chip_smoke.py`` and the
+    card tests run, on the CPU: every forward call of the one ``generate``
+    run is replayed from a copy of its state (the prefill chunks and each
+    decode step), the replay equals the run exactly, the tokens are
+    generate's, K1 stays at 0 and the run prunes; ``transformer.forward``
+    is restored after."""
     from spatten_tpu_torch import kernel_checks as kc
+    forward = tr.forward
     cfg, batch, plen, new = chip_smoke.gate_configs()[TINY]
     params = tr.init_params(cfg.model, 0, dtype=torch.float32, device="cpu")
     prompt = np.random.default_rng(0).integers(0, cfg.model.vocab_size,
                                                (batch, plen))
-    res = kc.check_off_kernel_path(cfg, params, prompt, new,
-                                   torch.device("cpu"))
+    res = kc.check_against_cpu(cfg, params, prompt, new, torch.device("cpu"))
     assert res["k1"] == 0 and res["prune_points"] > 0
+    assert res["calls"] == -(-plen // cfg.engine.prefill_chunk) + new
     assert res["max_logit_err"] == 0.0
+    assert tr.forward is forward
 
 
 def build(mod):
