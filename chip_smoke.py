@@ -16,10 +16,14 @@ failures is caught:
    then K1's remaining flags at the serving shapes (presoftmax importance
    accumulated and in delta mode, prob in delta mode, rows that do not
    append with an empty one, row stats) and per-row importance at a GQA
-   shape (32 query heads over 8 kv heads of 128); then K1 with its score
-   plane in device memory (``phase_k1_device_scores``: Llama-2-70B's
-   attention at capacity 4096, Llama-3-8B's at 16384); rules and
-   tolerances in ``spatten_tpu_torch/kernel_checks.py``.  K1's times (``time_k1``)
+   shape (32 query heads over 8 kv heads of 128); K1 at Llama-3.2-3B's
+   serving shapes (``phase_k1_llama32``: group 3, both rungs, timed);
+   the GQA groups 3, 5, 6 and 7 that K1 runs in its <4, D> and <8, D>
+   instances (``phase_k1_groups``: head_dim 64 and 128, the score plane
+   in shared and in device memory, a partly head-masked group); then K1
+   with its score plane in device memory (``phase_k1_device_scores``:
+   Llama-2-70B's attention at capacity 4096, Llama-3-8B's at 16384);
+   rules and tolerances in ``spatten_tpu_torch/kernel_checks.py``.  K1's times (``time_k1``)
    are device times per call from CUDA events over back-to-back calls
    that walk the stacked layers, so each call finds its planes cold in
    L2 as decode does; the kernel streams them through its shared-memory
@@ -34,15 +38,17 @@ failures is caught:
 5. the launch probe (``phase_launch_probe``): P1-P5 vs their plain
    versions (exact), then their eager, graph and device times, the
    launch floor (an empty kernel) beside their byte bounds, and the
-   yardsticks of ``spatten_tpu_torch/tools/launch_overhead.py``; P4 and
-   P5 against their same-function PyTorch calls as medians of
-   interleaved repeats, with the kernels each of those calls launches;
+   yardsticks of ``spatten_tpu_torch/tools/launch_overhead.py``; P2-P5
+   against their same-function PyTorch calls as medians of interleaved
+   repeats, with the kernels each of those calls launches;
 6. a small-model reference check (f32 weights, kernels vs plain versions
    on the card); the decode gate (``phase_gate``): ``generate`` on the
    tiny model, which the gate sends off K1 (``gate_configs()``: K1's
-   count stays 0), and on a GQA-8 model at capacity 4096, whose K1 score
-   plane lies in device memory (``device_scores_configs()``: one launch
-   per layer and step), each call held against its replay on the CPU;
+   count stays 0), on a GQA-8 model at capacity 4096, whose K1 score
+   plane lies in device memory (``device_scores_configs()``), and on a
+   GQA-3 model (``group_configs()``: K1's <4, 64> instance with 3 live
+   rows), K1 launching once per layer and step; each call held against
+   its replay on the CPU;
    then the paths, each with its launch counts set to 0 just before it
    and read just after:
    a. the first slice: ``generate`` at Llama-2-7B width, depth cut to 8,
@@ -63,13 +69,18 @@ failures is caught:
       accumulated) at Llama-2-7B width and depth, batch 8, prompt 1152,
       128 new tokens; its first decode window again through the plain
       versions;
+   f. ``llama32_3b_config()``: Llama-3.2-3B's published widths and depth
+      (28 layers, 24 query heads over 8 kv heads of 128, vocab 128256,
+      random bf16 weights) under the serving settings, batch 8, capacity
+      4096, prompt 3072, 64 new tokens, K1 in <4, 128> with 3 live rows;
+      its first decode window again through the plain versions;
 7. a ``kernels`` JSON line: per kernel its launches on the serving path
    (the probes: 0, with their own phase's count beside), error, time on
    the card (``ms``), its plain version's (``plain_ms``), the least time
    the card could take (``bound_ms``, with ``bound_by``) and a PyTorch
    library call's time where one computes the same function; K1's
-   4096-rung, parity and split-K numbers and the first slice's ride
-   along in extra fields;
+   4096-rung, parity, split-K and Llama-3.2-3B numbers and the first
+   slice's ride along in extra fields;
 8. the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -215,6 +226,32 @@ def profile_config(num_layers: int = 8):
     return serving_config(num_layers, layer_bits=(4, 4, 6, 6, 8))
 
 
+LLAMA32_NEW_TOKENS = 64
+
+
+def llama32_3b_config(num_layers: int = 28):
+    """``meta-llama/Llama-3.2-3B`` from its published ``config.json``
+    (vocab 128256, hidden 3072, 28 layers, 24 query heads over 8 kv heads
+    of 128: GQA group 3, lane width 1024; MLP 8192, rope_theta 500000,
+    rms_norm_eps 1e-5, tied embeddings) under ``serving_config()``'s
+    pruning, quantization and engine settings: batch 8, capacity 4096,
+    head pruning keeping 6 of 8 kv heads (the serving share, 0.75).
+    Neither package models the config's ``llama3`` RoPE scaling (factor
+    32 over 8192 original positions), so positions rotate with plain
+    RoPE at theta 500000; the weights are random (real ones are not in
+    the repository)."""
+    from spatten_tpu_torch.config import ModelConfig
+    cfg = serving_config(num_layers)
+    model = ModelConfig(
+        vocab_size=128256, hidden_size=3072, num_layers=num_layers,
+        num_heads=24, num_kv_heads=8, head_dim=128, intermediate_size=8192,
+        norm_eps=1e-5, rope_theta=500000.0, max_position_embeddings=131072,
+        tie_word_embeddings=True)
+    return dataclasses.replace(
+        cfg, model=model,
+        pruning=dataclasses.replace(cfg.pruning, head_keep=6)).validate()
+
+
 PARITY_BATCH, PARITY_PROMPT = 8, 1152
 
 
@@ -282,6 +319,32 @@ def device_scores_configs() -> dict:
                             decode_window=16),
     ).validate()
     return {"GQA 8 x 128, capacity 4096": (gqa8, 2, 2040, 32)}
+
+
+def group_configs() -> dict:
+    """A configuration whose GQA group K1 runs in a larger instance: 6
+    query heads over 2 kv heads of 64 (group 3, lane width 128: the JAX
+    gate sends it to its kernel), f32, 2 layers, capacity 64, the
+    GQA-8 model's vocab, hidden and MLP widths, under the pipeline of the
+    tiny parity tests with head pruning keeping 1 of 2 kv heads; on the
+    card K1 runs it in ``<4, 64>`` with 3 live rows.  name -> (cfg,
+    batch, prompt length, new tokens); the prompt prunes in prefill."""
+    from spatten_tpu_torch.config import (
+        EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
+    )
+    gqa3 = SpAttenConfig(
+        model=ModelConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                          num_heads=6, num_kv_heads=2, head_dim=64,
+                          intermediate_size=512),
+        pruning=PruningConfig(start_size=2, important_size=8, recent_size=16,
+                              v_block_size=8, enable_head_pruning=True,
+                              head_keep=1),
+        quant=QuantConfig(requant_threshold=0.2),
+        engine=EngineConfig(max_batch_size=2, cache_capacity=64,
+                            prefill_chunk=8, decode_window=8),
+    ).validate()
+    return {"GQA 3 (6 over 2 kv heads of 64), capacity 64":
+            (gqa3, 2, 72, 32)}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -549,6 +612,74 @@ def phase_k1_serving(dev) -> dict:
     return dict(max_abs_err=max(errs), ms=t2["ms"], plain_ms=t2["plain_ms"],
                 bound_ms=t2["bound_ms"], bound_by=t2["bound_by"],
                 library_ms=None,
+                rung_4096=dict(ms=t4["ms"], plain_ms=t4["plain_ms"],
+                               bound_ms=t4["bound_ms"],
+                               bound_by=t4["bound_by"]))
+
+
+def k1_shape_config(base, *, hq: int, hkv: int, d: int, cap: int,
+                    layers: int = 2):
+    """``base`` (its flags and pruning) at an attention shape of hq query
+    heads over hkv kv heads of d, capacity cap, ``layers`` deep; head
+    pruning keeps the serving share (3/4) of the kv heads."""
+    from spatten_tpu_torch.config import ModelConfig
+    model = dataclasses.replace(
+        ModelConfig.llama2_7b(), num_layers=layers, num_heads=hq,
+        num_kv_heads=hkv, head_dim=d, hidden_size=hq * d)
+    return dataclasses.replace(
+        base, model=model,
+        engine=dataclasses.replace(base.engine, cache_capacity=cap),
+        pruning=dataclasses.replace(base.pruning,
+                                    head_keep=max(1, 3 * hkv // 4)),
+    ).validate()
+
+
+def partial_head_mask(hq: int, hkv: int, dev):
+    """[Hq] rows: kv head 0's group alive, head 1's first row dead (a
+    partly alive group), head 2's group (where there is one) dead, every
+    other group alive."""
+    hm = torch.ones((hkv, hq // hkv), dtype=torch.bool, device=dev)
+    hm[1, 0] = False
+    hm[2:3] = False
+    return hm.reshape(hq)
+
+
+def phase_k1_llama32(dev) -> dict:
+    """K1 at Llama-3.2-3B's serving shapes (``llama32_3b_config()``: one
+    layer of the stacked [28, 8, 4096, 1024] planes, group 3 in <4, 128>,
+    6 of 8 kv heads alive, the serving flags): held against its plain
+    version at both rungs, then timed at each over the layers of that
+    rung."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    from spatten_tpu_torch.pruning.token_pruning import layer_capacity_groups
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cfg = llama32_3b_config()
+    lens = {2048: [2048, 1900, 1601, 1200, 977, 800, 729, 33],
+            4096: [4096, 3200, 3100, 2665, 2800, 2049, 1000, 1]}
+    layers = {r: list(range(a, b)) for a, b, r in layer_capacity_groups(cfg)}
+    hm = serving_head_mask(cfg, gen, dev)
+    st, q, kn, vn = k1_inputs(cfg, dev, gen, SERVING_BATCH)
+    out, errs, lines = {}, [], []
+    for rung in (2048, 4096):
+        lengths = torch.tensor(lens[rung], dtype=torch.int32, device=dev)
+        r = k1_case_logged(errs, lines, "Llama-3.2-3B serving", cfg, st, q,
+                           kn, vn, layers[rung][0], rung, lengths,
+                           head_mask=hm)
+        out[rung] = time_k1(st, q, kn, vn, lengths, cfg, layers[rung], rung,
+                            r["threshold"], head_mask=hm)
+    del st
+    free()
+    log(f"K1 vs plain, Llama-3.2-3B shapes [28, 8, 4096, 1024] (GQA 3 in "
+        f"<{fd.instance_group(3)}, 128>): ok\n  " + "\n  ".join(lines))
+    for rung, t in out.items():
+        log(f"K1 timing, Llama-3.2-3B, rung {rung}, layers "
+            f"{layers[rung][0]}-{layers[rung][-1]}: {t['ms']:.4f} ms kernel, "
+            f"{t['plain_ms']:.4f} ms plain, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops; {t['fired']}"
+            f" of 64 heads requantize; {SERVING_BATCH * 8} CTAs)")
+    t2, t4 = out[2048], out[4096]
+    return dict(max_abs_err=max(errs), ms=t2["ms"], plain_ms=t2["plain_ms"],
+                bound_ms=t2["bound_ms"], bound_by=t2["bound_by"],
                 rung_4096=dict(ms=t4["ms"], plain_ms=t4["plain_ms"],
                                bound_ms=t4["bound_ms"],
                                bound_by=t4["bound_by"]))
@@ -879,15 +1010,16 @@ def phase_launch_probe(dev) -> dict:
 
 def phase_gate(dev) -> dict:
     """The decode gate on the card: ``generate`` on ``gate_configs()``
-    (off K1: its launch count must stay 0) and on
-    ``device_scores_configs()`` (K1 with its score plane in device memory:
-    one launch per layer and step), f32 weights from the seed, each call
-    of the run held against its replay on the CPU
+    (off K1: its launch count must stay 0), on ``device_scores_configs()``
+    (K1 with its score plane in device memory) and on ``group_configs()``
+    (GQA group 3, which K1 runs in <4, 64>), each on K1 with one launch
+    per layer and step; f32 weights from the seed, each call of the run
+    held against its replay on the CPU
     (``kernel_checks.check_against_cpu``)."""
     from spatten_tpu_torch import kernel_checks as kc
     from spatten_tpu_torch.models import transformer as tr
     out = {}
-    runs = {**gate_configs(), **device_scores_configs()}
+    runs = {**gate_configs(), **device_scores_configs(), **group_configs()}
     for name, (cfg, batch, plen, new) in runs.items():
         params = tr.init_params(cfg.model, SEED, dtype=torch.float32,
                                 device="cpu")
@@ -958,6 +1090,63 @@ def phase_k1_device_scores(dev) -> dict:
     return out
 
 
+# K1 at the GQA groups it runs in a larger instance (3 in <4, D>; 5, 6
+# and 7 in <8, D>): name -> (query heads, kv heads, head_dim, capacity,
+# rung, lengths).  The instance's shared-memory plan puts the score plane
+# in shared memory for the first eight and in device memory for the rest.
+GROUP_CASES = {
+    **{f"GQA {g} ({4 * g} over 4 x {d})": (4 * g, 4, d, 4096, 2048,
+                                          [2048, 1501, 700, 33])
+       for g in (3, 5, 6, 7) for d in (64, 128)},
+    "Llama-3.2-3B attention (GQA 3), capacity 16384": (
+        24, 8, 128, 16384, 16384, [16384, 8193]),
+    "Qwen2.5-14B attention (GQA 5), capacity 8192": (
+        40, 8, 128, 8192, 8192, [8192, 4097]),
+    "GQA 6 (12 over 2 x 64), capacity 8192": (
+        12, 2, 64, 8192, 8192, [8192, 4097]),
+    "Qwen2-7B attention (GQA 7), capacity 16384": (
+        28, 4, 128, 16384, 16384, [16384, 8193]),
+}
+
+
+def phase_k1_groups(dev) -> dict:
+    """K1 at the GQA groups 3, 5, 6 and 7 (``GROUP_CASES``), depth 2, a
+    partly head-masked group in each: under the serving flags at head_dim
+    64 and 128 over 4 kv heads (batch 4, rung 2048 of 4096; score plane
+    in shared memory), then with the score plane in device memory under
+    the serving flags with f32 metadata (batch 2) at Llama-3.2-3B's and
+    Qwen2-7B's attention (capacity 16384), Qwen2.5-14B's and group 6
+    (8192); each held against its plain version."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    errs, lines = [], []
+    for name, (hq, hkv, d, cap, rung, lengths) in GROUP_CASES.items():
+        cfg = k1_shape_config(serving_config(2), hq=hq, hkv=hkv, d=d,
+                              cap=cap)
+        inst, vb = fd.instance_group(hq // hkv), cfg.pruning.v_block_size
+        in_smem = fd.scores_in_smem(inst, d, rung, vb)
+        if not in_smem:
+            cfg = dataclasses.replace(
+                cfg,
+                quant=dataclasses.replace(cfg.quant, scale_dtype="float32"),
+                pruning=dataclasses.replace(cfg.pruning,
+                                            importance_dtype="float32"))
+        check(in_smem is (rung == 2048), f"{name}: score plane in "
+              f"{'shared' if in_smem else 'device'} memory")
+        st, q, kn, vn = k1_inputs(cfg, dev, gen, len(lengths))
+        k1_case_logged(
+            errs, lines, f"{name} in <{inst}, {d}>, plane in "
+            f"{'shared' if in_smem else 'device'} memory", cfg, st, q, kn,
+            vn, 1, rung, torch.tensor(lengths, dtype=torch.int32,
+                                      device=dev),
+            head_mask=partial_head_mask(hq, hkv, dev))
+        del st
+        free()
+    log("K1 vs plain, GQA groups in larger instances: ok\n  "
+        + "\n  ".join(lines))
+    return dict(max_abs_err=max(errs))
+
+
 def probe_entries(probe: dict, launches: dict) -> list:
     """The ``kernels`` JSON entries of P1-P5 from ``phase_launch_probe``'s
     result; ``launches``: each probe's count on the serving path."""
@@ -979,7 +1168,9 @@ def probe_entries(probe: dict, launches: dict) -> list:
         if med is not None:
             # the redesigned probes: interleaved medians of one call, and
             # the kernels that the same-function call launches
-            library = {"P4": "plane[:8].add_(1)",
+            library = {"P2": "torch.add(x, 1.0, out=o)",
+                       "P3": "plane[:256].sum()",
+                       "P4": "plane[:8].add_(1)",
                        "P5": "torch.add(x, s[0], out=o)"}[pid]
             entry.update(ms=med[f"{pid} kernel"] / 1e3,
                          library_ms=med[library] / 1e3,
@@ -1309,7 +1500,9 @@ def main() -> int:
 
     k1_pr1 = phase_k1_slice1(slice_config(), dev)
     k1_srv = phase_k1_serving(dev)
+    k1_llama = phase_k1_llama32(dev)
     k1_flags_res = phase_k1_flags(dev)
+    k1_groups = phase_k1_groups(dev)
     k1_dev_scores = phase_k1_device_scores(dev)
     k2_pr1 = phase_k2(dev, b=4, cap=1024, hkv=32, d=128, keep_max=772,
                       window=1024, lengths=[1024, 1024, 900, 1000],
@@ -1357,10 +1550,16 @@ def main() -> int:
                       window_check=True)
     del parity["params"], parity["res"]
     free()
+    llama = run_path("Llama-3.2-3B", llama32_3b_config(), dev,
+                     batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                     new_tokens=LLAMA32_NEW_TOKENS, window_check=True)
+    del llama["params"], llama["res"]
+    free()
     log(f"total {time.perf_counter() - t_start:.0f} s")
 
     k1_srv["max_abs_err"] = max(
-        [k1_srv["max_abs_err"], k1_flags_res["max_abs_err"]]
+        [k1_srv["max_abs_err"], k1_flags_res["max_abs_err"],
+         k1_llama["max_abs_err"], k1_groups["max_abs_err"]]
         + [r["max_abs_err"] for r in k1_dev_scores.values()])
     kernels_out = [
         dict(name="fused_decode_attention", route="cuda",
@@ -1369,6 +1568,7 @@ def main() -> int:
              launches=serving["k1"], **k1_srv,
              first_slice=dict(k1_pr1, launches=pr1["k1"]),
              parity=dict(k1_flags_res["parity"], launches=parity["k1"]),
+             llama32_3b=dict(k1_llama, launches=llama["k1"], library_ms=None),
              split_k={k: dict(v) for k, v in split.items()},
              device_scores=k1_dev_scores),
         dict(name="gather_compact_rows", route="cuda",
@@ -1376,7 +1576,7 @@ def main() -> int:
              replaces="spatten_tpu/ops/compact_gather.py:335",
              launches=serving["k2"], **k2_srv,
              first_slice=dict(k2_pr1, launches=pr1["k2"]),
-             parity_launches=parity["k2"]),
+             parity_launches=parity["k2"], llama32_3b_launches=llama["k2"]),
     ]
     kernels_out += probe_entries(probe, serving["probe_launches"])
     out = {"kernels": kernels_out}
@@ -1384,14 +1584,14 @@ def main() -> int:
         "computing its function (append + 4/6/8-bit scoring + requant + "
         "importance + V top-k + 8-bit P·V); gather_compact_rows is timed "
         "against two torch.gather calls (K and V planes, out of place); "
-        "P1/P2 against torch.add(x, 1.0), P3 against big[:256].sum(), "
-        "P4 against big[:8].add_(1), P5 against torch.add(x, s[0], out=o) "
-        "(the scalar read on the card; library_host_scalar_ms: "
-        "torch.add(x, 1.0)); P4's and P5's ms, library_ms and floor_ms "
-        "are medians of interleaved repeats in one call, floor_ms an "
-        "empty kernel's launch.  The probes' launches on the paths are 0 "
-        "(they are off every path); probe_launches counts their own "
-        "phase")
+        "P1 against torch.add(x, 1.0), P2 against torch.add(x, 1.0, "
+        "out=o), P3 against plane[:256].sum(), P4 against "
+        "plane[:8].add_(1), P5 against torch.add(x, s[0], out=o) (the "
+        "scalar read on the card; library_host_scalar_ms: "
+        "torch.add(x, 1.0)); P2-P5's ms, library_ms and floor_ms are "
+        "medians of interleaved repeats in one call, floor_ms an empty "
+        "kernel's launch.  The probes' launches on the paths are 0 (they "
+        "are off every path); probe_launches counts their own phase")
     print(json.dumps(out), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -163,6 +163,8 @@ struct Params {
   float sm_scale, threshold, ema;
   int quant, requant, keep_blocks, v_block;
   int sc_bf16, imp_bf16, qq, pv_int8, probs_bf16, presoftmax, per_row;
+  int g;                 // the model's GQA group Hq / Hkv: the live rows
+                         // of the instance's G (1 <= g <= G)
   // the ring's geometry (host-computed): packed rows of a msb tile, V
   // rows of a P·V tile and of one of its pieces (inside one V block)
   int t_msb, tpv, piece;
@@ -866,6 +868,7 @@ __device__ void importance(const Params& p, const float* s, const float* wt,
       if (p.per_row) {
 #pragma unroll
         for (int g = 0; g < G; ++g) {
+          if (g >= p.g) break;                        // padding rows
           float v[8];
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
@@ -894,17 +897,18 @@ __device__ void importance(const Params& p, const float* s, const float* wt,
 }
 
 // Zero output, kept-block mask and delta of a group that computes nothing
-// more (a dead head group, or a row with no live token).
+// more (a dead head group, or a row with no live token): its p.g live
+// rows only.
 template <int G, int D>
 __device__ void zero_outputs(const Params& p, int b, int hq0, size_t out0,
                              int nvb, float* dl) {
-  for (int i = threadIdx.x; i < G * D; i += kThreads) p.out[out0 + i] = 0.f;
+  for (int i = threadIdx.x; i < p.g * D; i += kThreads) p.out[out0 + i] = 0.f;
   if (p.keep_out != nullptr && p.keep_blocks > 0) {
-    for (int i = threadIdx.x; i < G * nvb; i += kThreads)
+    for (int i = threadIdx.x; i < p.g * nvb; i += kThreads)
       p.keep_out[static_cast<size_t>(b) * p.Hq * nvb + hq0 * nvb + i] = 0;
   }
   if (dl != nullptr) {
-    const int n = (p.per_row ? G : 1) * p.C;
+    const int n = (p.per_row ? p.g : 1) * p.C;
     for (int i = threadIdx.x; i < n; i += kThreads) dl[i] = 0.f;
   }
 }
@@ -912,6 +916,13 @@ __device__ void zero_outputs(const Params& p, int b, int hq0, size_t out0,
 // kSmemScores: the [G, C] score plane lies in shared memory (p.splane is
 // null), so its loads and stores compile to shared-memory instructions;
 // else it is this CTA's slice of the device-memory plane p.splane.
+//
+// G is the instance's group; the model's group p.g may be smaller (3 runs
+// in <4, D>; 5, 6 and 7 in <8, D>).  Rows g >= p.g are padding: they read
+// no query (zeros: every score 0, finite), count as dead rows (zero row
+// weight and V-block mass, so no importance, keep decision or P·V term),
+// enter neither the group's max probability nor the row stats, and write
+// nothing.  Every [B, Hq] index uses p.g.
 template <int G, int D, bool kSmemScores>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_kernel(const __grid_constant__ Params p) {
@@ -948,7 +959,8 @@ fused_decode_kernel(const __grid_constant__ Params p) {
 
   const int len = p.lengths[b];
   const bool do_app = p.appmask == nullptr || p.appmask[b] != 0;
-  const int hq0 = h * G;                            // first q head of group
+  const int gl = p.g;                               // live rows of G
+  const int hq0 = h * gl;                           // first q head of group
   const size_t out0 = (static_cast<size_t>(b) * p.Hq + hq0) * D;
   const size_t row0 = static_cast<size_t>(b) * p.Hq + hq0;   // [B, Hq] index
   float* dl = p.delta == nullptr ? nullptr
@@ -957,7 +969,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   // an appending row holds its new token; only a non-appending one (a
   // split-K shard past the kept prefix) may hold none
   if (len < (do_app ? 1 : 0) || len > C) {          // contract violation
-    for (int i = threadIdx.x; i < G * D; i += kThreads) p.out[out0 + i] = NAN;
+    for (int i = threadIdx.x; i < gl * D; i += kThreads) p.out[out0 + i] = NAN;
     if (threadIdx.x == 0) p.max_prob[b * p.Hkv + h] = NAN;
     return;
   }
@@ -965,14 +977,14 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   bool any_alive = false;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    alive[g] = p.hmask == nullptr || p.hmask[row0 + g] != 0;
+    alive[g] = g < gl && (p.hmask == nullptr || p.hmask[row0 + g] != 0);
     any_alive |= alive[g];
   }
   if (len == 0) {
     // no live column: every score is masked, so m = MASK_VALUE, e = 0 and
     // den sits at its 1e-30 floor (max prob 1e30, which never requantizes)
     zero_outputs<G, D>(p, b, hq0, out0, nvb, dl);
-    if (threadIdx.x < G && p.mrow != nullptr) {
+    if (threadIdx.x < gl && p.mrow != nullptr) {
       p.mrow[row0 + threadIdx.x] = kMaskValue;
       p.drow[row0 + threadIdx.x] = 1e-30f;
     }
@@ -1043,7 +1055,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
     float amax = 0.f;
 #pragma unroll
     for (int c = 0; c < CW; ++c) {
-      qr[g][c] = p.q[out0 + g * D + lcol * CW + c];
+      qr[g][c] = g < gl ? p.q[out0 + g * D + lcol * CW + c] : 0.f;
       amax = fmaxf(amax, fabsf(qr[g][c]));
     }
     rowscale[g] = 1.f;
@@ -1101,7 +1113,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   float mp = 0.f;
 #pragma unroll
   for (int g = 0; g < G; ++g)
-    mp = fmaxf(mp, 1.f / fmaxf(misc[kDen * G + g], 1e-30f));
+    if (g < gl) mp = fmaxf(mp, 1.f / fmaxf(misc[kDen * G + g], 1e-30f));
   // an 8-bit pass 1 already read the int8 plane: it never requantizes
   const bool fire = any_alive && p.requant && !p1_full &&
                     mp < p.threshold;               // uniform
@@ -1115,7 +1127,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
                       misc);
     softmax_rows<G>(p, s, len, red, misc, vcol, write_e);
   }
-  if (p.mrow != nullptr && threadIdx.x < G) {
+  if (p.mrow != nullptr && threadIdx.x < gl) {
     p.mrow[row0 + threadIdx.x] = misc[kMax * G + threadIdx.x];
     p.drow[row0 + threadIdx.x] = fmaxf(misc[kDen * G + threadIdx.x], 1e-30f);
   }
@@ -1182,7 +1194,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
         const uint8_t k = (mj >= misc[kKth * G + g]) && (mj > 0.f);
         keep[g * nvb + j] = k;
         any |= k;
-        if (p.keep_out != nullptr)
+        if (p.keep_out != nullptr && g < gl)
           p.keep_out[(static_cast<size_t>(b) * p.Hq + hq0 + g) * nvb + j] = k;
       }
       keep_any[j] = any;
@@ -1319,7 +1331,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   __syncthreads();
   const int* pvi = reinterpret_cast<const int*>(pv);
   const float kept_scale = 1.f / 127.f;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+  for (int i = threadIdx.x; i < gl * D; i += kThreads) {
     const int g = i / D, dd = i % D;
     float o;
     if (p.pv_int8) {
@@ -1374,6 +1386,9 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// G: the instance the wrapper chose for the model's group p.g (the
+// smallest of 1, 2, 4, 8 that holds it; its shared-memory plan and score
+// plane slices are sized by G).
 template <int D>
 cudaError_t launch_g(const Params& p, int B, int G, cudaStream_t stream) {
   switch (G) {
@@ -1487,15 +1502,18 @@ cudaError_t plan_ring(Params& p, int B, int D) {
 // (spatten_tpu_torch/ops/fused_decode.py) validates shapes and flags.
 // The bulk copies and vector reads need 16-byte-aligned planes, scale and
 // importance columns (the wrapper keeps Ct a multiple of 8) and delta rows.
-// `splane`: f32 [B, Hkv, G, C] for the score plane when the wrapper finds
-// that the shared-memory plan with it would pass 227 KB, else null.
+// `G`: the <G, D> instance, which holds the model's group Hq / Hkv (its
+// smallest such G); `splane`: f32 [B, Hkv, G, C] for the score plane when
+// the wrapper finds that the instance's shared-memory plan with it would
+// pass 227 KB, else null.
 extern "C" int spatten_fused_decode(
     const float* q, const float* k_new, const float* v_new, const int* lengths,
     int8_t* kfull, uint8_t* kmsb, uint8_t* klsb2, void* kscale, int8_t* vfull,
     uint8_t* vmsb, void* vscale, void* imp, const uint8_t* hmask,
     const int* qbits, const uint8_t* appmask, float* out, float* max_prob,
     uint8_t* need, uint8_t* keep_out, float* delta, float* mrow, float* drow,
-    float* splane, int B, int Hq, int Hkv, int D, int C, int Ct, int pack_unit, int layer,
+    float* splane, int B, int Hq, int Hkv, int G, int D, int C, int Ct,
+    int pack_unit, int layer,
     float sm_scale, float threshold, float ema, int quant, int requant,
     int keep_blocks, int v_block, int sc_bf16, int imp_bf16, int qq,
     int pv_int8, int probs_bf16, int presoftmax, int per_row, void* stream) {
@@ -1509,8 +1527,9 @@ extern "C" int spatten_fused_decode(
            delta, mrow, drow, splane, Hq, C, Ct, Hkv * D, Hkv, pack_unit, layer,
            sm_scale, threshold, ema, quant, requant, keep_blocks, v_block,
            sc_bf16, imp_bf16, qq, pv_int8, probs_bf16, presoftmax, per_row};
-  const int G = Hq / Hkv;
-  if (D != 64 && D != 128 && D != 256)
+  p.g = Hq / Hkv;
+  if (Hq % Hkv || p.g > G || (G > 1 && 2 * p.g <= G) ||
+      (D != 64 && D != 128 && D != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = plan_ring(p, B, D);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -25,7 +25,10 @@ scaling when the queries are quantized), and the appended column's P·V
 term uses the new row's f32 scales while the stored scale columns hold
 their (possibly bf16) rounding.  The wrapper runs the plain version only
 for CPU tensors; for CUDA tensors it launches the kernel or raises.
-``fused_decode_attention.launches`` counts kernel launches.
+``fused_decode_attention.launches`` counts kernel launches.  The kernel
+has instances for GQA groups 1, 2, 4 and 8; a group of 3 runs in the
+group-4 instance and 5-7 in the group-8 one (``instance_group``), whose
+extra rows are padding that the kernel skips.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ _MISC_PER_ROW = 8           # per-row scalars the CUDA kernel keeps in smem
 _STAGES = 4                 # the CUDA kernel's tile ring: stages of 16 KB
 _STAGE_STRIDE = 16384 + 2304  # of plane rows + their scale segments, and
 _BARRIER = 8                # one mbarrier each
-_GROUPS = (1, 2, 4, 8)      # the CUDA kernel's <G, D> instances
+_GROUPS = (1, 2, 4, 8)      # the CUDA kernel's <G, D> instance groups
 _HEAD_DIMS = (64, 128, 256)
 _CAP_UNIT = 8               # 16-byte scale and importance vectors
 _META_DTYPES = (torch.float32, torch.bfloat16)
@@ -313,12 +316,27 @@ def fused_decode_attention_plain(
     return out[:, :, None, :], stats, k_quant, v_quant
 
 
+def instance_group(group: int) -> int:
+    """The ``<G, D>`` instance that runs a model's GQA group: the smallest
+    of ``_GROUPS`` that holds it (3 runs in 4; 5, 6 and 7 in 8, whose rows
+    past the model's group are padding the kernel skips).  ValueError for
+    a group outside 1..8."""
+    if not 1 <= group <= _GROUPS[-1]:
+        raise ValueError(f"GQA group {group}: K1's instances hold groups 1 "
+                         f"to {_GROUPS[-1]}")
+    return next(g for g in _GROUPS if g >= group)
+
+
 def smem_bytes(group: int, head_dim: int, cap: int, v_block: int,
                in_smem: bool = True) -> int:
-    """Shared memory of one K1 CTA (mirrors ``smem_bytes`` in
-    ``csrc/fused_decode.cu``): the tile ring, the [G, cap] score plane
+    """Shared memory of one K1 CTA of instance group ``group`` (one of
+    ``_GROUPS``; see ``instance_group``), mirroring ``smem_bytes`` in
+    ``csrc/fused_decode.cu``: the tile ring, the [G, cap] score plane
     (unless it lies in device memory), the per-warp P·V partials, the
     V-block masses, scalars, the kept-block list and the keep masks."""
+    if group not in _GROUPS:
+        raise ValueError(f"group {group} is not a K1 instance group "
+                         f"{_GROUPS}")
     nvb = cap // v_block
     return (_STAGES * (_STAGE_STRIDE + _BARRIER)
             + 4 * (group * cap * in_smem + _WARPS * group * head_dim
@@ -329,9 +347,10 @@ def smem_bytes(group: int, head_dim: int, cap: int, v_block: int,
 
 def scores_in_smem(group: int, head_dim: int, cap: int, v_block: int
                    ) -> bool:
-    """Whether K1 keeps its [G, cap] score plane in shared memory: where
-    the whole plan fits the card's 227 KB per block.  Past that the
-    wrapper gives the kernel a plane in device memory."""
+    """Whether K1 instance group ``group`` keeps its [G, cap] score plane
+    in shared memory: where the whole plan fits the card's 227 KB per
+    block.  Past that the wrapper gives the kernel a plane in device
+    memory."""
     return smem_bytes(group, head_dim, cap, v_block) <= _SMEM_LIMIT
 
 
@@ -347,8 +366,9 @@ def _smem_error(group: int, head_dim: int, cap: int, v_block: int,
 
 
 def check_smem(group: int, head_dim: int, cap: int, v_block: int) -> int:
-    """The shared memory of a K1 launch with its score plane in shared
-    memory; NotImplementedError past the card's 227 KB per block."""
+    """The shared memory of a K1 launch of instance group ``group`` with
+    its score plane in shared memory; NotImplementedError past the card's
+    227 KB per block."""
     err = _smem_error(group, head_dim, cap, v_block)
     if err:
         raise NotImplementedError(err)
@@ -358,18 +378,25 @@ def check_smem(group: int, head_dim: int, cap: int, v_block: int) -> int:
 def k1_shape_error(group: int, head_dim: int, cap_total: int, rung: int,
                    v_block: int) -> Optional[str]:
     """Why K1 on the card does not take a call of this shape, or None when
-    it does: a ``<G, D>`` instance the kernel lacks, a stored capacity or
-    rung off the 16-byte vectors, or a shared-memory plan past 227 KB even
-    with the score plane in device memory.  The wrapper raises
-    ``NotImplementedError`` with this message."""
-    if group not in _GROUPS or head_dim not in _HEAD_DIMS:
-        return (f"K1 on CUDA: GQA group {group}, head_dim {head_dim} "
-                "(supported: 1/2/4/8 and 64/128/256)")
+    it does: a GQA group (the model's) past the largest instance, a
+    head_dim the kernel has no instance for, a stored capacity or rung
+    off the 16-byte vectors, or a shared-memory plan past 227 KB even
+    with the score plane in device memory (the plan of the instance that
+    runs the group).  The wrapper raises ``NotImplementedError`` with
+    this message."""
+    if not 1 <= group <= _GROUPS[-1]:
+        return (f"K1 on CUDA: GQA group {group} (the kernel's instances "
+                f"hold groups 1 to {_GROUPS[-1]}; no configuration the "
+                "port drives has a larger one)")
+    if head_dim not in _HEAD_DIMS:
+        return (f"K1 on CUDA: head_dim {head_dim} (supported: "
+                "64/128/256)")
     if cap_total % _CAP_UNIT or rung % _CAP_UNIT:
         return ("K1 on CUDA: the stored capacity and the rung must be "
                 "multiples of 8 (16-byte scale and importance vectors)")
-    return _smem_error(group, head_dim, rung, v_block,
-                       scores_in_smem(group, head_dim, rung, v_block))
+    inst = instance_group(group)
+    return _smem_error(inst, head_dim, rung, v_block,
+                       scores_in_smem(inst, head_dim, rung, v_block))
 
 
 def fused_decode_attention(
@@ -445,6 +472,8 @@ def fused_decode_attention(
     kq, vq, imp = _layer_views(k_quant, v_quant, importance_in, layer)
     b, hq, q_len, d = q.shape
     hkv, cap_total = kq.heads, kq.tokens
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads over {hkv} kv heads")
     group = hq // hkv
     cap = _rung(cap_total, cap_override, v_block_size)
     if q_len != 1:
@@ -483,6 +512,7 @@ def fused_decode_attention(
     shape_error = k1_shape_error(group, d, cap_total, cap, v_block_size)
     if shape_error:
         raise NotImplementedError(shape_error)
+    inst = instance_group(group)            # the <G, D> instance
     nvb = cap // v_block_size
 
     dev = q.device
@@ -515,10 +545,11 @@ def fused_decode_attention(
     if track_importance and not accumulate:
         delta = torch.empty((b, hq if per_row else hkv, cap),
                             dtype=torch.float32, device=dev)
-    # the score plane, where the shared-memory plan cannot hold it
+    # the score plane, where the instance's shared-memory plan cannot hold
+    # it: one [G, cap] slice per CTA, padding rows included
     splane = None
-    if not scores_in_smem(group, d, cap, v_block_size):
-        splane = torch.empty((b, hkv, group, cap), dtype=torch.float32,
+    if not scores_in_smem(inst, d, cap, v_block_size):
+        splane = torch.empty((b, hkv, inst, cap), dtype=torch.float32,
                              device=dev)
     m_rows = den_rows = None
     if return_row_stats:
@@ -540,7 +571,8 @@ def fused_decode_attention(
         kernels.ptr(qbits), kernels.ptr(appm), out.data_ptr(),
         max_prob.data_ptr(), need.data_ptr(), kernels.ptr(keep_out),
         kernels.ptr(delta), kernels.ptr(m_rows), kernels.ptr(den_rows),
-        kernels.ptr(splane), b, hq, hkv, d, cap, cap_total, qz.pack_unit(cap_total),
+        kernels.ptr(splane), b, hq, hkv, inst, d, cap, cap_total,
+        qz.pack_unit(cap_total),
         0 if layer is None else int(layer),
         float(sm_scale), float(requant_threshold), float(importance_ema),
         int(quant_enabled), int(do_requant), kb, v_block_size,

@@ -31,8 +31,9 @@ from spatten_tpu_torch import kernels
 # variant -> (source text, what replaces it), ...
 VARIANTS = {
     "pass 1": (("  float mp = 0.f;\n", "  return;\n  float mp = 0.f;\n"),),
-    "requant": (("  if (p.mrow != nullptr && threadIdx.x < G) {\n",
-                 "  return;\n  if (p.mrow != nullptr && threadIdx.x < G) {\n"),),
+    "requant": (("  if (p.mrow != nullptr && threadIdx.x < gl) {\n",
+                 "  return;\n  if (p.mrow != nullptr && threadIdx.x < gl) "
+                 "{\n"),),
     "1 row step": (("constexpr int kRowSteps = 2;",
                     "constexpr int kRowSteps = 1;"),),
     "8 KB tiles": (("constexpr int kStageBytes = 16384;",

@@ -18,12 +18,13 @@ Beside them: torch's ``c + 1.0`` eager and in a graph (the JAX tool's
 "xla add"), "8x bare" per iteration, a bare ctypes call of P1's entry
 point against ``kernels.launch`` and the wrapper, and (from
 ``chip_smoke.py``) the host time of one K1 wrapper call at the serving
-shapes.  P4 and P5 are also held against their same-function PyTorch
-calls (``plane[:8].add_(1)``; ``torch.add(x, s[0], out=o)``, with an f32
-scalar on the card and the host-scalar ``torch.add(x, 1.0)`` beside it)
-and the launch floor (an empty kernel through ``kernels.launch``), as
-medians of interleaved device timings (``interleaved_us``); a
-``torch.profiler`` trace counts the kernels each of those calls launches
+shapes.  P2-P5 are also held against their same-function PyTorch calls
+(``torch.add(x, 1.0, out=o)``; ``plane[:256].sum()``;
+``plane[:8].add_(1)``; ``torch.add(x, s[0], out=o)``, with an f32 scalar
+on the card and the host-scalar ``torch.add(x, 1.0)`` beside it) and the
+launch floor (an empty kernel through ``kernels.launch``), as medians of
+interleaved device timings (``interleaved_us``); a ``torch.profiler``
+trace counts the kernels each of those calls launches
 (``kernels_per_call``).
 
 Run on a machine with a card: ``python -m spatten_tpu_torch.tools.
@@ -112,11 +113,14 @@ def bare(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
 
 def gridded(x: torch.Tensor, out: Optional[torch.Tensor] = None
             ) -> torch.Tensor:
-    """P2 on the card: 16 CTAs (plain version on CPU tensors)."""
+    """P2 on the card: 16 CTAs, each a sixteenth of the block (plain
+    version on CPU tensors)."""
     if not x.is_cuda:
         return gridded_plain(x)
     _check(x, BLOCK, torch.float32, "x")
     out = _out(out, x)
+    _check_aligned(x, "x")
+    _check_aligned(out, "out")
     kernels.launch("probe_gridded", x.data_ptr(), out.data_ptr())
     gridded.launches += 1
     return out
@@ -124,12 +128,14 @@ def gridded(x: torch.Tensor, out: Optional[torch.Tensor] = None
 
 def dma(plane: torch.Tensor, out: Optional[torch.Tensor] = None
         ) -> torch.Tensor:
-    """P3 on the card: bulk async copy + exact sum (plain version on CPU
-    tensors)."""
+    """P3 on the card: a cluster of 8 CTAs, each a bulk async copy of 32
+    rows and their exact sum (plain version on CPU tensors)."""
     if not plane.is_cuda:
         return dma_plain(plane)
     _check(plane, PLANE, torch.int8, "plane")
     out = _out(out, plane)
+    _check_aligned(plane, "plane")
+    _check_aligned(out, "out")
     kernels.launch("probe_dma", plane.data_ptr(), out.data_ptr())
     dma.launches += 1
     return out
@@ -370,6 +376,10 @@ def measure(ops: dict, k1_call: Optional[Callable[[], object]] = None
     # the redesigned probes against their yardsticks, in turns, and the
     # kernels each of those calls launches
     steps = {
+        "P2": {"P2 kernel": lambda: gridded(x, out=o1),
+               "torch.add(x, 1.0, out=o)": library["P2"]},
+        "P3": {"P3 kernel": lambda: dma(plane, out=o1),
+               "plane[:256].sum()": library["P3"]},
         "P4": {"P4 kernel": lambda: aliased(plane, out=o1),
                "plane[:8].add_(1)": library["P4"]},
         "P5": {"P5 kernel": lambda: spref(s, x, out=o1),

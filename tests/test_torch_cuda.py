@@ -8,21 +8,25 @@ and nvcc, from the repository root:
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX, which this file
 does not use.)  K1 runs every GQA group / head_dim instance class it
-supports and each serving flag alone (head masks, bf16 metadata, int8
-queries, integer P·V, the bf16 probability plane, a capacity rung, 6- and
-8-bit layers) and combined, presoftmax and delta-mode importance, and
-the split-K flags (rows that do not append, an empty shard, row stats,
-per-row importance under GQA); a small split-K step runs K1 per shard
-against one unsharded K1 call; P1-P5 of the launch probe equal their
-plain versions (P4 at its int8 wrap edges, P5 at negative and large
-scalars) and refuse misaligned views.  K1 with its score plane in device
-memory (GQA 8 at 4096 tokens, GQA 4 at 16384) matches its plain version.
-``generate`` runs on the card for a configuration that the gate sends
-off K1 (``chip_smoke.gate_configs()``) and for one whose K1 score plane
-lies in device memory (``chip_smoke.device_scores_configs()``), each call
-held against its CPU replay.  The rules
-and tolerances are those of ``spatten_tpu_torch/kernel_checks.py``,
-shared with ``chip_smoke.py``.
+supports, the groups 3, 5, 6 and 7 that it runs in a larger instance
+(with the score plane in shared and in device memory, a partly alive
+group among them), and each serving flag alone (head masks, bf16
+metadata, int8 queries, integer P·V, the bf16 probability plane, a
+capacity rung, 6- and 8-bit layers) and combined, presoftmax and
+delta-mode importance, and the split-K flags (rows that do not append,
+an empty shard, row stats, per-row importance under GQA); a small
+split-K step runs K1 per shard against one unsharded K1 call, at GQA
+groups 2 and 3; P1-P5 of the launch probe equal their plain versions (P2
+over the whole block, P3 on random bytes and on planes of -128 and 127,
+P4 at its int8 wrap edges, P5 at negative and large scalars) and refuse
+misaligned views.  K1 with its score plane in device memory (GQA 8 at
+4096 tokens, GQA 4 at 16384) matches its plain version.  ``generate``
+runs on the card for a configuration that the gate sends off K1
+(``chip_smoke.gate_configs()``), for one whose K1 score plane lies in
+device memory (``chip_smoke.device_scores_configs()``) and for a GQA-3
+model (``chip_smoke.group_configs()``), each call held against its CPU
+replay.  The rules and tolerances are those of
+``spatten_tpu_torch/kernel_checks.py``, shared with ``chip_smoke.py``.
 """
 
 import dataclasses
@@ -68,7 +72,8 @@ def small_cfg(hq, hkv, d, cap, vb=16):
 
 
 @pytest.mark.parametrize("quant", [True, False])
-@pytest.mark.parametrize("group,d", [(1, 128), (2, 64), (4, 128), (8, 64)])
+@pytest.mark.parametrize("group,d", [(1, 128), (2, 64), (4, 128), (8, 64),
+                                     (3, 64), (5, 128), (6, 64), (7, 128)])
 def test_k1_matches_plain(dev, group, d, quant):
     hkv, cap, vb = 2, 256, 16
     cfg = small_cfg(hkv * group, hkv, d, cap, vb)
@@ -182,6 +187,11 @@ SPLIT_K_CASES = {
                     dict(per_row_importance=True, delta_mode=True,
                          return_row_stats=True,
                          append_mask=[False, True, False, False])),
+    "per_row_gqa3": (3, [256, 129, 40, 0],
+                     dict(per_row_importance=True, delta_mode=True,
+                          return_row_stats=True,
+                          append_mask=[False, True, False, False],
+                          head_mask=[True, True, True, False, True, True])),
 }
 
 
@@ -259,7 +269,17 @@ def test_split_k_matches_unsharded_k1(dev):
     """Four shards on one card: K1 per shard and the exact recombination vs
     one unsharded K1 call over the globally packed cache of the same
     tokens; then a prune and one more step over the kept set."""
-    n, b, hq, hkv, d, cl = 4, 2, 4, 2, 64, 256
+    _split_k_vs_unsharded(dev, hq=4, hkv=2)
+
+
+def test_split_k_group3_matches_unsharded_k1(dev):
+    """The same with GQA group 3 (6 query heads over 2 kv heads), which
+    every shard's K1 call runs in <4, 64>."""
+    _split_k_vs_unsharded(dev, hq=6, hkv=2)
+
+
+def _split_k_vs_unsharded(dev, hq, hkv):
+    n, b, d, cl = 4, 2, 64, 256
     cap = n * cl
     mesh = sk.make_kv_mesh([dev] * n)
     rng = np.random.default_rng(5)
@@ -325,6 +345,49 @@ def test_launch_probes_match_plain(dev):
                for pid, (k, _, _, _) in lo.PROBES.items())
 
 
+def test_p2_partitions_the_block_exactly(dev):
+    ops = lo.inputs(dev, seed=8)
+    out = torch.full_like(ops["x"], float("nan"))
+    got = lo.gridded(ops["x"], out=out)
+    torch.cuda.synchronize()
+    assert got is out and torch.equal(got, lo.gridded_plain(ops["x"]))
+
+
+@pytest.mark.parametrize("fill", ["random", -128, 127])
+def test_p3_sums_exactly(dev, fill):
+    """P3 on random bytes and at both ends of int8: all -128 sums to
+    -2^24, all 127 to 127 * 2^17; both exact in f32.  Rows 256-1023 hold
+    other bytes, which must not count."""
+    ops = lo.inputs(dev, seed=9)
+    plane = ops["plane"]
+    if fill != "random":
+        plane[:256] = fill
+    got = lo.dma(plane)
+    want = lo.dma_plain(plane)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if fill == -128:
+        assert float(got[0, 0]) == -2.0 ** 24
+    elif fill == 127:
+        assert float(got[0, 0]) == 127.0 * 2 ** 17
+
+
+def test_p2_p3_refuse_misaligned_views(dev):
+    ops = lo.inputs(dev, seed=10)
+    xs = torch.zeros(8 * 128 + 4, device=dev)
+    x_off = xs[1:1 + 8 * 128].view(8, 128)
+    raw = torch.zeros(1024 * 512 + 16, dtype=torch.int8, device=dev)
+    plane_off = raw[1:1 + 1024 * 512].view(1024, 512)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lo.gridded(x_off)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lo.gridded(ops["x"], out=x_off)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lo.dma(plane_off)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lo.dma(ops["plane"], out=x_off)
+
+
 def test_p4_wraps_in_place_twice(dev):
     """P4 at the int8 wrap edges, applied twice to the same plane: rows
     0-7 equal the plain version's, rows 8-1023 keep their bytes."""
@@ -388,6 +451,17 @@ def test_gate_sends_unsupported_shapes_off_k1(dev, name):
     assert res["k1"] == 0 and res["prune_points"] > 0
 
 
+@pytest.mark.parametrize("name", list(chip_smoke.group_configs()))
+def test_group3_generate_through_k1(dev, name):
+    """``generate`` on a GQA-3 model (6 query heads over 2 kv heads of
+    64), which K1 runs in <4, 64> with 3 live rows: one launch per layer
+    and step, each call within 1e-3 of its CPU replay."""
+    cfg, batch, plen, new = chip_smoke.group_configs()[name]
+    res = _generate_against_cpu(dev, cfg, batch, plen, new)
+    assert res["k1"] == cfg.model.num_layers * new
+    assert res["prune_points"] > 0
+
+
 @pytest.mark.parametrize("name", list(chip_smoke.device_scores_configs()))
 def test_long_window_generate_through_k1(dev, name):
     """``generate`` on a GQA-8 model at capacity 4096, whose K1 score plane
@@ -405,6 +479,52 @@ DEVICE_SCORE_CASES = {
     "GQA 8, capacity 4096": (8, 1, 4096, [4096, 3001, 1500, 65]),
     "GQA 4, capacity 16384": (8, 2, 16384, [16384, 9001, 4097, 1]),
 }
+
+
+# GQA group -> {placement of the score plane: (query heads, kv heads,
+# head_dim, capacity, lengths)}: K1 runs 3 in <4, D> and 5-7 in <8, D>,
+# whose plan (the instance's) decides the placement; 4 kv heads where the
+# partial head mask can kill a whole group
+GROUP_CASES = {
+    3: {"shared": (12, 4, 64, 256, [256, 129, 40, 1]),
+        "device": (6, 2, 128, 8192, [8192, 4097, 65, 1])},
+    5: {"shared": (20, 4, 128, 256, [256, 200, 33, 1]),
+        "device": (10, 2, 128, 4096, [4096, 2049, 65, 1])},
+    6: {"shared": (24, 4, 64, 256, [256, 129, 40, 1]),
+        "device": (12, 2, 64, 4096, [4096, 3001, 65, 1])},
+    7: {"shared": (28, 4, 128, 256, [256, 129, 64, 1]),
+        "device": (7, 1, 128, 4096, [4096, 1500, 65, 1])},
+}
+
+
+@pytest.mark.parametrize("placement", ["shared", "device"])
+@pytest.mark.parametrize("group", list(GROUP_CASES))
+def test_k1_groups_in_larger_instances_match_plain(dev, group, placement):
+    """K1 at the GQA groups it runs with padded rows, a partly alive group
+    among them: in shared memory under the serving flags (bf16 metadata,
+    int8 queries, pv_int8, probs_bf16), in device memory under f32
+    metadata (out within 1e-4)."""
+    hq, hkv, d, cap, lengths = GROUP_CASES[group][placement]
+    inst = fd.instance_group(group)
+    assert inst == (4 if group == 3 else 8)
+    assert fd.scores_in_smem(inst, d, cap, 16) is (placement == "shared")
+    hm = torch.ones((hkv, group), dtype=torch.bool)
+    hm[-1, 0] = False                      # a partly alive group
+    if hkv > 2:
+        hm[1] = False                      # a dead group
+    hm = hm.reshape(hq).to(dev)
+    g = torch.Generator(device=dev).manual_seed(500 + 10 * group + cap)
+    if placement == "shared":
+        cfg = serving_small(cap=cap, hq=hq, hkv=hkv, d=d, bf16=True)
+        flags = dict(quantize_queries=True, pv_int8=True, probs_bf16=True)
+    else:
+        cfg = serving_small(cap=cap, hq=hq, hkv=hkv, d=d, bf16=False)
+        flags = {}
+    res = run_pair(dev, cfg, g, lengths, requant=True,
+                   v_keep=(cap // 4, cap // 4), head_mask=hm, **flags)
+    assert res["dead_groups"] == (len(lengths) if hkv > 2 else 0)
+    if not flags:
+        assert res["max_abs_err"] <= 1e-4
 
 
 @pytest.mark.parametrize("case", list(DEVICE_SCORE_CASES))

@@ -9,11 +9,15 @@ to K1, whose wrapper raises where the kernel does not take it
 (``fused_decode.k1_shape_error``).  The shapes: ``ModelConfig.tiny()``
 (lane width 16: off K1), Llama-2-70B's GQA group at capacity 4096 and a
 GQA-4 model at capacity 16384 (on K1, with the score plane in device
-memory, as their [G, C] planes overflow shared memory), and the serving
-and parity configurations of ``chip_smoke.py`` (on K1, plane in shared
-memory).  The tiny model then runs the path the card's gate picks for it
-(``use_pallas=False``) against the JAX package's jnp path: greedy tokens,
-layer lengths and requant events exact.
+memory, as their [G, C] planes overflow shared memory), the serving,
+parity and Llama-3.2-3B configurations of ``chip_smoke.py`` and its
+GQA-3 gate model (on K1, plane in shared memory).  A GQA group of 3, 5,
+6 or 7 runs in the kernel's <4, D> or <8, D> instance, whose
+shared-memory plan decides where the score plane lies; a head_dim the
+kernel has no instance for (96) still raises.  The tiny model then runs
+the path the card's gate picks for it (``use_pallas=False``) against the
+JAX package's jnp path: greedy tokens, layer lengths and requant events
+exact.
 """
 
 import dataclasses
@@ -40,6 +44,7 @@ torch.set_num_threads(1)
 
 [TINY] = list(chip_smoke.gate_configs())
 [GQA8] = list(chip_smoke.device_scores_configs())
+[GQA3] = list(chip_smoke.group_configs())
 
 
 def gqa4_16k():
@@ -62,6 +67,10 @@ SHAPES = {
     "GQA 4 x 128, cap 16384": (gqa4_16k, True, True),
     "serving, rungs 2048/4096": (chip_smoke.serving_config, True, False),
     "parity": (chip_smoke.parity_config, True, False),
+    "GQA 3 x 64, cap 64": (
+        lambda: chip_smoke.group_configs()[GQA3][0], True, False),
+    "Llama-3.2-3B (GQA 3 x 128), rungs 2048/4096": (
+        chip_smoke.llama32_3b_config, True, False),
 }
 
 
@@ -145,9 +154,10 @@ def test_gate_matches_the_wrappers_limits(monkeypatch):
                     continue
             [(kernel, args)] = launched[before:]
             assert kernel == "fused_decode", (name, rung)
-            # the score plane's pointer (null: in shared memory)
-            in_smem = fd.scores_in_smem(m.q_heads_per_kv, m.head_dim, rung,
-                                        vb)
+            # the score plane's pointer (null: in shared memory), by the
+            # plan of the instance that runs the group
+            in_smem = fd.scores_in_smem(fd.instance_group(m.q_heads_per_kv),
+                                        m.head_dim, rung, vb)
             assert (args[22] is None) is in_smem, (name, rung)
             if rung == cap:
                 assert in_smem is not device_scores, name
@@ -177,32 +187,101 @@ def test_gate_limits_are_the_smem_plans():
     assert "multiples of 8" in fd.k1_shape_error(1, 128, 1020, 1020, 4)
 
 
-def test_admitted_shape_k1_lacks_raises(monkeypatch):
-    """A shape the gate admits (lane width 2 x 64) but K1 has no instance
-    for (GQA group 3) raises NotImplementedError on the card branch rather
-    than leaving the kernel."""
-    monkeypatch.setattr(fd.kernels, "launch", lambda *a: None)
-    cfg = tcfg.SpAttenConfig(
-        model=tcfg.ModelConfig(vocab_size=64, hidden_size=384, num_layers=1,
-                               num_heads=6, num_kv_heads=2, head_dim=64,
-                               intermediate_size=64),
+def one_layer(hq, hkv, d, cap, vb):
+    return tcfg.SpAttenConfig(
+        model=tcfg.ModelConfig(vocab_size=64, hidden_size=hq * d,
+                               num_layers=1, num_heads=hq, num_kv_heads=hkv,
+                               head_dim=d, intermediate_size=64),
         pruning=tcfg.PruningConfig(start_size=2, important_size=8,
-                                   recent_size=16, v_block_size=8),
-        engine=tcfg.EngineConfig(cache_capacity=64, prefill_chunk=8)
+                                   recent_size=16, v_block_size=vb),
+        engine=tcfg.EngineConfig(cache_capacity=cap, prefill_chunk=8)
     ).validate()
-    assert tr.decode_uses_kernel(cfg, "cuda")
+
+
+def card_branch(monkeypatch, cfg, seed, **kw):
+    """One K1 call down the wrapper's card branch on CPU tensors
+    (``is_cuda`` patched); returns the recorded launches."""
     from spatten_tpu_torch.kernel_checks import random_state
-    g = torch.Generator().manual_seed(2)
+    launched = []
+    monkeypatch.setattr(fd.kernels, "launch",
+                        lambda name, *args: launched.append((name, args)))
+    count = fd.fused_decode_attention.launches
+    m = cfg.model
+    g = torch.Generator().manual_seed(seed)
     st = random_state(cfg, 1, g, "cpu")
-    q = torch.randn((1, 6, 1, 64), generator=g)
-    kv = torch.randn((1, 2, 1, 64), generator=g)
-    with monkeypatch.context() as mp:
-        mp.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-        with pytest.raises(NotImplementedError, match="GQA group 3"):
+    q = torch.randn((1, m.num_heads, 1, m.head_dim), generator=g)
+    kv = torch.randn((1, m.num_kv_heads, 1, m.head_dim), generator=g)
+    try:
+        with monkeypatch.context() as mp:
+            mp.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
             fd.fused_decode_attention(
                 q, st.cache.k, st.cache.v, kv, kv,
                 torch.tensor([20], dtype=torch.int32), layer=0,
-                v_block_size=8, importance_in=st.importance)
+                v_block_size=cfg.pruning.v_block_size,
+                importance_in=st.importance, **kw)
+    finally:
+        fd.fused_decode_attention.launches = count
+    return launched
+
+
+# group -> (query heads, kv heads, head_dim, capacity): shapes where the
+# model group's own plan would keep the score plane in shared memory and
+# the instance's (4 or 8 rows) does not
+GROUP_SHAPES = {3: (6, 2, 128, 9216), 5: (10, 2, 128, 4096),
+                6: (6, 1, 128, 4096), 7: (14, 2, 128, 4096)}
+
+
+@pytest.mark.parametrize("group", list(GROUP_SHAPES))
+def test_group_runs_in_a_larger_instance(monkeypatch, group):
+    """A GQA group of 3, 5, 6 or 7 (the gate admits every lane width here)
+    reaches the launch down the card branch: the instance group (4 for 3,
+    8 for the rest) and the live group (the model's) are passed to the
+    kernel, and the score plane lies where the instance's shared-memory
+    plan puts it -- in device memory at these shapes, where a plan of the
+    model's group would still fit 227 KB."""
+    hq, hkv, d, cap = GROUP_SHAPES[group]
+    cfg = one_layer(hq, hkv, d, cap, 64)
+    assert tr.decode_uses_kernel(cfg, "cuda")
+    inst = fd.instance_group(group)
+    assert inst == (4 if group == 3 else 8)
+    assert fd.k1_shape_error(group, d, cap, cap, 64) is None
+    assert not fd.scores_in_smem(inst, d, cap, 64)
+    # the plan without the padding rows: each row of G takes 4 * (C + 8 D
+    # + C / v_block + 8) + C / v_block bytes
+    own_plan = fd.smem_bytes(inst, d, cap, 64) - 4 * (inst - group) * (
+        cap + 8 * d + cap // 64 + 8) - (inst - group) * (cap // 64)
+    assert own_plan <= 227 * 1024
+    [(kernel, args)] = card_branch(monkeypatch, cfg, group)
+    assert kernel == "fused_decode"
+    b, hq_arg, hkv_arg, inst_arg, d_arg = args[23:28]
+    assert (b, hq_arg, hkv_arg, d_arg) == (1, hq, hkv, d)
+    assert hq_arg // hkv_arg == group and inst_arg == inst
+    assert args[22] is not None          # the device-memory score plane
+    # at a small window the instance's plan keeps it in shared memory
+    small = one_layer(hq, hkv, d, 256, 16)
+    [(_, args)] = card_branch(monkeypatch, small, group)
+    assert args[26] == inst and args[22] is None
+    assert fd.scores_in_smem(inst, d, 256, 16)
+
+
+def test_group_past_the_instances_raises():
+    """Groups above 8 keep their refusal (no configuration has one)."""
+    assert "GQA group 9" in fd.k1_shape_error(9, 64, 64, 64, 8)
+    assert "GQA group 16" in fd.k1_shape_error(16, 128, 64, 64, 8)
+    with pytest.raises(ValueError):
+        fd.instance_group(9)
+    with pytest.raises(ValueError):
+        fd.smem_bytes(3, 128, 4096, 64)      # not an instance group
+
+
+def test_admitted_head_dim_k1_lacks_raises(monkeypatch):
+    """A shape the gate admits (lane width 4 x 96 = 384) but K1 has no
+    instance for (head_dim 96) raises NotImplementedError on the card
+    branch rather than leaving the kernel."""
+    cfg = one_layer(8, 4, 96, 64, 8)
+    assert tr.decode_uses_kernel(cfg, "cuda")
+    with pytest.raises(NotImplementedError, match="head_dim 96"):
+        card_branch(monkeypatch, cfg, 2)
 
 
 @pytest.mark.parametrize("head_dim,k2", [(8, False), (16, True)])
