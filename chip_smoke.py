@@ -175,14 +175,14 @@ def slice_config(num_layers: int = 32):
 SERVING_CAP, SERVING_BATCH, SERVING_PROMPT = 4096, 8, 3072
 
 
-def serving_config(num_layers: int = 32, layer_bits=None):
-    """``bench.py`` ``build_cfg(spatten=True, cache=4096, batch=8)`` at
+def serving_config(num_layers: int = 32, layer_bits=None,
+                   cap: int = SERVING_CAP):
+    """``bench.py`` ``build_cfg(spatten=True, cache=cap, batch=8)`` at
     Llama-2-7B width: the bench's per-chip 3 of 4 kv heads becomes 24 of
     32 (the same 0.75 share)."""
     from spatten_tpu_torch.config import (
         EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
     )
-    cap = SERVING_CAP
     return SpAttenConfig(
         model=dataclasses.replace(ModelConfig.llama2_7b(),
                                   num_layers=num_layers),
@@ -250,6 +250,39 @@ def llama32_3b_config(num_layers: int = 28):
     return dataclasses.replace(
         cfg, model=model,
         pruning=dataclasses.replace(cfg.pruning, head_keep=6)).validate()
+
+
+# openlm-research/open_llama_3b's published config.json
+OPENLLAMA_3B_HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "bos_token_id": 1,
+    "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 3200,
+    "initializer_range": 0.02, "intermediate_size": 8640,
+    "max_position_embeddings": 2048, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": 26, "pad_token_id": 0,
+    "rms_norm_eps": 1e-06, "tie_word_embeddings": False,
+    "torch_dtype": "float16", "transformers_version": "4.28.0.dev0",
+    "use_cache": True, "vocab_size": 32000,
+}
+OPENLLAMA_CAP, OPENLLAMA_PROMPT, OPENLLAMA_NEW_TOKENS = 2048, 1536, 64
+
+
+def openllama_3b_config(num_layers: int = 26):
+    """``openlm-research/open_llama_3b`` from its published ``config.json``
+    (``OPENLLAMA_3B_HF_CONFIG``) through the port's
+    ``hf_loader.config_from_hf``: vocab 32000, hidden 3200, 26 layers, 32
+    heads of 100 over 32 kv heads (lane width 3200), MLP 8640,
+    rms_norm_eps 1e-6, 2048 positions, untied embeddings; under
+    ``serving_config()``'s pruning, quantization and engine settings
+    sized to capacity 2048 (its context): batch 8, head pruning keeping 24
+    of 32 kv heads.  K1 runs head_dim 100 in its <1, 128> instance; K2
+    does not take head_dim 100 (``compact_gather.k2_takes``), so a prune
+    compacts through the gather.  The weights are random (real ones are
+    not in the repository)."""
+    from spatten_tpu_torch.models.hf_loader import config_from_hf
+    cfg = serving_config(num_layers, cap=OPENLLAMA_CAP)
+    model = dataclasses.replace(config_from_hf(OPENLLAMA_3B_HF_CONFIG),
+                                num_layers=num_layers)
+    return dataclasses.replace(cfg, model=model).validate()
 
 
 PARITY_BATCH, PARITY_PROMPT = 8, 1152
@@ -1147,6 +1180,413 @@ def phase_k1_groups(dev) -> dict:
     return dict(max_abs_err=max(errs))
 
 
+# K1 at head dims off its instances: name -> (query heads, kv heads,
+# head_dim, capacity, batch lengths, layer bits of a 4-layer stack)
+HEAD_DIM_CASES = {
+    "OpenLLaMA-3B attention (32 over 32 x 100)": (
+        32, 32, 100, OPENLLAMA_CAP,
+        [2048, 1900, 1601, 1200, 977, 800, 729, 33], (4, 6, 8, 4)),
+    "head_dim 80 (32 over 8), capacity 4096": (
+        32, 8, 80, 4096, [4096, 3001, 2049, 1500, 977, 700, 64, 1],
+        (4, 6, 8, 4)),
+    "head_dim 96, GQA 3 (12 over 4), capacity 4096": (
+        12, 4, 96, 4096, [4096, 3001, 2049, 1500, 977, 700, 64, 1],
+        (4, 6, 8, 4)),
+    # the score plane in device memory: <4, 128> at 16384 tokens
+    "head_dim 80 (32 over 8), capacity 16384": (
+        32, 8, 80, 16384, [16384, 9001], (4, 6, 8, 4)),
+    "head_dim 96, GQA 3 (12 over 4), capacity 16384": (
+        12, 4, 96, 16384, [16384, 8193], (4, 6, 8, 4)),
+}
+
+
+def phase_k1_head_dims(dev) -> dict:
+    """K1 at head dims it runs in a larger instance dim (``HEAD_DIM_CASES``:
+    OpenLLaMA-3B's 100, 80 and 96 with GQA 3, each in <G, 128>), under the
+    serving flags at a stack of four layers of 4, 6, 8 and 4 bits, a
+    serving head mask: held against its plain version on the 4-, 6- and
+    8-bit layers (every plane byte exact, the neighbouring heads' lanes
+    included), then timed on each against its bound.  The long windows
+    put the score plane in device memory (f32 metadata, as
+    ``phase_k1_device_scores``)."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    out, errs, lines = {}, [], []
+    for name, (hq, hkv, d, cap, lengths, bits) in HEAD_DIM_CASES.items():
+        base = serving_config(len(bits), layer_bits=bits, cap=cap)
+        cfg = k1_shape_config(base, hq=hq, hkv=hkv, d=d, cap=cap,
+                              layers=len(bits))
+        inst, vb = fd.instance_group(hq // hkv), cfg.pruning.v_block_size
+        dim = fd.instance_dim(d)
+        in_smem = fd.scores_in_smem(inst, dim, cap, vb)
+        check(dim == 128 and in_smem is (cap < 16384),
+              f"{name}: instance <{inst}, {dim}>, plane in shared memory "
+              f"{in_smem}")
+        if not in_smem:
+            cfg = dataclasses.replace(
+                cfg,
+                quant=dataclasses.replace(cfg.quant, scale_dtype="float32"),
+                pruning=dataclasses.replace(cfg.pruning,
+                                            importance_dtype="float32"))
+        st, q, kn, vn = k1_inputs(cfg, dev, gen, len(lengths))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        hm = serving_head_mask(cfg, gen, dev)
+        where = "shared" if in_smem else "device"
+        res = {}
+        for layer, b in enumerate(bits[:3]):
+            r = k1_case_logged(
+                errs, lines, f"{name} in <{inst}, {dim}>, {b}-bit, plane in "
+                f"{where} memory", cfg, st, q, kn, vn, layer, cap, lens,
+                head_mask=hm)
+            t = time_k1(st, q, kn, vn, lens, cfg, [layer], cap,
+                        r["threshold"], head_mask=hm)
+            res[f"{b}-bit"] = dict(max_abs_err=r["max_abs_err"], ms=t["ms"],
+                                   plain_ms=t["plain_ms"],
+                                   bound_ms=t["bound_ms"],
+                                   bound_by=t["bound_by"], bytes=t["bytes"])
+            lines.append(f"  timing: {t['ms']:.4f} ms kernel, "
+                         f"{t['plain_ms']:.4f} ms plain, bound "
+                         f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                         f"{t['bytes']} B; {t['fired']} heads requantize;"
+                         f" {len(lengths) * hkv} CTAs)")
+        out[name] = res
+        del st
+        free()
+    log("K1 vs plain, head dims off its instances: ok\n  "
+        + "\n  ".join(lines))
+    return dict(max_abs_err=max(errs), cases=out)
+
+
+# K1 at stored capacities and rungs off a multiple of 8, Llama-2-7B's
+# attention (32 kv heads of 128), batch 8: name -> (capacity, rung,
+# v_block, bf16 metadata, layer bits, lengths)
+CAPACITY_CASES = {
+    "capacity 1020, v_block 4, bf16 planes": (
+        1020, 1020, 4, True, (4, 4),
+        [1020, 1019, 1013, 900, 700, 509, 33, 2]),
+    "capacity 1020, v_block 4, f32 planes": (
+        1020, 1020, 4, False, (4, 4),
+        [1020, 1016, 1013, 900, 700, 509, 33, 2]),
+    "capacity 3000 at rung 1500, v_block 60, 6-bit": (
+        3000, 1500, 60, True, (6, 6),
+        [1500, 1499, 1494, 1200, 751, 750, 33, 3]),
+}
+
+
+def phase_k1_capacity(dev) -> dict:
+    """K1 at stored capacities and rungs off a multiple of 8
+    (``CAPACITY_CASES``): 1020 tokens at v_block 4 (pack unit 1020, a
+    half-unit of 510 rows) with bf16 and with f32 scale and importance
+    planes, and 3000 tokens at the rung 1500 (pack unit 1500; a 6-bit
+    layer, whose 2-bit plane has quarter-units of 375 rows), under the
+    serving flags with a serving head mask, appending in the last slots
+    of the plane and of its units; each held against its plain version,
+    then timed (Llama-2-7B's attention, batch 8, depth 2)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    out, errs, lines = {}, [], []
+    for name, (cap, rung, vb, bf16, bits, lengths) in CAPACITY_CASES.items():
+        base = serving_config(2, layer_bits=bits if 6 in bits else None)
+        dt = "bfloat16" if bf16 else "float32"
+        cfg = dataclasses.replace(
+            base,
+            engine=dataclasses.replace(base.engine, cache_capacity=cap),
+            quant=dataclasses.replace(base.quant, scale_dtype=dt),
+            pruning=dataclasses.replace(
+                base.pruning, v_block_size=vb, importance_dtype=dt,
+                start_size=4, important_size=int(rung * 0.55),
+                recent_size=int(rung * 0.10))).validate()
+        st, q, kn, vn = k1_inputs(cfg, dev, gen, len(lengths))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        hm = serving_head_mask(cfg, gen, dev)
+        r = k1_case_logged(errs, lines, name, cfg, st, q, kn, vn, 1, rung,
+                           lens, head_mask=hm)
+        t = time_k1(st, q, kn, vn, lens, cfg, [0, 1], rung, r["threshold"],
+                    head_mask=hm)
+        lines.append(f"  timing: {t['ms']:.4f} ms kernel, "
+                     f"{t['plain_ms']:.4f} ms plain, bound "
+                     f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                     f"{t['bytes']} B; {t['fired']} heads requantize)")
+        out[name] = dict(max_abs_err=r["max_abs_err"], ms=t["ms"],
+                         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                         bound_by=t["bound_by"], bytes=t["bytes"])
+        del st
+        free()
+    log("K1 vs plain, capacities off a multiple of 8: ok\n  "
+        + "\n  ".join(lines))
+    return dict(max_abs_err=max(errs), cases=out)
+
+
+# phase_server: 12 requests submitted at once to an arena of 8 slots, so
+# that four wait for recycled slots; prompts and budgets cycle
+SERVER_PROMPTS, SERVER_BUDGETS, SERVER_REQUESTS = (
+    (1024, 1536, 2048, 3072), (16, 32, 48, 64), 12)
+SERVER_PROFILE_TICKS = range(20, 28)
+
+
+def _device_ms(prof) -> float:
+    """Device time (ms) in a torch.profiler trace: device-side events
+    only, as ``profile_decode`` sums them."""
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def phase_server(dev) -> dict:
+    """``SpAttenServer`` at Llama-2-7B width and depth under
+    ``serving_config()`` (random bf16 weights, ``max_batch_size`` 8,
+    capacity 4096): ``SERVER_REQUESTS`` requests submitted at once, with
+    prompts cycling over ``SERVER_PROMPTS`` tokens and budgets over
+    ``SERVER_BUDGETS``, run to completion with the launch counts set to 0
+    just before and read just after.  Every request must finish with
+    exactly its budget and every slot end free; K1 must launch 32 times per
+    decode tick and K2 at least once (the admissions' prefills prune the
+    rung-2048 layers).  The first decode tick after each wave of requests
+    joins the arena is rerun from a copy of its state through the plain
+    versions (K1's plain version, the gather compaction), fed the same
+    tokens, and the active slots' logits held to ``window_vs_plain``'s
+    bf16 rule.  Ticks ``SERVER_PROFILE_TICKS`` are profiled for their
+    device time; the host clock of the other ticks gives ms per tick."""
+    from torch.profiler import ProfilerActivity, profile
+    from spatten_tpu_torch.engine import generate as gen
+    from spatten_tpu_torch.engine.server import SpAttenServer
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
+    from spatten_tpu_torch.ops.fused_decode import (
+        fused_decode_attention, fused_decode_attention_plain,
+    )
+    cfg = serving_config()
+    m = cfg.model
+    t0 = time.perf_counter()
+    params = tr.init_params(m, SEED, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    log(f"server: params {m.num_layers} layers, bf16, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 11)
+    requests = [(rng.integers(0, m.vocab_size,
+                              SERVER_PROMPTS[i % len(SERVER_PROMPTS)]),
+                 SERVER_BUDGETS[i % len(SERVER_BUDGETS)])
+                for i in range(SERVER_REQUESTS)]
+    cfg_gather = dataclasses.replace(
+        cfg, engine=dataclasses.replace(cfg.engine, use_pallas=False))
+    srv = SpAttenServer(params, cfg, device=dev)
+    budget = {srv.submit(p, n): n for p, n in requests}
+    run_decode_step = gen.decode_step
+    seen, checks, tick_ms, prof_ms = set(), [], [], []
+    check_s = 0.0
+
+    def tick(state, token, prune_cfg=cfg):
+        # gen.decode_step's body, returning the logits; ``prune_cfg``
+        # picks the compaction (K2, or the gather with use_pallas off)
+        state, _ = gen.maybe_prune(prune_cfg, state, 1)
+        state = gen.maybe_update_head_mask(cfg, state)
+        logits, state, aux = tr.forward(params, cfg, state, token[:, None])
+        return logits[:, -1], state, aux
+
+    def decode_step(p, c, state, token):
+        nonlocal check_s
+        n = len(tick_ms) + len(prof_ms)
+        ids = {r.request_id for r in srv.active.values()}
+        slots = sorted(srv.active)
+        joined = ids - seen
+        seen.update(ids)
+        plain = None
+        if joined:
+            t = time.perf_counter()
+            snap = state.clone()
+            tr.fused_decode_attention = fused_decode_attention_plain
+            try:
+                plain = tick(snap, token, cfg_gather)[0][slots].float()
+            finally:
+                tr.fused_decode_attention = fused_decode_attention
+            del snap
+            torch.cuda.synchronize()
+            check_s += time.perf_counter() - t
+        prof = None
+        if n in SERVER_PROFILE_TICKS:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, state, aux = tick(state, token)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            prof_ms.append(_device_ms(prof))
+        else:
+            tick_ms.append(ms)
+        if plain is not None:
+            lk = logits[slots].float()
+            check(bool(torch.isfinite(lk).all()), "server: non-finite logits")
+            diff = (lk - plain).abs()
+            checks.append(dict(tick=n, joined=len(joined), rows=len(slots),
+                               mean=float(diff.mean()),
+                               max=float(diff.max()),
+                               agree=int((lk.argmax(-1) == plain.argmax(-1))
+                                         .sum())))
+        return nxt, state, aux
+
+    fused_decode_attention.launches = 0
+    gather_compact_rows.launches = 0
+    gen.decode_step = decode_step
+    t0 = time.perf_counter()
+    try:
+        done = srv.run_to_completion()
+    finally:
+        gen.decode_step = run_decode_step
+    wall = time.perf_counter() - t0 - check_s
+    k1, k2 = fused_decode_attention.launches, gather_compact_rows.launches
+    ticks = len(tick_ms) + len(prof_ms)
+    check(sorted(r.request_id for r in done) == sorted(budget),
+          "server: not every request finished")
+    check(all(len(r.generated) == budget[r.request_id] for r in done),
+          "server: a request did not emit exactly its budget")
+    check(sorted(srv.free_slots) == list(range(srv.batch)),
+          f"server: slots {srv.free_slots} are not all free")
+    check(k1 == m.num_layers * ticks, f"server: K1 launched {k1} times for "
+          f"{ticks} decode ticks")
+    check(k2 >= 1, "server: K2 never launched")
+    rows = sum(c["rows"] for c in checks)
+    mean = sum(c["mean"] * c["rows"] for c in checks) / rows
+    agree = sum(c["agree"] for c in checks) / rows
+    log(f"server: {len(done)} requests (prompts {SERVER_PROMPTS} tokens, "
+        f"budgets {SERVER_BUDGETS}) through {srv.batch} slots in {ticks} "
+        f"decode ticks, {wall:.2f} s (the plain reruns' {check_s:.2f} s "
+        f"taken out): {ticks / wall:.2f} ticks/s, "
+        f"{sum(budget.values()) / wall:.1f} generated tok/s; completion "
+        f"order {[r.request_id for r in done]}; K1 launches {k1} "
+        f"(= {m.num_layers} x {ticks}), K2 launches {k2}")
+    step_ms = float(np.median(tick_ms))
+    dev_ms = float(np.median(prof_ms))
+    log(f"server: decode tick host clock median {step_ms:.2f} ms (mean "
+        f"{float(np.mean(tick_ms)):.2f}, {len(tick_ms)} ticks); device "
+        f"{dev_ms:.3f} ms per tick (median of ticks "
+        f"{SERVER_PROFILE_TICKS.start}-{SERVER_PROFILE_TICKS.stop - 1}, "
+        f"profiled) -> idle {1 - dev_ms / step_ms:.3f}")
+    log("server: first decode tick of each joining wave, kernels vs plain "
+        f"on the card (same tokens): {[(c['tick'], c['joined'], c['rows'], round(c['mean'], 4), round(c['max'], 3), c['agree']) for c in checks]} "
+        f"(tick, joined, active rows, mean |logit diff|, max, argmax "
+        f"agreements); pooled mean {mean:.2e} (tolerance {WINDOW_MEAN_TOL}),"
+        f" argmax agreement {agree:.3f} (min {WINDOW_ARGMAX_MIN})")
+    check(mean <= WINDOW_MEAN_TOL and all(
+        c["mean"] <= WINDOW_MEAN_TOL for c in checks),
+        f"server: mean logit error {mean}")
+    check(agree >= WINDOW_ARGMAX_MIN, f"server: argmax agreement {agree}")
+    del params, srv
+    free()
+    return dict(k1=k1, k2=k2, ticks=ticks, wall_s=wall,
+                tok_s=sum(budget.values()) / wall, step_ms=step_ms,
+                device_ms=dev_ms, idle=1 - dev_ms / step_ms)
+
+
+def server_small_check(dev) -> dict:
+    """A small f32 server run on the card: ``device_scores_configs()``'s
+    GQA-8 model (8 query heads over 1 kv head of 128, capacity 4096; K1
+    with its score plane in device memory) with ``max_batch_size`` 2, six
+    requests, each forward call held against its replay on the CPU
+    (``kernel_checks.check_server_against_cpu``: the single-token calls'
+    logits within 1e-3, tokens equal where the top-2 margin is clear in
+    every call, budgets met, slots free, K1 once per layer and
+    single-token call)."""
+    from spatten_tpu_torch import kernel_checks as kc
+    from spatten_tpu_torch.models import transformer as tr
+    [(cfg, _, _, _)] = device_scores_configs().values()
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, max_batch_size=2)).validate()
+    params = tr.init_params(cfg.model, SEED, dtype=torch.float32,
+                            device="cpu")
+    rng = np.random.default_rng(SEED + 12)
+    requests = [(rng.integers(0, cfg.model.vocab_size, n), new)
+                for n, new in ((300, 12), (2040, 8), (77, 16), (1100, 6),
+                               (513, 10), (40, 4))]
+    r = kc.check_server_against_cpu(cfg, params, requests, dev)
+    log(f"server, small f32 (GQA 8 x 128, capacity 4096, 2 slots, 6 "
+        f"requests) on the card vs its CPU replay: {r['calls']} calls, "
+        f"{r['ticks']} decode ticks, single-token calls' logits max |diff| "
+        f"{r['max_logit_err']:.2e} (tolerance {kc.CPU_REPLAY_LOGIT_TOL}), "
+        f"prefill chunks' {r['prefill_logit_err']:.2e} (reported); "
+        f"tokens equal where the top-2 margin is clear "
+        f"({r['clear_share']:.3f} of rows); K1 launches {r['k1']}, K2 "
+        f"{r['k2']}; completion order {r['order']}; worst calls (err, "
+        f"call, tokens) {r['worst_calls']}")
+    free()
+    return r
+
+
+TRACE_STEPS = 16
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def phase_trace(dev) -> dict:
+    """``engine.trace.collect_trace`` on ``profile_config()`` (depth 8,
+    the 4,4,6,6,8 profile, batch 8, prompt 3072) for ``TRACE_STEPS``
+    decode steps on the card; the CSV goes to ``build/trace_profile.csv``
+    (and reads back equal), is priced with ``perf.cost_model`` at the
+    card preset (``H100_SXM``, with this model's bf16 weight bytes per
+    step) against its dense fp16 bytes, and the ``key_fetch_num`` decay
+    by layer is printed."""
+    from pathlib import Path
+    from spatten_tpu_torch.engine import trace as trc
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    from spatten_tpu_torch.perf import cost_model as cm
+    cfg = profile_config(8)
+    m = cfg.model
+    params = tr.init_params(m, SEED, dtype=torch.bfloat16, device=dev)
+    prompt = np.random.default_rng(SEED).integers(
+        0, m.vocab_size, (SERVING_BATCH, SERVING_PROMPT))
+    fused_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    rows = trc.collect_trace(params, cfg, prompt, TRACE_STEPS, device=dev)
+    secs = time.perf_counter() - t0
+    k1 = fused_decode_attention.launches
+    check(k1 == m.num_layers * TRACE_STEPS, f"trace: K1 launched {k1}")
+    path = Path(__file__).resolve().parent / "build" / "trace_profile.csv"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    trc.write_csv(rows, str(path))
+    check(trc.read_csv(str(path)) == rows, "trace: CSV round trip")
+    check(len({r.layer_id for r in rows}) == m.num_layers
+          and len({r.iteration_id for r in rows}) == TRACE_STEPS,
+          "trace: rows miss a layer or a step")
+    # the bytes a decode step streams: every layer's weights, the final
+    # norm and the LM head (the tied embedding where there is none)
+    streamed = [params["layers"], params["final_norm_w"],
+                params.get("lm_head", params["embed"])]
+    weights = sum(t.numel() * t.element_size() for t in _leaves(streamed))
+    hw = dataclasses.replace(cm.H100_SXM, weight_bytes_per_step=weights)
+    cost = cm.estimate_cost(rows, hw)
+    dense = cm.dense_bytes(rows)
+    by_layer = {}
+    for r in rows:
+        if r.iteration_id == TRACE_STEPS - 1:
+            by_layer.setdefault(r.layer_id, set()).add(r.key_fetch_num)
+    requant = sum(r.if_requant for r in rows) / len(rows)
+    log(f"trace: {len(rows)} rows ({TRACE_STEPS} steps x {m.num_layers} "
+        f"layers x alive kv heads) in {secs:.2f} s, K1 launches {k1}; CSV "
+        f"{path.relative_to(path.parent.parent)}; key_fetch_num by layer at "
+        f"the last step {[sorted(v) for _, v in sorted(by_layer.items())]}; "
+        f"requant share {requant:.3f}; cost model at the card preset "
+        f"({hw.hbm_gbps} GB/s, {hw.peak_tflops} TFLOP/s, step overhead "
+        f"{hw.step_overhead_us} us, weights {weights / 1e9:.3f} GB/step): "
+        f"{cost.total_bytes / 1e9:.3f} GB over {cost.iterations} steps, "
+        f"{cost.total_seconds * 1e3:.3f} ms, {cost.tokens_per_s:.1f} steps/s;"
+        f" attention bytes vs dense fp16 "
+        f"{(cost.total_bytes - weights * cost.iterations) / dense:.4f} "
+        f"(native library: {cm._load_lib() is not None})")
+    del params
+    free()
+    return dict(rows=len(rows), k1=k1, cost=dataclasses.asdict(cost),
+                dense_bytes=dense)
+
+
 def probe_entries(probe: dict, launches: dict) -> list:
     """The ``kernels`` JSON entries of P1-P5 from ``phase_launch_probe``'s
     result; ``launches``: each probe's count on the serving path."""
@@ -1278,7 +1718,9 @@ def run_path(name, cfg, dev, *, batch, prompt_len, new_tokens,
     decode window through the plain versions; profile decode."""
     from spatten_tpu_torch.engine import generate as gen
     from spatten_tpu_torch.models import transformer as tr
-    from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
+    from spatten_tpu_torch.ops.compact_gather import (
+        gather_compact_rows, k2_takes,
+    )
     from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
     m = cfg.model
     if params is None:
@@ -1307,7 +1749,11 @@ def run_path(name, cfg, dev, *, batch, prompt_len, new_tokens,
     check(k1 == m.num_layers * new_tokens,
           f"{name}: K1 launched {k1} times, expected "
           f"{m.num_layers * new_tokens}")
-    check(k2 == points, f"{name}: K2 launched {k2} times, expected {points}")
+    # K2 moves the rows of every layer a prune compacts, where it takes the
+    # head_dim (else the gather does, as in the JAX compaction)
+    k2_expect = points if k2_takes(m.head_dim) else 0
+    check(k2 == k2_expect, f"{name}: K2 launched {k2} times, expected "
+          f"{k2_expect}")
     check(res.state.layer_lengths.tolist() == [[lens[l]] * batch
                                                for l in range(m.num_layers)],
           f"{name}: layer lengths differ from the schedule")
@@ -1462,6 +1908,7 @@ def main() -> int:
         return 1
     import spatten_tpu_torch  # noqa: F401  (fails outside the repository)
     from spatten_tpu_torch import kernels
+    from spatten_tpu_torch.perf import H100_SXM
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1503,6 +1950,8 @@ def main() -> int:
     k1_llama = phase_k1_llama32(dev)
     k1_flags_res = phase_k1_flags(dev)
     k1_groups = phase_k1_groups(dev)
+    k1_dims = phase_k1_head_dims(dev)
+    k1_caps = phase_k1_capacity(dev)
     k1_dev_scores = phase_k1_device_scores(dev)
     k2_pr1 = phase_k2(dev, b=4, cap=1024, hkv=32, d=128, keep_max=772,
                       window=1024, lengths=[1024, 1024, 900, 1000],
@@ -1517,6 +1966,7 @@ def main() -> int:
     probe = phase_launch_probe(dev)
     small_reference_check(dev)
     phase_gate(dev)
+    small_server = server_small_check(dev)
     log(f"kernel phases done at {time.perf_counter() - t_start:.0f} s")
 
     pr1 = run_path("first slice (depth 8)", slice_config(8), dev, batch=4,
@@ -1542,6 +1992,8 @@ def main() -> int:
           f"requant events by layer {lr} for bits {bits}: only the 4- and "
           "6-bit layers may (and here do) requantize")
     log(f"profile: requant events by layer {lr} for bits {list(bits)}")
+    del prof["params"], prof["res"]
+    free()
     log(f"dense-int8 baseline decode {dense['tok_s']:.1f} tok/s vs serving "
         f"{serving['tok_s']:.1f} tok/s (batch {SERVING_BATCH}; printed, no "
         f"claim)")
@@ -1555,28 +2007,52 @@ def main() -> int:
                      new_tokens=LLAMA32_NEW_TOKENS, window_check=True)
     del llama["params"], llama["res"]
     free()
+    openllama = run_path("OpenLLaMA-3B", openllama_3b_config(), dev,
+                         batch=SERVING_BATCH, prompt_len=OPENLLAMA_PROMPT,
+                         new_tokens=OPENLLAMA_NEW_TOKENS, window_check=True)
+    del openllama["params"], openllama["res"]
+    free()
+    server = phase_server(dev)
+    trace = phase_trace(dev)
+    # the cost model's per-step overhead: the serving path's host time per
+    # decode step beyond its device time
+    log(f"cost model step overhead, serving path: "
+        f"{serving['idle'] * serving['step_ms'] * 1e3:.1f} us per step "
+        f"(host {serving['step_ms']:.3f} ms, idle {serving['idle']:.3f}); "
+        f"the card preset holds {H100_SXM.step_overhead_us} us")
     log(f"total {time.perf_counter() - t_start:.0f} s")
 
+    paths = {"serving": serving, "first slice": pr1, "dense": dense,
+             "profile": prof, "parity": parity, "Llama-3.2-3B": llama,
+             "OpenLLaMA-3B": openllama, "server": server}
+    k1_by_path = {k: v["k1"] for k, v in paths.items()}
+    k1_by_path.update({"server, small f32": small_server["k1"],
+                       "trace": trace["k1"]})
+    k2_by_path = {k: v["k2"] for k, v in paths.items()}
+    k2_by_path["server, small f32"] = small_server["k2"]
     k1_srv["max_abs_err"] = max(
         [k1_srv["max_abs_err"], k1_flags_res["max_abs_err"],
-         k1_llama["max_abs_err"], k1_groups["max_abs_err"]]
+         k1_llama["max_abs_err"], k1_groups["max_abs_err"],
+         k1_dims["max_abs_err"], k1_caps["max_abs_err"]]
         + [r["max_abs_err"] for r in k1_dev_scores.values()])
     kernels_out = [
         dict(name="fused_decode_attention", route="cuda",
              source="spatten_tpu_torch/csrc/fused_decode.cu",
              replaces="spatten_tpu/ops/fused_decode.py:2319",
-             launches=serving["k1"], **k1_srv,
+             launches=sum(k1_by_path.values()), **k1_srv,
+             launches_by_path=k1_by_path,
              first_slice=dict(k1_pr1, launches=pr1["k1"]),
              parity=dict(k1_flags_res["parity"], launches=parity["k1"]),
              llama32_3b=dict(k1_llama, launches=llama["k1"], library_ms=None),
              split_k={k: dict(v) for k, v in split.items()},
-             device_scores=k1_dev_scores),
+             device_scores=k1_dev_scores, head_dims=k1_dims["cases"],
+             capacity=k1_caps["cases"]),
         dict(name="gather_compact_rows", route="cuda",
              source="spatten_tpu_torch/csrc/compact_gather.cu",
              replaces="spatten_tpu/ops/compact_gather.py:335",
-             launches=serving["k2"], **k2_srv,
-             first_slice=dict(k2_pr1, launches=pr1["k2"]),
-             parity_launches=parity["k2"], llama32_3b_launches=llama["k2"]),
+             launches=sum(k2_by_path.values()), **k2_srv,
+             launches_by_path=k2_by_path,
+             first_slice=dict(k2_pr1, launches=pr1["k2"])),
     ]
     kernels_out += probe_entries(probe, serving["probe_launches"])
     out = {"kernels": kernels_out}

@@ -44,11 +44,29 @@
 // sized to the rung C, while plane strides use the stored capacity Ct).
 //
 // Grid: one CTA per (kv head, batch row).  The CTA owns lanes
-// [h*D, (h+1)*D) of every cache row, the head's scale column and its
+// [h*d, (h+1)*d) of every cache row, the head's scale column and its
 // importance row, so its append read-modify-writes cannot race any other
 // CTA (the 2-bit byte that four tokens share lies in the CTA's own
-// lanes): it appends first, then __syncthreads(), then reads the
-// post-append cache.
+// lanes): it appends first, byte by byte, then __syncthreads(), then
+// reads the post-append cache.
+//
+// Head dims: instances exist for D = 64, 128 and 256; a model's head_dim
+// d runs in D = 64 if d is 64, else in the smallest of 128 and 256 that
+// holds d lanes after a lead-in of up to 16 - gcd(d, 16) bytes
+// (instance_dim in the wrapper), with the live lanes p.d.  Its tiles keep rows of D bytes: a box of D bytes from the head's
+// first lane h*d rounded down to 16 bytes holds, around the head's d
+// lanes, its neighbours' lanes (or zeros past the row), which the zero
+// query lanes weight by 0 and P·V never writes.  A head's rows are then
+// only 4-byte aligned (d = 100: h*100), so rows of d < D lanes are copied
+// only as TMA boxes (a ragged tile as a whole box, whose extra rows are
+// never consumed), never by row copies, which need 16-byte addresses.
+//
+// Capacities: any even stored capacity Ct and rung C whose pack unit
+// (and, with the 2-bit plane, its quarter) divides them, as in the Pallas
+// kernel.  A msb tile's rows divide the half-unit (not only powers of
+// two: 1020 tokens have a half-unit of 510), the scale segments align
+// their own addresses, and the metadata vectors fall back to scalars
+// where a column (at a stride off a multiple of 8) is misaligned.
 //
 // Bound on this card: bytes.  Per (b, h) one step moves ~len*D/2 bytes of
 // msb (plus len*D/4 of lsb2 for a 6-bit layer, len*D for a requant head,
@@ -77,9 +95,10 @@
 // streaming passes (pass 1, the requant recompute, P·V) now read from a
 // ring of kStages tiles of 16 KB in shared memory.  Warp 0 fills it: a
 // full tile is one TMA box (a 2-D tensor map over the layer's plane, D
-// bytes x the tile's rows at the plane's F = Hkv*D stride; the maps are
+// bytes x the tile's rows at the plane's F = Hkv*d stride; the maps are
 // encoded on the host once per plane and layer and cached), a ragged last
-// tile one cp.async.bulk per live row, and each stage completes on its own
+// tile one cp.async.bulk per live row (where d = D), and each stage
+// completes on its own
 // mbarrier (expect_tx).  After a tile is consumed a __syncthreads() frees
 // its stage and warp 0 refills it, so ~kStages * 16 KB stay in flight per
 // CTA.  (128-byte row copies cost ~30-75 ns each per CTA on this card, so
@@ -165,12 +184,16 @@ struct Params {
   int sc_bf16, imp_bf16, qq, pv_int8, probs_bf16, presoftmax, per_row;
   int g;                 // the model's GQA group Hq / Hkv: the live rows
                          // of the instance's G (1 <= g <= G)
+  int d;                 // the model's head_dim: the live lanes of the
+                         // instance's D (1 <= d <= D)
   // the ring's geometry (host-computed): packed rows of a msb tile, V
   // rows of a P·V tile and of one of its pieces (inside one V block)
   int t_msb, tpv, piece;
   int v_box;             // a P·V piece may be one box (128-byte aligned)
-  // TMA tensor maps over this layer's planes, rows of D bytes at stride
-  // F: boxes of kRows (int8 K), t_msb (msb, lsb2) and piece (int8 V) rows
+  int l2_off;            // where a msb tile's lsb2 rows start (128-aligned)
+  // TMA tensor maps over this layer's planes, rows of D bytes from the
+  // head's first lane at stride F: boxes of kRows (int8 K), t_msb (msb,
+  // lsb2) and piece (int8 V) rows
   CUtensorMap kf_map, km_map, kl2_map, vf_map;
 };
 
@@ -222,26 +245,29 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Quantize one head's new row (one warp): int8 + scale into slot idx of
-// the full plane, the nibble RMW of the packed plane and the 2-bit RMW of
-// the lsb2 plane.  The f32 scale also goes to *scale_f32.
+// Quantize one head's new row of d values (one warp; VEC = D / 32 lanes
+// each, those past d idle): int8 + scale into slot idx of the full plane,
+// the nibble RMW of the packed plane and the 2-bit RMW of the lsb2 plane,
+// byte by byte in the head's own d lanes (the next head's CTA appends the
+// lanes after them).  The f32 scale also goes to *scale_f32.
 template <int VEC>
-__device__ void append_row(const float* x, int8_t* full_row, void* scale,
-                           size_t scale_idx, int sc_bf16, float* scale_f32,
-                           uint8_t* msb_row, bool is_hi, uint8_t* l2_row,
-                           int l2_shift) {
+__device__ void append_row(const float* x, int d, int8_t* full_row,
+                           void* scale, size_t scale_idx, int sc_bf16,
+                           float* scale_f32, uint8_t* msb_row, bool is_hi,
+                           uint8_t* l2_row, int l2_shift) {
   const int lane = threadIdx.x & 31;
   float v[VEC];
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    v[i] = x[lane * VEC + i];
+    v[i] = lane * VEC + i < d ? x[lane * VEC + i] : 0.f;
     amax = fmaxf(amax, fabsf(v[i]));
   }
   amax = warp_max(amax);
   const float s = amax > 0.f ? amax / 127.f : 1.f;
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
+    if (lane * VEC + i >= d) break;
     const float r = fminf(fmaxf(rintf(v[i] / s), -127.f), 127.f);
     const int q8 = static_cast<int>(r);
     full_row[lane * VEC + i] = static_cast<int8_t>(q8);
@@ -281,10 +307,27 @@ __device__ __forceinline__ float group_max(float v) {
   return v;
 }
 
-// Eight consecutive metadata values from element i (a multiple of 8, so
-// one 16-byte load for bf16, two for f32), and their store.
+// n <= 8 consecutive metadata values from element i (the rest read as
+// 0), and their store: one 16-byte vector for bf16, two for f32, where all
+// eight are wanted and the address is 16-byte aligned (a row stride off a
+// multiple of 8 elements misaligns columns), else element by element.
+__device__ __forceinline__ bool vec_ok(const void* p, size_t i, int bf,
+                                       int n) {
+  return n == 8 &&
+         ((reinterpret_cast<uintptr_t>(p) + i * (bf ? 2 : 4)) & 15) == 0;
+}
+
 __device__ __forceinline__ void load_meta8(const void* p, size_t i, int bf,
-                                           float (&v)[8]) {
+                                           float (&v)[8], int n = 8) {
+  if (!vec_ok(p, i, bf, n)) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = j >= n ? 0.f
+             : bf   ? __bfloat162float(
+                        static_cast<const __nv_bfloat16*>(p)[i + j])
+                    : static_cast<const float*>(p)[i + j];
+    return;
+  }
   if (bf) {
     const uint4 w = *reinterpret_cast<const uint4*>(
         static_cast<const __nv_bfloat16*>(p) + i);
@@ -304,7 +347,12 @@ __device__ __forceinline__ void load_meta8(const void* p, size_t i, int bf,
 }
 
 __device__ __forceinline__ void store_meta8(void* p, size_t i,
-                                            const float (&v)[8], int bf) {
+                                            const float (&v)[8], int bf,
+                                            int n = 8) {
+  if (!vec_ok(p, i, bf, n)) {
+    for (int j = 0; j < n; ++j) store_meta(p, i + j, v[j], bf);
+    return;
+  }
   if (bf) {
     uint32_t ws[4];
 #pragma unroll
@@ -375,25 +423,33 @@ __device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
   }
 }
 
-// A tile's metadata segment: the 16-byte-aligned span of a scale column
-// (whose element 0 is 16-byte aligned) that covers tokens [t, t + n).
-// Returns its bytes; copies it into dst on `bar` when `go`.
+// A tile's metadata segment: the span of a scale column that covers
+// tokens [t, t + n), widened to 16-byte-aligned addresses (a column of a
+// row stride off a multiple of 8 elements starts anywhere).  Returns its
+// bytes; copies it into dst on `bar` when `go`.
 __device__ __forceinline__ uint32_t seg_copy(uint8_t* dst, const uint8_t* col,
                                              int t, int n, int es,
                                              uint32_t bar, bool go) {
-  const int a = (t * es) & ~15;
-  const int e = ((t + n) * es + 15) & ~15;
-  if (go) bulk_copy(dst, col + a, e - a, bar);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(col + t * es) & ~uintptr_t{15};
+  const uintptr_t e =
+      (reinterpret_cast<uintptr_t>(col + (t + n) * es) + 15) & ~uintptr_t{15};
+  if (go) bulk_copy(dst, reinterpret_cast<const void*>(a), e - a, bar);
   return static_cast<uint32_t>(e - a);
 }
 
-// Token t's value in a segment whose first token is tf.
-__device__ __forceinline__ float seg_at(const uint8_t* seg, int tf, int t,
-                                        int bf) {
-  if (bf)
-    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
-        seg + 2 * t - ((2 * tf) & ~15)));
-  return *reinterpret_cast<const float*>(seg + 4 * t - ((4 * tf) & ~15));
+// A column's address modulo 16 (the `mis` of seg_at).
+__device__ __forceinline__ int misalign(const uint8_t* col) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(col) & 15);
+}
+
+// Token t's value in a segment whose first token is tf, of a column whose
+// address modulo 16 is `mis`.
+__device__ __forceinline__ float seg_at(const uint8_t* seg, int mis, int tf,
+                                        int t, int bf) {
+  const int es = bf ? 2 : 4;
+  const uint8_t* x = seg + (mis + t * es - ((mis + tf * es) & ~15));
+  if (bf) return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(x));
+  return *reinterpret_cast<const float*>(x);
 }
 
 // Room for one segment of n tokens (its widening to 16 B included).
@@ -401,11 +457,19 @@ __host__ __device__ constexpr int seg_stride(int n, int es) {
   return (n * es + 28 + 15) & ~15;
 }
 
-// The largest power of two <= rows that divides n (a tile must not cross
-// a half-unit of the packed layout, nor a V block).
+// The largest power of two <= rows that divides n (a P·V tile piece must
+// not cross a V block).
 __host__ __device__ inline int tile_rows(int rows, int n) {
   while (n % rows) rows >>= 1;
   return rows;
+}
+
+// The largest divisor of n that is <= rows (a msb tile must not cross a
+// half-unit of the packed layout, whose span is any even capacity's).
+inline int divisor_rows(int rows, int n) {
+  for (int r = rows < n ? rows : n; r > 1; --r)
+    if (n % r == 0) return r;
+  return 1;
 }
 
 struct Ring {
@@ -561,9 +625,18 @@ __device__ __forceinline__ void finalize(float raw, float rs, float off,
   srow[t] = __fmul_rn(x, ksc);
 }
 
+// The first plane column of head h's boxes: its first lane h*d rounded
+// down to 16 bytes, so a box starts on a 16-byte address; the head's d
+// lanes then sit `sh` = h*d - box_col bytes into each D-byte tile row
+// (instance_dim keeps sh + d <= D).  sh = 0 wherever d % 16 == 0.
+__device__ __forceinline__ int box_col(const Params& p, int h) {
+  return (h * p.d) & ~15;
+}
+
 // Raw scores of every live token from the int8 plane: tiles of kRows
-// tokens (one TMA box, or row copies for a ragged last tile) with their K
-// scale segment.  (b, h): the CTA's batch row and kv head.
+// tokens (one TMA box, or row copies for a ragged last tile where rows are
+// D bytes) with their K scale segment.  (b, h): the CTA's batch row and kv
+// head.
 template <int G, int D>
 __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
                             const int8_t* kf, const uint8_t* kcol,
@@ -575,16 +648,18 @@ __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
   constexpr int T = L::kRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lrow = lane / L::LPR, lcol = lane % L::LPR;
-  const int es = p.sc_bf16 ? 2 : 4;
+  const int es = p.sc_bf16 ? 2 : 4, kmis = misalign(kcol);
   const uint8_t* plane = reinterpret_cast<const uint8_t*>(kf);
   stream_tiles(
       ring, (len + T - 1) / T,
       [&](int i, uint8_t* st, uint32_t bar, bool go) {
         const int t0 = i * T, rows = min(T, len - t0);
         uint32_t bytes = 0;
-        if (rows == T) {
+        if (rows == T || p.d != D) {
+          // a whole box (a ragged one reads rows past the length, or zeros
+          // past the plane); rows of d < D lanes are only 4-byte aligned
           if (lane == 0) {
-            if (go) tensor_copy(st, &p.kf_map, h * D, b * p.Ct + t0, bar);
+            if (go) tensor_copy(st, &p.kf_map, box_col(p, h), b * p.Ct + t0, bar);
             bytes += T * D;
           }
         } else {
@@ -616,7 +691,8 @@ __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
             t[u] = t0 + rr;
             if (live) lds<L::CW>(st + rr * D + lcol * L::CW, w[u]);
             lead[u] = live && lcol == 0;
-            ksc[u] = lead[u] ? seg_at(st + kStageBytes, t0, t[u], p.sc_bf16)
+            ksc[u] = lead[u] ? seg_at(st + kStageBytes, kmis, t0, t[u],
+                                      p.sc_bf16)
                              : 0.f;
 #pragma unroll
             for (int k = 0; k < L::CW / 4; ++k)
@@ -641,10 +717,11 @@ __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
 // (+ U/2).  Under a 6-bit profile the lsb2 row of the same unit carries
 // both tokens' 2-bit fields (hi: fields 0/1, lo: fields 2/3), and the raw
 // value is q . (4n + l2).  Live packed rows (hi token below the length)
-// are a prefix; a tile holds T of them (and their lsb2 rows) inside one
-// half-unit (and, under a 6-bit profile, one quarter-unit), with the hi
-// and lo tokens' K scale segments.  A full tile is one TMA box of msb
-// rows (and one of lsb2 rows); a ragged last tile is copied row by row.
+// are a prefix; a tile holds T of them (and their lsb2 rows, from
+// p.l2_off) inside one half-unit (and, under a 6-bit profile, one
+// quarter-unit), with the hi and lo tokens' K scale segments.  A full tile
+// is one TMA box of msb rows (and one of lsb2 rows); a ragged last tile is
+// copied row by row where rows are D bytes, else it is a whole box too.
 template <int G, int D>
 __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
                            const uint8_t* km,
@@ -656,7 +733,7 @@ __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
   using L = Lanes<G, D>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lrow = lane / L::LPR, lcol = lane % L::LPR;
-  const int es = p.sc_bf16 ? 2 : 4;
+  const int es = p.sc_bf16 ? 2 : 4, kmis = misalign(kcol);
   const int u = p.pack_unit, half_u = u / 2, quarter_u = u / 4;
   const int nr = (len / u) * half_u + min(len % u, half_u);
   const int T = p.t_msb;
@@ -666,16 +743,17 @@ __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
       [&](int i, uint8_t* st, uint32_t bar, bool go) {
         const int r0 = i * T, rows = min(T, nr - r0);
         uint32_t bytes = 0;
-        if (rows == T) {
+        if (rows == T || p.d != D) {       // whole boxes, as in scores_full
           if (lane == 0) {
-            if (go) tensor_copy(st, &p.km_map, h * D, b * (p.Ct / 2) + r0, bar);
+            if (go)
+              tensor_copy(st, &p.km_map, box_col(p, h), b * (p.Ct / 2) + r0, bar);
             bytes += T * D;
           }
           if (kl2 != nullptr && lane == 2) {
             const int lr0 = (r0 / half_u) * quarter_u + r0 % quarter_u;
             if (go)
-              tensor_copy(st + T * D, &p.kl2_map, h * D, b * (p.Ct / 4) + lr0,
-                          bar);
+              tensor_copy(st + p.l2_off, &p.kl2_map, box_col(p, h),
+                          b * (p.Ct / 4) + lr0, bar);
             bytes += T * D;
           }
         } else {
@@ -687,7 +765,7 @@ __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
             if (kl2 != nullptr) {
               const int lr = (r / half_u) * quarter_u + r % quarter_u;
               if (go)
-                bulk_copy(st + (T + rr) * D,
+                bulk_copy(st + p.l2_off + rr * D,
                           kl2 + static_cast<size_t>(lr) * p.F, D, bar);
               bytes += D;
             }
@@ -725,7 +803,7 @@ __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
             if (live) {
               lds<L::CW>(st + rr * D + lcol * L::CW, w);
               if (kl2 != nullptr) {
-                lds<L::CW>(st + (T + rr) * D + lcol * L::CW, l2);
+                lds<L::CW>(st + p.l2_off + rr * D + lcol * L::CW, l2);
                 // the hi token's 2-bit field; the lo token's is field + 2
                 const int field = ((r0 + rr) % half_u) / quarter_u;
                 sh_hi = 6 - 2 * field;
@@ -749,9 +827,10 @@ __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
             put[2 * u] = lead;
             put[2 * u + 1] = lead && tlo < len;
             ksc[2 * u] =
-                lead ? seg_at(st + kStageBytes, thi0, thi, p.sc_bf16) : 0.f;
+                lead ? seg_at(st + kStageBytes, kmis, thi0, thi, p.sc_bf16)
+                     : 0.f;
             ksc[2 * u + 1] =
-                put[2 * u + 1] ? seg_at(st + kStageBytes + kSegHalf,
+                put[2 * u + 1] ? seg_at(st + kStageBytes + kSegHalf, kmis,
                                         thi0 + half_u, tlo, p.sc_bf16)
                                : 0.f;
           }
@@ -786,7 +865,7 @@ __device__ void softmax_rows(const Params& p, float* s, int len, float* red,
     float sum = 0.f, emv = 0.f;
     for (int c0 = 8 * threadIdx.x; c0 < len; c0 += 8 * kThreads) {
       float vs[8];
-      if (p.pv_int8) load_meta8(vcol, c0, p.sc_bf16, vs);
+      if (p.pv_int8) load_meta8(vcol, c0, p.sc_bf16, vs, min(8, len - c0));
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int t = c0 + j;
@@ -836,7 +915,7 @@ __device__ void exp_rows(const Params& p, float* s, int len,
 // columns (probabilities times the row weight, or scores times the head
 // mask).  Accumulated into the stacked plane (the appended slot starts
 // from 0), or written to the delta output over the whole window; 8
-// columns per thread, read and written as vectors.
+// columns per thread, read and written as vectors where they align.
 template <int G>
 __device__ void importance(const Params& p, const float* s, const float* wt,
                            int len, int idx, bool do_app, size_t col0,
@@ -844,7 +923,8 @@ __device__ void importance(const Params& p, const float* s, const float* wt,
   if (p.imp != nullptr) {
     for (int c0 = 8 * threadIdx.x; c0 < len; c0 += 8 * kThreads) {
       float v[8];
-      load_meta8(p.imp, col0 + c0, p.imp_bf16, v);
+      const int n = min(8, len - c0);   // columns past the length keep
+      load_meta8(p.imp, col0 + c0, p.imp_bf16, v, n);   // their bytes
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int t = c0 + j;
@@ -856,12 +936,7 @@ __device__ void importance(const Params& p, const float* s, const float* wt,
           v[j] = __fadd_rn(__fmul_rn(prev, p.ema), delta);
         }
       }
-      if (c0 + 8 <= len) {
-        store_meta8(p.imp, col0 + c0, v, p.imp_bf16);
-      } else {                // columns past the length keep their bytes
-        for (int t = c0; t < len; ++t)
-          store_meta(p.imp, col0 + t, v[t - c0], p.imp_bf16);
-      }
+      store_meta8(p.imp, col0 + c0, v, p.imp_bf16, n);
     }
   } else if (dl != nullptr) {
     for (int c0 = 8 * threadIdx.x; c0 < p.C; c0 += 8 * kThreads) {
@@ -875,7 +950,8 @@ __device__ void importance(const Params& p, const float* s, const float* wt,
             const int t = c0 + j;
             v[j] = t < len ? __fmul_rn(s[g * p.C + t], wt[g]) : 0.f;
           }
-          store_meta8(dl + static_cast<size_t>(g) * p.C, c0, v, 0);
+          store_meta8(dl + static_cast<size_t>(g) * p.C, c0, v, 0,
+                      min(8, p.C - c0));
         }
       } else {
         float v[8];
@@ -890,7 +966,7 @@ __device__ void importance(const Params& p, const float* s, const float* wt,
           }
           v[j] = delta;
         }
-        store_meta8(dl, c0, v, 0);
+        store_meta8(dl, c0, v, 0, min(8, p.C - c0));
       }
     }
   }
@@ -898,11 +974,11 @@ __device__ void importance(const Params& p, const float* s, const float* wt,
 
 // Zero output, kept-block mask and delta of a group that computes nothing
 // more (a dead head group, or a row with no live token): its p.g live
-// rows only.
-template <int G, int D>
+// rows of p.d lanes only.
 __device__ void zero_outputs(const Params& p, int b, int hq0, size_t out0,
                              int nvb, float* dl) {
-  for (int i = threadIdx.x; i < p.g * D; i += kThreads) p.out[out0 + i] = 0.f;
+  for (int i = threadIdx.x; i < p.g * p.d; i += kThreads)
+    p.out[out0 + i] = 0.f;
   if (p.keep_out != nullptr && p.keep_blocks > 0) {
     for (int i = threadIdx.x; i < p.g * nvb; i += kThreads)
       p.keep_out[static_cast<size_t>(b) * p.Hq * nvb + hq0 * nvb + i] = 0;
@@ -961,7 +1037,9 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   const bool do_app = p.appmask == nullptr || p.appmask[b] != 0;
   const int gl = p.g;                               // live rows of G
   const int hq0 = h * gl;                           // first q head of group
-  const size_t out0 = (static_cast<size_t>(b) * p.Hq + hq0) * D;
+  const int d = p.d;                                // live lanes of D
+  const int sh = h * d - box_col(p, h);            // their offset in a row
+  const size_t out0 = (static_cast<size_t>(b) * p.Hq + hq0) * d;
   const size_t row0 = static_cast<size_t>(b) * p.Hq + hq0;   // [B, Hq] index
   float* dl = p.delta == nullptr ? nullptr
             : p.delta + (p.per_row ? row0 : static_cast<size_t>(b) * p.Hkv + h)
@@ -969,7 +1047,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   // an appending row holds its new token; only a non-appending one (a
   // split-K shard past the kept prefix) may hold none
   if (len < (do_app ? 1 : 0) || len > C) {          // contract violation
-    for (int i = threadIdx.x; i < gl * D; i += kThreads) p.out[out0 + i] = NAN;
+    for (int i = threadIdx.x; i < gl * d; i += kThreads) p.out[out0 + i] = NAN;
     if (threadIdx.x == 0) p.max_prob[b * p.Hkv + h] = NAN;
     return;
   }
@@ -983,7 +1061,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   if (len == 0) {
     // no live column: every score is masked, so m = MASK_VALUE, e = 0 and
     // den sits at its 1e-30 floor (max prob 1e30, which never requantizes)
-    zero_outputs<G, D>(p, b, hq0, out0, nvb, dl);
+    zero_outputs(p, b, hq0, out0, nvb, dl);
     if (threadIdx.x < gl && p.mrow != nullptr) {
       p.mrow[row0 + threadIdx.x] = kMaskValue;
       p.drow[row0 + threadIdx.x] = 1e-30f;
@@ -1001,11 +1079,11 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   const size_t lsb2_b = static_cast<size_t>(b) * (p.Ct / 4) * F;
   const size_t col0 = (static_cast<size_t>(b) * p.Hkv + h) * p.Ct;
   const int es = p.sc_bf16 ? 2 : 4;
-  int8_t* kf = p.kfull + plane_b + h * D;
-  int8_t* vf = p.vfull + plane_b + h * D;
-  uint8_t* km = p.kmsb ? p.kmsb + packed_b + h * D : nullptr;
-  uint8_t* kl2 = p.klsb2 ? p.klsb2 + lsb2_b + h * D : nullptr;
-  uint8_t* vm = p.vmsb ? p.vmsb + packed_b + h * D : nullptr;
+  int8_t* kf = p.kfull + plane_b + h * d;
+  int8_t* vf = p.vfull + plane_b + h * d;
+  uint8_t* km = p.kmsb ? p.kmsb + packed_b + h * d : nullptr;
+  uint8_t* kl2 = p.klsb2 ? p.klsb2 + lsb2_b + h * d : nullptr;
+  uint8_t* vm = p.vmsb ? p.vmsb + packed_b + h * d : nullptr;
   const uint8_t* kcol = static_cast<const uint8_t*>(p.kscale) + col0 * es;
   const uint8_t* vcol = static_cast<const uint8_t*>(p.vscale) + col0 * es;
 
@@ -1017,14 +1095,14 @@ fused_decode_kernel(const __grid_constant__ Params p) {
     const size_t prow = static_cast<size_t>(idx / u) * (u / 2) + r_u % (u / 2);
     const size_t lrow2 = static_cast<size_t>(idx / u) * (u / 4) + r_u % (u / 4);
     const int l2_shift = 6 - 2 * (r_u / (u / 4));
-    const size_t src = (static_cast<size_t>(b) * p.Hkv + h) * D;
+    const size_t src = (static_cast<size_t>(b) * p.Hkv + h) * d;
     if (warp == 0) {
-      append_row<VEC>(p.k_new + src, kf + static_cast<size_t>(idx) * F,
+      append_row<VEC>(p.k_new + src, d, kf + static_cast<size_t>(idx) * F,
                       p.kscale, col0 + idx, p.sc_bf16, app,
                       km ? km + prow * F : nullptr, is_hi,
                       kl2 ? kl2 + lrow2 * F : nullptr, l2_shift);
     } else if (warp == 1) {
-      append_row<VEC>(p.v_new + src, vf + static_cast<size_t>(idx) * F,
+      append_row<VEC>(p.v_new + src, d, vf + static_cast<size_t>(idx) * F,
                       p.vscale, col0 + idx, p.sc_bf16, app + 1,
                       vm ? vm + prow * F : nullptr, is_hi, nullptr, 0);
     }
@@ -1037,7 +1115,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   // ---- head gating: a dead group appended, and does nothing else, but
   // for its row stats (the Pallas body scores every row)
   if (!any_alive && p.mrow == nullptr) {
-    zero_outputs<G, D>(p, b, hq0, out0, nvb, dl);
+    zero_outputs(p, b, hq0, out0, nvb, dl);
     if (threadIdx.x == 0) {
       p.max_prob[b * p.Hkv + h] = 0.f;
       p.need[b * p.Hkv + h] = 0;
@@ -1045,9 +1123,11 @@ fused_decode_kernel(const __grid_constant__ Params p) {
     return;
   }
 
-  // ---- queries in registers (a lane holds columns lcol*CW + c of every
-  // row), optionally quantized to int8 per row; every row group derives
-  // the same row constants
+  // ---- queries in registers (a lane holds tile columns lcol*CW + c of
+  // every row: head column lcol*CW + c - sh; columns outside the head's
+  // d read 0, so the tile bytes there, a neighbouring head's or zeros,
+  // add nothing), optionally quantized to int8 per row; every row group
+  // derives the same row constants
   float qr[G][CW];
   float rowscale[G], qsum[G];
 #pragma unroll
@@ -1055,7 +1135,9 @@ fused_decode_kernel(const __grid_constant__ Params p) {
     float amax = 0.f;
 #pragma unroll
     for (int c = 0; c < CW; ++c) {
-      qr[g][c] = g < gl ? p.q[out0 + g * D + lcol * CW + c] : 0.f;
+      const int col = lcol * CW + c - sh;
+      qr[g][c] = g < gl && col >= 0 && col < d ? p.q[out0 + g * d + col]
+                                                : 0.f;
       amax = fmaxf(amax, fabsf(qr[g][c]));
     }
     rowscale[g] = 1.f;
@@ -1132,7 +1214,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
     p.drow[row0 + threadIdx.x] = fmaxf(misc[kDen * G + threadIdx.x], 1e-30f);
   }
   if (!any_alive) {                                 // row stats only
-    zero_outputs<G, D>(p, b, hq0, out0, nvb, dl);
+    zero_outputs(p, b, hq0, out0, nvb, dl);
     return;
   }
   if (p.presoftmax) {
@@ -1223,7 +1305,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   // 8-bit row weights w8 = rint(w * 127 / wmax) on the stored int8 rows,
   // int32 sums, kept in the f32 accumulators' bits)
   const int tpv = p.tpv, piece = p.piece;
-  const int sstride = seg_stride(piece, es);
+  const int sstride = seg_stride(piece, es), vmis = misalign(vcol);
   const int nvr = nk * p.v_block;
   auto token = [&](int vr) {
     const int k = vr / p.v_block;
@@ -1231,10 +1313,13 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   };
   auto fetched = [&](int t) { return t < len && (t != idx || !do_app); };
   // a piece of n virtual rows from token tf is one TMA box when all of
-  // its rows are fetched
+  // its rows are fetched, and always where rows are d < D lanes (4-byte
+  // aligned: no row copies; the rows it reads past those fetched are
+  // never consumed)
   auto whole = [&](int tf, int n) {
-    return p.v_box && n == piece && tf + piece <= len &&
-           !(do_app && idx >= tf && idx < tf + piece);
+    return p.v_box && n == piece &&
+           (d != D || (tf + piece <= len &&
+                       !(do_app && idx >= tf && idx < tf + piece)));
   };
   float acc[G][CW];
 #pragma unroll
@@ -1269,7 +1354,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
                             bar, go);
           if (whole(tf, n)) {
             if (go)
-              tensor_copy(st + j * piece * D, &p.vf_map, h * D, b * p.Ct + tf,
+              tensor_copy(st + j * piece * D, &p.vf_map, box_col(p, h), b * p.Ct + tf,
                           bar);
             bytes += piece * D;
           }
@@ -1285,7 +1370,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
           uint32_t w[CW / 4];
           lds<CW>(st + rr * D + lcol * CW, w);
           const float sc = seg_at(st + kStageBytes + (rr / piece) * sstride,
-                                  t - rr % piece, t, p.sc_bf16);
+                                  vmis, t - rr % piece, t, p.sc_bf16);
           const int j = t / p.v_block;
 #pragma unroll
           for (int g = 0; g < G; ++g) {
@@ -1331,19 +1416,21 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   __syncthreads();
   const int* pvi = reinterpret_cast<const int*>(pv);
   const float kept_scale = 1.f / 127.f;
-  for (int i = threadIdx.x; i < gl * D; i += kThreads) {
-    const int g = i / D, dd = i % D;
+  // the partials' lanes outside the head's (its neighbours' bytes) are
+  // never read
+  for (int i = threadIdx.x; i < gl * d; i += kThreads) {
+    const int g = i / d, dd = i % d, k = g * D + sh + dd;
     float o;
     if (p.pv_int8) {
       int sum = 0;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += pvi[w * G * D + i];
+      for (int w = 0; w < kWarps; ++w) sum += pvi[w * G * D + k];
       o = __fmul_rn(static_cast<float>(sum),
                     __fmul_rn(misc[kWmax * G + g], kept_scale));
     } else {
       o = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) o += pv[w * G * D + i];
+      for (int w = 0; w < kWarps; ++w) o += pv[w * G * D + k];
     }
     if (do_app) {
       const float kept_new =
@@ -1471,7 +1558,7 @@ cudaError_t plane_map(const void* base, uint64_t rows, int F, int D, int box,
 cudaError_t plan_ring(Params& p, int B, int D) {
   const int k_rows = kStageBytes / D;
   const int u = p.pack_unit;
-  p.t_msb = tile_rows(p.klsb2 ? k_rows / 2 : k_rows, p.klsb2 ? u / 4 : u / 2);
+  p.t_msb = divisor_rows(p.klsb2 ? k_rows / 2 : k_rows, p.klsb2 ? u / 4 : u / 2);
   if (p.v_block >= k_rows) {
     p.tpv = tile_rows(k_rows, p.v_block);
     p.piece = p.tpv;
@@ -1482,9 +1569,13 @@ cudaError_t plan_ring(Params& p, int B, int D) {
     p.tpv = nb * p.v_block;
     p.piece = p.v_block;
   }
-  // a box lands 128-byte aligned: piece j at j*piece*D (the lsb2 half at
-  // t_msb*D is: t_msb is even, as Ct % 8 == 0 makes U/4 even)
+  // a box lands 128-byte aligned: piece j at j*piece*D, the lsb2 half at
+  // l2_off (t_msb may be odd: a half-unit of any even capacity's)
   p.v_box = p.piece * D % 128 == 0;
+  p.l2_off = (p.t_msb * D + 127) & ~127;
+  // rows of d < D lanes are copied only as boxes (the wrapper's instance
+  // choice keeps V pieces boxable)
+  if (p.d != D && !p.v_box) return cudaErrorInvalidValue;
   const uint64_t rows = static_cast<uint64_t>(B) * p.Ct;
   cudaError_t e = plane_map(p.kfull, rows, p.F, D, k_rows, &p.kf_map);
   if (e == cudaSuccess && p.kmsb)
@@ -1500,36 +1591,40 @@ cudaError_t plan_ring(Params& p, int B, int D) {
 
 // Returns cudaGetLastError() after the launch (0 = success); the wrapper
 // (spatten_tpu_torch/ops/fused_decode.py) validates shapes and flags.
-// The bulk copies and vector reads need 16-byte-aligned planes, scale and
-// importance columns (the wrapper keeps Ct a multiple of 8) and delta rows.
-// `G`: the <G, D> instance, which holds the model's group Hq / Hkv (its
-// smallest such G); `splane`: f32 [B, Hkv, G, C] for the score plane when
-// the wrapper finds that the instance's shared-memory plan with it would
-// pass 227 KB, else null.
+// The bulk copies and tensor maps need 16-byte-aligned plane bases and a
+// row stride F = Hkv * d that is a multiple of 16; scale, importance and
+// delta columns may start anywhere (their segments and vectors align
+// themselves).  `G`, `D`: the <G, D> instance, which holds the model's
+// group Hq / Hkv (its smallest such G) and head_dim d (the wrapper's
+// fused_decode.instance_dim); `splane`: f32 [B, Hkv, G, C] for the score
+// plane when the wrapper finds that the instance's shared-memory plan
+// with it would pass 227 KB, else null.
 extern "C" int spatten_fused_decode(
     const float* q, const float* k_new, const float* v_new, const int* lengths,
     int8_t* kfull, uint8_t* kmsb, uint8_t* klsb2, void* kscale, int8_t* vfull,
     uint8_t* vmsb, void* vscale, void* imp, const uint8_t* hmask,
     const int* qbits, const uint8_t* appmask, float* out, float* max_prob,
     uint8_t* need, uint8_t* keep_out, float* delta, float* mrow, float* drow,
-    float* splane, int B, int Hq, int Hkv, int G, int D, int C, int Ct,
+    float* splane, int B, int Hq, int Hkv, int G, int D, int d, int C, int Ct,
     int pack_unit, int layer,
     float sm_scale, float threshold, float ema, int quant, int requant,
     int keep_blocks, int v_block, int sc_bf16, int imp_bf16, int qq,
     int pv_int8, int probs_bf16, int presoftmax, int per_row, void* stream) {
-  if (Ct % 8 || C % 8 || misaligned(kfull) || misaligned(kmsb) ||
-      misaligned(klsb2) || misaligned(kscale) || misaligned(vfull) ||
-      misaligned(vmsb) || misaligned(vscale) || misaligned(imp) ||
-      misaligned(delta) || misaligned(splane))
+  if (Ct % 2 || C % 2 || (klsb2 && pack_unit % 4) || (Hkv * d) % 16 || misaligned(kfull) ||
+      misaligned(kmsb) || misaligned(klsb2) || misaligned(vfull) ||
+      misaligned(vmsb) || misaligned(splane))
     return static_cast<int>(cudaErrorMisalignedAddress);
   Params p{q, k_new, v_new, lengths, kfull, kmsb, klsb2, kscale, vfull, vmsb,
            vscale, imp, hmask, qbits, appmask, out, max_prob, need, keep_out,
-           delta, mrow, drow, splane, Hq, C, Ct, Hkv * D, Hkv, pack_unit, layer,
+           delta, mrow, drow, splane, Hq, C, Ct, Hkv * d, Hkv, pack_unit, layer,
            sm_scale, threshold, ema, quant, requant, keep_blocks, v_block,
            sc_bf16, imp_bf16, qq, pv_int8, probs_bf16, presoftmax, per_row};
   p.g = Hq / Hkv;
-  if (Hq % Hkv || p.g > G || (G > 1 && 2 * p.g <= G) ||
-      (D != 64 && D != 128 && D != 256))
+  p.d = d;
+  const int low = d & -d;                  // a box row's lead-in is at
+  const int lead = low < 16 ? 16 - low : 0;   // most 16 - gcd(d, 16)
+  if (Hq % Hkv || p.g > G || (G > 1 && 2 * p.g <= G) || d < 1 ||
+      d + lead > D || (D != 64 && D != 128 && D != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = plan_ring(p, B, D);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -48,6 +48,38 @@ class DecodeState(NamedTuple):
         return DecodeState(cache, *(c(x) for x in self[1:]))
 
 
+def write_slot(state: DecodeState, sub: DecodeState, slot: int
+               ) -> DecodeState:
+    """Scatter a batch-1 sub-state into batch slot ``slot`` of ``state``,
+    in place (``state`` is consumed; ``sub`` is read).
+
+    Continuous batching prefills a newly admitted request in its own
+    batch-1 state, then writes it into a free slot of the serving arena:
+    every cache plane, the importance accumulator and both length
+    tensors.  The head mask is global (per layer), not per slot, and is
+    left untouched, as in the JAX package."""
+    for big, small in zip(state.cache.k + state.cache.v,
+                          sub.cache.k + sub.cache.v):
+        if big is not None:
+            big[:, slot].copy_(small[:, 0])        # leaves are [L, B, ...]
+    state.importance[:, slot].copy_(sub.importance[:, 0])
+    state.lengths[slot] = sub.lengths[0]
+    state.layer_lengths[:, slot].copy_(sub.layer_lengths[:, 0])
+    return state
+
+
+def with_lengths(state: DecodeState, lengths) -> DecodeState:
+    """Set nominal lengths and broadcast them to every layer (the uniform
+    pre-cascade situation; tests and warm-state builders use this)."""
+    lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                              device=state.device)
+    n_layers = state.layer_lengths.shape[0]
+    return state._replace(
+        lengths=lengths,
+        layer_lengths=lengths[None].expand(
+            (n_layers,) + tuple(lengths.shape)).clone())
+
+
 def init_state(cfg: SpAttenConfig, batch: int | None = None,
                device: str | torch.device = "cuda") -> DecodeState:
     """An empty decode state on ``device`` (raises when ``device`` is CUDA

@@ -298,6 +298,58 @@ def _to(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
+class _CpuReplay:
+    """While active, ``transformer.forward`` first replays each call on
+    the CPU from a copy of the state it was given (``params``: f32, on the
+    CPU), then runs it; ``got`` / ``want`` collect the card's and the
+    CPU's last-token logits [B, V] and ``shapes`` the token shapes."""
+
+    def __init__(self, params):
+        from spatten_tpu_torch.models import transformer as tr
+        self.tr, self.params = tr, params
+        self.run_forward = tr.forward
+        self.got, self.want, self.shapes = [], [], []
+
+    def forward(self, p, cfg_, state, tokens, rope_tables=None,
+                head_compact=None):
+        cpu = torch.device("cpu")
+        ref = self.run_forward(self.params, cfg_, state.clone(cpu),
+                               tokens.to(cpu), _to(rope_tables, cpu),
+                               _to(head_compact, cpu))[0]
+        out = self.run_forward(p, cfg_, state, tokens, rope_tables,
+                               head_compact)
+        self.got.append(out[0][:, -1].to(cpu))
+        self.want.append(ref[:, -1])
+        self.shapes.append(tuple(tokens.shape))
+        return out
+
+    def __enter__(self):
+        self.tr.forward = self.forward
+        return self
+
+    def __exit__(self, *exc):
+        self.tr.forward = self.run_forward
+
+    def errors(self) -> list:
+        """(|card - CPU| logit max, call index, token shape) of every call,
+        largest first (each call's batch may differ: admissions prefill
+        at batch 1)."""
+        out = []
+        for i, (g, w) in enumerate(zip(self.got, self.want)):
+            check(bool(torch.isfinite(g).all()), "non-finite logits")
+            out.append((float((g - w).abs().max()), i, self.shapes[i]))
+        return sorted(out, reverse=True)
+
+    def logit_error(self) -> float:
+        """The largest error over every call, within
+        ``CPU_REPLAY_LOGIT_TOL``."""
+        errs = self.errors()
+        err = errs[0][0] if errs else 0.0
+        check(err <= CPU_REPLAY_LOGIT_TOL, f"logits differ from the CPU's "
+              f"by {err:.3e} (worst calls {errs[:5]})")
+        return err
+
+
 def check_against_cpu(cfg, params, prompt, new_tokens: int,
                       device: torch.device) -> dict:
     """Drive ``generate`` once on ``device`` and hold every forward call of
@@ -313,26 +365,12 @@ def check_against_cpu(cfg, params, prompt, new_tokens: int,
     from spatten_tpu_torch.models import transformer as tr
     from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
     from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
-    cpu = torch.device("cpu")
     prompt = torch.as_tensor(prompt, dtype=torch.int64)
     params_dev = _to(params, device)
-    run_forward, got, want = tr.forward, [], []
-
-    def forward(p, cfg_, state, tokens, rope_tables=None, head_compact=None):
-        ref = run_forward(params, cfg_, state.clone(cpu), tokens.to(cpu),
-                          _to(rope_tables, cpu), _to(head_compact, cpu))[0]
-        out = run_forward(p, cfg_, state, tokens, rope_tables, head_compact)
-        got.append(out[0][:, -1].to(cpu))
-        want.append(ref[:, -1])
-        return out
-
     fused_decode_attention.launches = 0
     gather_compact_rows.launches = 0
-    tr.forward = forward
-    try:
+    with _CpuReplay(params) as rep:
         res = gen.generate(params_dev, cfg, prompt, new_tokens, device=device)
-    finally:
-        tr.forward = run_forward
     k1, k2 = fused_decode_attention.launches, gather_compact_rows.launches
     on_kernel = device.type == "cuda" and tr.decode_uses_kernel(cfg, "cuda")
     expect = cfg.model.num_layers * new_tokens if on_kernel else 0
@@ -340,22 +378,81 @@ def check_against_cpu(cfg, params, prompt, new_tokens: int,
     tokens = res.tokens.cpu()
     check(tuple(tokens.shape) == (prompt.shape[0], new_tokens),
           "token shape")
-    got, want = torch.stack(got), torch.stack(want)      # [calls, B, V]
-    check(bool(torch.isfinite(got).all()), "non-finite logits")
-    err = float((got - want).abs().max())
-    check(err <= CPU_REPLAY_LOGIT_TOL, f"logits differ from the CPU's by "
-          f"{err:.3e}")
+    err = rep.logit_error()
     # the tokens come from the prefill's last logits and every decode step
     # but the last
-    chosen = want[-new_tokens - 1:-1]
+    chosen = torch.stack(rep.want)[-new_tokens - 1:-1]
     clear = _clear(chosen)
     check(bool((chosen.argmax(-1) == tokens.T)[clear].all()),
           "greedy tokens differ from the CPU's where its top-2 margin is "
           "clear")
-    return dict(k1=k1, k2=k2, calls=got.shape[0], max_logit_err=err,
+    return dict(k1=k1, k2=k2, calls=len(rep.got), max_logit_err=err,
                 clear_share=float(clear.float().mean()),
                 prune_points=len(res.pruned_layers),
                 requant_events=int(res.requant_events))
+
+
+def check_server_against_cpu(cfg, params, requests, device: torch.device
+                             ) -> dict:
+    """Serve ``requests`` ((prompt, max_new_tokens), all submitted at
+    once) with ``SpAttenServer`` on ``device`` and hold every forward call
+    (each admission's prefill chunks at batch 1, each lockstep decode
+    tick of the arena) against its replay on the CPU: the single-token
+    calls (K1's: every decode tick, and a prompt's one-token last chunk)
+    within ``CPU_REPLAY_LOGIT_TOL``, and the card's greedy token (each
+    request's next token) equal to the CPU's argmax wherever the CPU's
+    top-2 margin is clear, in every call.  The prefill chunks' logits are
+    reported, not bounded: a batch-1 chunk quantizes up to
+    ``prefill_chunk`` new rows per layer, each of whose int8 roundings the
+    card's and the CPU's last-bit projection differences may flip at half
+    a step (one step moves a logit by ~1e-3).  Every request
+    finishes with exactly its budget and every slot ends free; K1
+    launches once per layer and single-token forward (each decode tick,
+    and a prompt's one-token last chunk) where the card's gate admits the
+    configuration.  ``params``: f32, on the CPU."""
+    from spatten_tpu_torch.engine.server import SpAttenServer
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    srv = SpAttenServer(_to(params, device), cfg, device=device)
+    budget = {srv.submit(p, n): n for p, n in requests}
+    fused_decode_attention.launches = 0
+    gather_compact_rows.launches = 0
+    with _CpuReplay(params) as rep:
+        done = srv.run_to_completion()
+    k1, k2 = fused_decode_attention.launches, gather_compact_rows.launches
+    ticks = sum(shape == (srv.batch, 1) for shape in rep.shapes)
+    # every single-token forward goes through K1: the decode ticks, and a
+    # prompt's last prefill chunk where it is one token long
+    steps = sum(shape[1] == 1 for shape in rep.shapes)
+    on_kernel = device.type == "cuda" and tr.decode_uses_kernel(cfg, "cuda")
+    expect = cfg.model.num_layers * steps if on_kernel else 0
+    check(k1 == expect, f"K1 launched {k1} times, not {expect}")
+    check(sorted(r.request_id for r in done) == sorted(budget),
+          "not every request finished")
+    check(all(len(r.generated) == budget[r.request_id] for r in done),
+          "a request did not emit exactly its budget")
+    check(sorted(srv.free_slots) == list(range(srv.batch)),
+          f"slots {srv.free_slots} are not all free")
+    errs = rep.errors()
+    worst = errs[:5]
+    err = max((e for e, _, shape in errs if shape[1] == 1), default=0.0)
+    check(err <= CPU_REPLAY_LOGIT_TOL, f"single-token calls' logits differ "
+          f"from the CPU's by {err:.3e} (worst calls {worst})")
+    prefill_err = max((e for e, _, shape in errs if shape[1] > 1),
+                      default=0.0)
+    clear = same = 0
+    for g, w in zip(rep.got, rep.want):
+        c = _clear(w[None])[0]
+        clear += int(c.sum())
+        same += int((g.argmax(-1) == w.argmax(-1))[c].sum())
+    check(same == clear, f"{clear - same} greedy tokens differ from the "
+          "CPU's where its top-2 margin is clear")
+    return dict(k1=k1, k2=k2, ticks=ticks, steps=steps, calls=len(rep.got),
+                max_logit_err=err, prefill_logit_err=prefill_err,
+                worst_calls=worst, clear_share=clear / sum(
+                    w.shape[0] for w in rep.want),
+                order=[r.request_id for r in done])
 
 
 def _clear(logits: torch.Tensor) -> torch.Tensor:

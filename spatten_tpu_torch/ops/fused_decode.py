@@ -26,9 +26,11 @@ term uses the new row's f32 scales while the stored scale columns hold
 their (possibly bf16) rounding.  The wrapper runs the plain version only
 for CPU tensors; for CUDA tensors it launches the kernel or raises.
 ``fused_decode_attention.launches`` counts kernel launches.  The kernel
-has instances for GQA groups 1, 2, 4 and 8; a group of 3 runs in the
-group-4 instance and 5-7 in the group-8 one (``instance_group``), whose
-extra rows are padding that the kernel skips.
+has instances for GQA groups 1, 2, 4 and 8 and head dims 64, 128 and 256;
+a group of 3 runs in the group-4 instance and 5-7 in the group-8 one
+(``instance_group``), whose extra rows are padding that the kernel skips,
+and a head_dim d in the smallest instance dim D >= d (``instance_dim``),
+whose lanes past d it reads and never uses.
 """
 
 from __future__ import annotations
@@ -49,8 +51,7 @@ _STAGES = 4                 # the CUDA kernel's tile ring: stages of 16 KB
 _STAGE_STRIDE = 16384 + 2304  # of plane rows + their scale segments, and
 _BARRIER = 8                # one mbarrier each
 _GROUPS = (1, 2, 4, 8)      # the CUDA kernel's <G, D> instance groups
-_HEAD_DIMS = (64, 128, 256)
-_CAP_UNIT = 8               # 16-byte scale and importance vectors
+_HEAD_DIMS = (64, 128, 256)  # the CUDA kernel's instance head dims
 _META_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -327,16 +328,44 @@ def instance_group(group: int) -> int:
     return next(g for g in _GROUPS if g >= group)
 
 
+def _lead_in(head_dim: int) -> int:
+    """The most bytes before a head's first lane in a 16-byte-aligned box
+    row: 16 - gcd(head_dim, 16), or 0 for a multiple of 16."""
+    low = head_dim & -head_dim
+    return 16 - low if low < 16 else 0
+
+
+def instance_dim(head_dim: int) -> int:
+    """The ``<G, D>`` instance dim that runs a model's head_dim: 64 for 64,
+    else the smallest of 128 and 256 that holds its lanes after the box's
+    lead-in (K1 reads a head's rows in boxes that start on the 16-byte
+    address at or before its first lane: 100 runs in 128, 124 in 256).
+    A head_dim below the dim is read only in boxes, and a V piece of an
+    odd number of 64-byte rows would not land 128-byte aligned, so no
+    head_dim but 64 runs in 64.  ValueError past 256 lanes."""
+    need = head_dim + _lead_in(head_dim)
+    if head_dim < 1 or need > _HEAD_DIMS[-1]:
+        raise ValueError(f"head_dim {head_dim}: K1's instances hold head "
+                         f"dims up to {_HEAD_DIMS[-1]} lanes")
+    if head_dim == _HEAD_DIMS[0]:
+        return head_dim
+    return next(x for x in _HEAD_DIMS[1:] if x >= need)
+
+
 def smem_bytes(group: int, head_dim: int, cap: int, v_block: int,
                in_smem: bool = True) -> int:
-    """Shared memory of one K1 CTA of instance group ``group`` (one of
-    ``_GROUPS``; see ``instance_group``), mirroring ``smem_bytes`` in
+    """Shared memory of one K1 CTA of instance ``<group, head_dim>``
+    (``group`` one of ``_GROUPS``, ``head_dim`` one of ``_HEAD_DIMS``; see
+    ``instance_group`` and ``instance_dim``), mirroring ``smem_bytes`` in
     ``csrc/fused_decode.cu``: the tile ring, the [G, cap] score plane
     (unless it lies in device memory), the per-warp P·V partials, the
     V-block masses, scalars, the kept-block list and the keep masks."""
     if group not in _GROUPS:
         raise ValueError(f"group {group} is not a K1 instance group "
                          f"{_GROUPS}")
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} is not a K1 instance dim "
+                         f"{_HEAD_DIMS}")
     nvb = cap // v_block
     return (_STAGES * (_STAGE_STRIDE + _BARRIER)
             + 4 * (group * cap * in_smem + _WARPS * group * head_dim
@@ -347,7 +376,7 @@ def smem_bytes(group: int, head_dim: int, cap: int, v_block: int,
 
 def scores_in_smem(group: int, head_dim: int, cap: int, v_block: int
                    ) -> bool:
-    """Whether K1 instance group ``group`` keeps its [G, cap] score plane
+    """Whether K1 instance ``<group, head_dim>`` keeps its [G, cap] score plane
     in shared memory: where the whole plan fits the card's 227 KB per
     block.  Past that the wrapper gives the kernel a plane in device
     memory."""
@@ -379,24 +408,21 @@ def k1_shape_error(group: int, head_dim: int, cap_total: int, rung: int,
                    v_block: int) -> Optional[str]:
     """Why K1 on the card does not take a call of this shape, or None when
     it does: a GQA group (the model's) past the largest instance, a
-    head_dim the kernel has no instance for, a stored capacity or rung
-    off the 16-byte vectors, or a shared-memory plan past 227 KB even
+    head_dim past the largest, or a shared-memory plan past 227 KB even
     with the score plane in device memory (the plan of the instance that
-    runs the group).  The wrapper raises ``NotImplementedError`` with
-    this message."""
+    runs the group and head_dim).  Any stored capacity and rung the
+    wrapper's layout rules admit run.  The wrapper raises
+    ``NotImplementedError`` with this message."""
     if not 1 <= group <= _GROUPS[-1]:
         return (f"K1 on CUDA: GQA group {group} (the kernel's instances "
                 f"hold groups 1 to {_GROUPS[-1]}; no configuration the "
                 "port drives has a larger one)")
-    if head_dim not in _HEAD_DIMS:
-        return (f"K1 on CUDA: head_dim {head_dim} (supported: "
-                "64/128/256)")
-    if cap_total % _CAP_UNIT or rung % _CAP_UNIT:
-        return ("K1 on CUDA: the stored capacity and the rung must be "
-                "multiples of 8 (16-byte scale and importance vectors)")
-    inst = instance_group(group)
-    return _smem_error(inst, head_dim, rung, v_block,
-                       scores_in_smem(inst, head_dim, rung, v_block))
+    if head_dim < 1 or head_dim + _lead_in(head_dim) > _HEAD_DIMS[-1]:
+        return (f"K1 on CUDA: head_dim {head_dim} (the kernel's instances "
+                f"hold head dims up to {_HEAD_DIMS[-1]} lanes)")
+    inst, dim = instance_group(group), instance_dim(head_dim)
+    return _smem_error(inst, dim, rung, v_block,
+                       scores_in_smem(inst, dim, rung, v_block))
 
 
 def fused_decode_attention(
@@ -509,10 +535,16 @@ def fused_decode_attention(
         raise ValueError("K and V scales must share one dtype")
     if cap % v_block_size or cap % 2:
         raise ValueError("capacity must be even and a multiple of v_block")
+    if has_lsb2 and qz.pack_unit(cap_total) % 4:
+        raise ValueError("the 2-bit plane needs a pack unit of 4k tokens")
+    if (hkv * d) % 16:
+        raise ValueError(f"K1 needs a lane width Hkv * D ({hkv * d}) that "
+                         "is a multiple of 16 bytes")
     shape_error = k1_shape_error(group, d, cap_total, cap, v_block_size)
     if shape_error:
         raise NotImplementedError(shape_error)
     inst = instance_group(group)            # the <G, D> instance
+    dim = instance_dim(d)
     nvb = cap // v_block_size
 
     dev = q.device
@@ -548,7 +580,7 @@ def fused_decode_attention(
     # the score plane, where the instance's shared-memory plan cannot hold
     # it: one [G, cap] slice per CTA, padding rows included
     splane = None
-    if not scores_in_smem(inst, d, cap, v_block_size):
+    if not scores_in_smem(inst, dim, cap, v_block_size):
         splane = torch.empty((b, hkv, inst, cap), dtype=torch.float32,
                              device=dev)
     m_rows = den_rows = None
@@ -571,7 +603,7 @@ def fused_decode_attention(
         kernels.ptr(qbits), kernels.ptr(appm), out.data_ptr(),
         max_prob.data_ptr(), need.data_ptr(), kernels.ptr(keep_out),
         kernels.ptr(delta), kernels.ptr(m_rows), kernels.ptr(den_rows),
-        kernels.ptr(splane), b, hq, hkv, inst, d, cap, cap_total,
+        kernels.ptr(splane), b, hq, hkv, inst, dim, d, cap, cap_total,
         qz.pack_unit(cap_total),
         0 if layer is None else int(layer),
         float(sm_scale), float(requant_threshold), float(importance_ema),

@@ -20,12 +20,15 @@ groups 2 and 3; P1-P5 of the launch probe equal their plain versions (P2
 over the whole block, P3 on random bytes and on planes of -128 and 127,
 P4 at its int8 wrap edges, P5 at negative and large scalars) and refuse
 misaligned views.  K1 with its score plane in device memory (GQA 8 at
-4096 tokens, GQA 4 at 16384) matches its plain version.  ``generate``
+4096 tokens, GQA 4 at 16384) matches its plain version, and so does K1
+at head dims off its instances (100, 80, 96) and at stored capacities
+and rungs off a multiple of 8 (1020; 3000 at the rung 1500).  ``generate``
 runs on the card for a configuration that the gate sends off K1
 (``chip_smoke.gate_configs()``), for one whose K1 score plane lies in
 device memory (``chip_smoke.device_scores_configs()``) and for a GQA-3
 model (``chip_smoke.group_configs()``), each call held against its CPU
-replay.  The rules and tolerances are those of
+replay, and so does a two-request ``SpAttenServer`` run on the GQA-3
+model.  The rules and tolerances are those of
 ``spatten_tpu_torch/kernel_checks.py``, shared with ``chip_smoke.py``.
 """
 
@@ -462,6 +465,22 @@ def test_group3_generate_through_k1(dev, name):
     assert res["prune_points"] > 0
 
 
+@pytest.mark.parametrize("name", list(chip_smoke.group_configs()))
+def test_server_two_requests_through_k1(dev, name):
+    """``SpAttenServer`` on the card with two requests (the GQA-3 model,
+    two slots, prompts that prune in prefill): every forward call within
+    1e-3 of its CPU replay, tokens equal where the top-2 margin is clear,
+    budgets met, slots free, K1 once per layer and decode tick."""
+    cfg, _, _, _ = chip_smoke.group_configs()[name]
+    params = tr.init_params(cfg.model, 0, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(0)
+    requests = [(rng.integers(0, cfg.model.vocab_size, 72), 12),
+                (rng.integers(0, cfg.model.vocab_size, 90), 7)]
+    res = kc.check_server_against_cpu(cfg, params, requests, dev)
+    assert res["k1"] == cfg.model.num_layers * res["steps"] > 0
+    assert res["ticks"] > 0
+
+
 @pytest.mark.parametrize("name", list(chip_smoke.device_scores_configs()))
 def test_long_window_generate_through_k1(dev, name):
     """``generate`` on a GQA-8 model at capacity 4096, whose K1 score plane
@@ -524,6 +543,71 @@ def test_k1_groups_in_larger_instances_match_plain(dev, group, placement):
                    v_keep=(cap // 4, cap // 4), head_mask=hm, **flags)
     assert res["dead_groups"] == (len(lengths) if hkv > 2 else 0)
     if not flags:
+        assert res["max_abs_err"] <= 1e-4
+
+
+# name -> (query heads, kv heads, head_dim, capacity, lengths): head dims
+# K1 runs in a larger instance dim (100, 80 and 96 in <G, 128>, whose
+# lanes past d hold the next head's bytes)
+HEAD_DIM_CASES = {
+    "OpenLLaMA-3B 100 (4 over 4)": (4, 4, 100, 256, [256, 129, 40, 1]),
+    "80 (4 over 2, 6-bit)": (4, 2, 80, 256, [256, 200, 33, 2]),
+    "96 (GQA 3, 6 over 2)": (6, 2, 96, 256, [256, 129, 64, 1]),
+}
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("case", list(HEAD_DIM_CASES))
+def test_k1_head_dims_match_plain(dev, case, bf16):
+    """K1 at head dims off its instances under the serving flags (bf16
+    metadata) or f32 metadata (out within 1e-4), a partly alive group
+    among them; every plane byte (the neighbouring heads' lanes
+    included) equal to the plain version's."""
+    hq, hkv, d, cap, lengths = HEAD_DIM_CASES[case]
+    assert fd.instance_dim(d) == 128
+    cfg = serving_small(cap=cap, hq=hq, hkv=hkv, d=d, bf16=bf16,
+                        layer_bits=(4, 6) if "6-bit" in case else None)
+    hm = torch.ones(hq, dtype=torch.bool)
+    hm[-1] = False
+    g = torch.Generator(device=dev).manual_seed(600 + d + hq)
+    flags = (dict(quantize_queries=True, pv_int8=True, probs_bf16=True)
+             if bf16 else {})
+    res = run_pair(dev, cfg, g, lengths, requant=True, v_keep=(64, 64),
+                   head_mask=hm.to(dev), **flags)
+    if not bf16:
+        assert res["max_abs_err"] <= 1e-4
+
+
+# name -> (capacity, rung, v_block, lengths, bf16 metadata, layer bits):
+# stored capacities and rungs off a multiple of 8 (pack units 1020 and
+# 1500; columns of the scale and importance planes off 16 bytes)
+CAPACITY_CASES = {
+    "1020, v_block 4, bf16": (1020, 1020, 4, [1020, 1019, 511, 2], True,
+                              None),
+    "1020, v_block 4, f32": (1020, 1020, 4, [1020, 700, 509, 1], False,
+                             None),
+    "3000 at rung 1500, 6-bit": (3000, 1500, 60, [1500, 1499, 751, 3],
+                                 True, (4, 6)),
+}
+
+
+@pytest.mark.parametrize("case", list(CAPACITY_CASES))
+def test_k1_capacity_off_8_matches_plain(dev, case):
+    """K1 at a stored capacity and rung off a multiple of 8, appending in
+    the last rows of the plane and of its half-units."""
+    cap, rung, vb, lengths, bf16, bits = CAPACITY_CASES[case]
+    assert fd.k1_shape_error(2, 128, cap, rung, vb) is None
+    cfg = serving_small(cap=cap, hq=4, hkv=2, d=128, bf16=bf16,
+                        layer_bits=bits)
+    cfg = dataclasses.replace(cfg, pruning=dataclasses.replace(
+        cfg.pruning, v_block_size=vb))
+    g = torch.Generator(device=dev).manual_seed(700 + cap + vb)
+    flags = dict(cap_override=rung if rung < cap else None)
+    if bf16:
+        flags.update(quantize_queries=True, pv_int8=True, probs_bf16=True)
+    res = run_pair(dev, cfg, g, lengths, requant=True,
+                   v_keep=(rung // 4, rung // 4), **flags)
+    if not bf16:
         assert res["max_abs_err"] <= 1e-4
 
 

@@ -13,8 +13,9 @@ memory, as their [G, C] planes overflow shared memory), the serving,
 parity and Llama-3.2-3B configurations of ``chip_smoke.py`` and its
 GQA-3 gate model (on K1, plane in shared memory).  A GQA group of 3, 5,
 6 or 7 runs in the kernel's <4, D> or <8, D> instance, whose
-shared-memory plan decides where the score plane lies; a head_dim the
-kernel has no instance for (96) still raises.  The tiny model then runs
+shared-memory plan decides where the score plane lies; a head_dim runs in
+the smallest instance dim that holds it, and one past 256 (320) still
+raises.  The tiny model then runs
 the path the card's gate picks for it (``use_pallas=False``) against the
 JAX package's jnp path: greedy tokens, layer lengths and requant events
 exact.
@@ -116,8 +117,9 @@ def test_gate_matches_the_wrappers_limits(monkeypatch):
     patched, the launch replaced by a recorder) at the stored capacity and
     at each rung.  A shape the gate sends to K1 reaches the launch, with a
     score plane in device memory exactly where shared memory cannot hold
-    it; a shape it sends elsewhere raises NotImplementedError at one of
-    them."""
+    it.  K1 takes every head_dim up to 256 and every even capacity, so
+    the wrapper refuses none of these shapes: the tiny model, which the
+    gate sends elsewhere, would launch <2, 64> with 8 live lanes."""
     launched = []
     monkeypatch.setattr(fd.kernels, "launch",
                         lambda name, *args: launched.append((name, args)))
@@ -155,13 +157,14 @@ def test_gate_matches_the_wrappers_limits(monkeypatch):
             [(kernel, args)] = launched[before:]
             assert kernel == "fused_decode", (name, rung)
             # the score plane's pointer (null: in shared memory), by the
-            # plan of the instance that runs the group
+            # plan of the instance that runs the group and head_dim
             in_smem = fd.scores_in_smem(fd.instance_group(m.q_heads_per_kv),
-                                        m.head_dim, rung, vb)
+                                        fd.instance_dim(m.head_dim),
+                                        rung, vb)
             assert (args[22] is None) is in_smem, (name, rung)
             if rung == cap:
                 assert in_smem is not device_scores, name
-        assert (not refused) is on_card, (name, refused)
+        assert not refused, (name, refused)
     fd.fused_decode_attention.launches = count
 
 
@@ -170,7 +173,9 @@ def test_gate_limits_are_the_smem_plans():
     16384 pass 227 KB with the score plane in shared memory and fit with
     it in device memory, so K1 takes them; the main path's instance keeps
     it in shared memory at both serving rungs.  K1 refuses a plan that
-    overflows even without the plane, and the shapes it has no code for."""
+    overflows even without the plane, and the head dims it has no
+    instance for; head dims and capacities it runs (head_dim 8 in 64,
+    100 in 128; 1020 tokens at v_block 4) pass."""
     assert fd.smem_bytes(8, 128, 4096, 64) == 241_804
     assert fd.smem_bytes(4, 128, 16384, 64) == 359_884
     assert fd.smem_bytes(8, 128, 4096, 64, in_smem=False) == 110_732
@@ -183,8 +188,10 @@ def test_gate_limits_are_the_smem_plans():
         assert fd.k1_shape_error(1, 128, 4096, rung, 64) is None
     assert "score plane in device memory" in fd.k1_shape_error(
         8, 128, 262144, 262144, 64)
-    assert "head_dim 8" in fd.k1_shape_error(2, 8, 64, 64, 8)
-    assert "multiples of 8" in fd.k1_shape_error(1, 128, 1020, 1020, 4)
+    assert "head_dim 300" in fd.k1_shape_error(2, 300, 64, 64, 8)
+    assert fd.k1_shape_error(2, 8, 64, 64, 8) is None
+    assert fd.k1_shape_error(1, 100, 2048, 2048, 64) is None
+    assert fd.k1_shape_error(1, 128, 1020, 1020, 4) is None
 
 
 def one_layer(hq, hkv, d, cap, vb):
@@ -253,8 +260,8 @@ def test_group_runs_in_a_larger_instance(monkeypatch, group):
     assert own_plan <= 227 * 1024
     [(kernel, args)] = card_branch(monkeypatch, cfg, group)
     assert kernel == "fused_decode"
-    b, hq_arg, hkv_arg, inst_arg, d_arg = args[23:28]
-    assert (b, hq_arg, hkv_arg, d_arg) == (1, hq, hkv, d)
+    b, hq_arg, hkv_arg, inst_arg, dim_arg, d_arg = args[23:29]
+    assert (b, hq_arg, hkv_arg, dim_arg, d_arg) == (1, hq, hkv, d, d)
     assert hq_arg // hkv_arg == group and inst_arg == inst
     assert args[22] is not None          # the device-memory score plane
     # at a small window the instance's plan keeps it in shared memory
@@ -275,12 +282,12 @@ def test_group_past_the_instances_raises():
 
 
 def test_admitted_head_dim_k1_lacks_raises(monkeypatch):
-    """A shape the gate admits (lane width 4 x 96 = 384) but K1 has no
-    instance for (head_dim 96) raises NotImplementedError on the card
-    branch rather than leaving the kernel."""
-    cfg = one_layer(8, 4, 96, 64, 8)
+    """A shape the gate admits (lane width 4 x 320 = 1280) but K1 has no
+    instance for (head_dim 320, past 256) raises NotImplementedError on
+    the card branch rather than leaving the kernel."""
+    cfg = one_layer(8, 4, 320, 64, 8)
     assert tr.decode_uses_kernel(cfg, "cuda")
-    with pytest.raises(NotImplementedError, match="head_dim 96"):
+    with pytest.raises(NotImplementedError, match="head_dim 320"):
         card_branch(monkeypatch, cfg, 2)
 
 

@@ -21,8 +21,8 @@ CU = Path(fd.__file__).resolve().parent.parent / "csrc" / "fused_decode.cu"
 
 
 def _cfg_shape(cfg, rung):
-    m = cfg.model
-    return (m.q_heads_per_kv, m.head_dim, rung, cfg.pruning.v_block_size)
+    m, vb = cfg.model, cfg.pruning.v_block_size
+    return (fd.instance_group(m.q_heads_per_kv), fd.instance_dim(m.head_dim), rung, vb)
 
 
 # name -> (group, head_dim, rung, v_block)
@@ -45,6 +45,19 @@ LAUNCHES = {
     "card test <4, 128>": (4, 128, 256, 16),
     "card test <8, 64>": (8, 64, 256, 16),
     "card test GQA 4 over 2048": (4, 128, 2048, 16),
+    # head_dim 100 in <1, 128>; Llama-3.2-3B's group 3 in <4, 128>
+    "OpenLLaMA-3B 2048": _cfg_shape(chip_smoke.openllama_3b_config(2), 2048),
+    "Llama-3.2-3B rung 2048": _cfg_shape(chip_smoke.llama32_3b_config(2),
+                                         2048),
+    "Llama-3.2-3B rung 4096": _cfg_shape(chip_smoke.llama32_3b_config(2),
+                                         4096),
+    # chip_smoke.phase_k1_head_dims / phase_k1_capacity (shared plane)
+    **{f"phase_k1_head_dims {name}": (
+        fd.instance_group(hq // hkv), fd.instance_dim(d), cap, 64)
+       for name, (hq, hkv, d, cap, _, _) in chip_smoke.HEAD_DIM_CASES.items()
+       if cap < 16384},
+    **{f"phase_k1_capacity {name}": (1, 128, rung, vb)
+       for name, (_, rung, vb, *_) in chip_smoke.CAPACITY_CASES.items()},
 }
 
 
@@ -56,6 +69,7 @@ def test_k1_smem_fits(name):
     assert 0 < smem <= 227 * 1024
     # the ring and its barriers come on top of the score plane
     assert smem > fd._STAGES * fd._STAGE_STRIDE + 4 * group * rung
+    assert fd.scores_in_smem(group, d, rung, vb)
 
 
 def test_k1_serving_fits_two_ctas_per_sm():
