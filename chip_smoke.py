@@ -22,14 +22,21 @@ failures is caught:
    instances (``phase_k1_groups``: head_dim 64 and 128, the score plane
    in shared and in device memory, a partly head-masked group); then K1
    with its score plane in device memory (``phase_k1_device_scores``:
-   Llama-2-70B's attention at capacity 4096, Llama-3-8B's at 16384);
+   Llama-2-70B's attention at capacity 4096, Llama-3-8B's at 16384); K1
+   at GQA groups past 8, which it runs in <8, 128> as chunks of 8 rows
+   (``phase_k1_wide_groups``: Llama-3.1-405B's 128 query heads over 8 kv
+   heads at both rungs, and in presoftmax delta mode; group 12 at 6
+   bits); K1 with its per-V-block arrays in device memory too
+   (``phase_k1_long_windows``: 1 kv head of group 8 at 65,536 tokens, 2
+   kv heads at 131,072; f32 and bf16 metadata, every head requantizing
+   and none);
    rules and tolerances in ``spatten_tpu_torch/kernel_checks.py``.  K1's times (``time_k1``)
    are device times per call from CUDA events over back-to-back calls
    that walk the stacked layers, so each call finds its planes cold in
    L2 as decode does; the kernel streams them through its shared-memory
    tile ring (``csrc/fused_decode.cu``), whose registers and spills per
    <G, D, score plane in shared memory> instance phase 1 prints
-   (``<1, 128, true>``, the main path's, must not spill);
+   (no instance may spill);
 3. K2 (prune compaction) vs its plain version at both slices' shapes;
 4. split-K decode (``phase_split_k``): 4 shards of 2048 tokens on the
    card, MHA and GQA, one K1 launch per shard against one unsharded K1
@@ -46,9 +53,10 @@ failures is caught:
    tiny model, which the gate sends off K1 (``gate_configs()``: K1's
    count stays 0), on a GQA-8 model at capacity 4096, whose K1 score
    plane lies in device memory (``device_scores_configs()``), and on a
-   GQA-3 model (``group_configs()``: K1's <4, 64> instance with 3 live
-   rows), K1 launching once per layer and step; each call held against
-   its replay on the CPU;
+   GQA-3 model and a GQA-16 model (``group_configs()``: K1's <4, 64>
+   instance with 3 live rows, and <8, 128> in two chunks), K1 launching
+   once per layer and step; each call held against its replay on the
+   CPU;
    then the paths, each with its launch counts set to 0 just before it
    and read just after:
    a. the first slice: ``generate`` at Llama-2-7B width, depth cut to 8,
@@ -74,13 +82,29 @@ failures is caught:
       random bf16 weights) under the serving settings, batch 8, capacity
       4096, prompt 3072, 64 new tokens, K1 in <4, 128> with 3 live rows;
       its first decode window again through the plain versions;
+   g. the server (``phase_server``) and the workload trace
+      (``phase_trace``);
+   h. ``phase_supervised``: ``engine.supervisor.generate_supervised`` at
+      Llama-2-7B width, depth 8, batch 2, prompt 3072, 64 tokens in
+      windows of 16, uninterrupted, with a health probe that fails once
+      and resumed from disk in a fresh call: the three token streams
+      equal exactly; snapshot bytes and seconds printed; its first
+      window against the plain versions;
+   i. ``phase_cli``: ``run_spatten_gpu.py`` in a subprocess on a random
+      Llama-2-7B-width checkpoint (4 layers) with two turns of token ids:
+      replies equal an in-process ``generate`` (its launches counted), a
+      trace and a summary; the first window against the plain versions;
+   j. ``phase_debug_hook``: ``generate`` under ``SPATTEN_DEBUG=1`` (the
+      first prefill chunk under the float checks; launches counted)
+      equal to the run without it;
+   every phase's seconds are printed;
 7. a ``kernels`` JSON line: per kernel its launches on the serving path
    (the probes: 0, with their own phase's count beside), error, time on
    the card (``ms``), its plain version's (``plain_ms``), the least time
    the card could take (``bound_ms``, with ``bound_by``) and a PyTorch
    library call's time where one computes the same function; K1's
-   4096-rung, parity, split-K and Llama-3.2-3B numbers and the first
-   slice's ride along in extra fields;
+   4096-rung, parity, split-K, Llama-3.2-3B, group-16 and long-window
+   numbers and the first slice's ride along in extra fields;
 8. the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -102,6 +126,7 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12                   # H100 SXM f32 outside the tensor cores
+INT8_OPS = 1979e12                  # H100 SXM int8 (tensor cores, dense)
 # Kernels vs plain versions on the card, teacher-forced (the same tokens
 # fed to both).  A V-block keep decision whose k-th and (k+1)-th block
 # masses nearly tie may resolve differently in the two, and one such flip
@@ -355,38 +380,60 @@ def device_scores_configs() -> dict:
 
 
 def group_configs() -> dict:
-    """A configuration whose GQA group K1 runs in a larger instance: 6
-    query heads over 2 kv heads of 64 (group 3, lane width 128: the JAX
-    gate sends it to its kernel), f32, 2 layers, capacity 64, the
-    GQA-8 model's vocab, hidden and MLP widths, under the pipeline of the
-    tiny parity tests with head pruning keeping 1 of 2 kv heads; on the
-    card K1 runs it in ``<4, 64>`` with 3 live rows.  name -> (cfg,
-    batch, prompt length, new tokens); the prompt prunes in prefill."""
+    """Configurations whose GQA group K1 runs in a larger instance, under
+    the pipeline of the tiny parity tests, f32, 2 layers, capacity 64, the
+    GQA-8 model's vocab and MLP widths:
+
+    * 6 query heads over 2 kv heads of 64 (group 3, lane width 128: the
+      JAX gate sends it to its kernel), hidden 256, head pruning keeping
+      1 of 2 kv heads; on the card K1 runs it in ``<4, 64>`` with 3 live
+      rows;
+    * Llama-3.1-405B's group: 16 query heads over 1 kv head of 128
+      (lane width 128), hidden 2048; on the card K1 runs it in ``<8, 128>``
+      with its score plane in device memory, as two chunks of 8 rows.
+
+    name -> (cfg, batch, prompt length, new tokens); the prompt prunes in
+    prefill."""
     from spatten_tpu_torch.config import (
         EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
     )
+    pruning = PruningConfig(start_size=2, important_size=8, recent_size=16,
+                            v_block_size=8)
+    engine = EngineConfig(max_batch_size=2, cache_capacity=64,
+                          prefill_chunk=8, decode_window=8)
     gqa3 = SpAttenConfig(
         model=ModelConfig(vocab_size=256, hidden_size=256, num_layers=2,
                           num_heads=6, num_kv_heads=2, head_dim=64,
                           intermediate_size=512),
-        pruning=PruningConfig(start_size=2, important_size=8, recent_size=16,
-                              v_block_size=8, enable_head_pruning=True,
-                              head_keep=1),
-        quant=QuantConfig(requant_threshold=0.2),
-        engine=EngineConfig(max_batch_size=2, cache_capacity=64,
-                            prefill_chunk=8, decode_window=8),
+        pruning=dataclasses.replace(pruning, enable_head_pruning=True,
+                                    head_keep=1),
+        quant=QuantConfig(requant_threshold=0.2), engine=engine,
     ).validate()
-    return {"GQA 3 (6 over 2 kv heads of 64), capacity 64":
-            (gqa3, 2, 72, 32)}
+    gqa16 = SpAttenConfig(
+        model=ModelConfig(vocab_size=256, hidden_size=2048, num_layers=2,
+                          num_heads=16, num_kv_heads=1, head_dim=128,
+                          intermediate_size=512),
+        pruning=pruning, quant=QuantConfig(requant_threshold=0.2),
+        engine=engine,
+    ).validate()
+    return {GQA3_NAME: (gqa3, 2, 72, 32), GQA16_NAME: (gqa16, 2, 72, 32)}
+
+
+GQA3_NAME = "GQA 3 (6 over 2 kv heads of 64), capacity 64"
+GQA16_NAME = "GQA 16 (16 over 1 kv head of 128), capacity 64"
 
 
 # ---------------------------------------------------------------- phase 2
 def k1_bound(cfg, lengths, need, kept_tokens, alive, rung: int, bits: int):
-    """(bound_ms, bound_by, bytes, ops) of one K1 call on these inputs:
-    every input byte the function needs read once, every output written
-    once.  A live head group reads the pass-1 plane rows serving its live
-    tokens (packed msb rows, plus lsb2 rows for a 6-bit layer, or int8
-    rows for an 8-bit layer or dense mode), the int8 rows again when it
+    """(bound_ms, bound_by, bytes, ops, int8_ops) of one K1 call on these
+    inputs: every input byte the function needs read once, every output
+    written once; the operations priced by type, the products of int8
+    queries with the int8 planes and, under pv_int8, of int8 weights with
+    the V rows at the card's int8 rate, the rest (f32 products, the
+    softmax) at its f32 rate.  A live head group reads the pass-1 plane
+    rows serving its live tokens (packed msb rows, plus lsb2 rows for a
+    6-bit layer, or int8 rows for an 8-bit layer or dense mode), the int8
+    rows again when it
     requantizes, its K scale column, its importance column (read and
     written; in delta mode the rung's f32 delta written) and its kept V
     rows with their scales; every group writes the appended row (int8 K
@@ -398,7 +445,7 @@ def k1_bound(cfg, lengths, need, kept_tokens, alive, rung: int, bits: int):
     sb = 2 if q.scale_dtype == "bfloat16" else 4
     ib = 2 if cfg.pruning.importance_dtype == "bfloat16" else 4
     six = q.needs_lsb2
-    byts = ops = 0
+    byts = f32_ops = int8_ops = 0
     for bi, n in enumerate(lengths):
         units = range(rung // u)
         msb_rows = sum(min(max(n - k * u, 0), u // 2) for k in units)
@@ -416,13 +463,17 @@ def k1_bound(cfg, lengths, need, kept_tokens, alive, rung: int, bits: int):
                      else 4 * rung)
             byts += n * sb + imp_b + kept * (d + sb)
             passes = 1 + (1 if fired else 0)
-            ops += g * (2 * d * n * passes + 5 * n * passes + 2 * d * kept)
+            qk, pv = g * 2 * d * n * passes, g * 2 * d * kept
+            int8_ops += (qk if q.quantize_queries else 0) \
+                + (pv if q.pv_int8 else 0)
+            f32_ops += g * 5 * n * passes \
+                + (0 if q.quantize_queries else qk) + (0 if q.pv_int8 else pv)
     b = len(lengths)
     byts += 4 * b * (hkv * g * d * 2 + 2 * hkv * d) + b * hkv * 5
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS * 1e3
+    t_ops = (f32_ops / F32_FLOPS + int8_ops / INT8_OPS) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", byts, ops)
+            "operations", byts, f32_ops + int8_ops, int8_ops)
 
 
 def k1_inputs(cfg, dev, gen, batch):
@@ -533,11 +584,11 @@ def time_k1(st, q, kn, vn, lengths, cfg, layers, rung, threshold,
             .expand(b, -1).tolist()
     bits = 8 if not cfg.quant.enabled else int(
         st.quant_bits[layers[0]]) if cfg.quant.layer_bits else 4
-    bound_ms, bound_by, byts, ops = k1_bound(
+    bound_ms, bound_by, byts, ops, int8_ops = k1_bound(
         cfg, lengths.tolist(), stats.need_requant.tolist(), kept, alive,
         rung, bits)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bytes=byts, ops=ops,
+                bound_by=bound_by, bytes=byts, ops=ops, int8_ops=int8_ops,
                 fired=int(stats.need_requant.sum()))
 
 
@@ -558,7 +609,8 @@ def phase_k1_slice1(cfg, dev) -> dict:
                 cap, res["threshold"])
     log(f"K1 timing, first slice shapes: {t['ms']:.4f} ms kernel, "
         f"{t['plain_ms']:.4f} ms plain, bound {t['bound_ms']:.4f} ms "
-        f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops)")
+        f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops, "
+        f"{t['int8_ops']} int8)")
     del st
     free()
     return dict(max_abs_err=res["max_abs_err"], ms=t["ms"],
@@ -641,7 +693,8 @@ def phase_k1_serving(dev) -> dict:
         log(f"K1 timing, serving combination, {name}: {t['ms']:.4f} ms "
             f"kernel, {t['plain_ms']:.4f} ms plain, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
-            f"{t['ops']} ops; {t['fired']} of 256 heads requantize)")
+            f"{t['ops']} ops, {t['int8_ops']} int8; {t['fired']} of 256 "
+            "heads requantize)")
     return dict(max_abs_err=max(errs), ms=t2["ms"], plain_ms=t2["plain_ms"],
                 bound_ms=t2["bound_ms"], bound_by=t2["bound_by"],
                 library_ms=None,
@@ -708,8 +761,9 @@ def phase_k1_llama32(dev) -> dict:
         log(f"K1 timing, Llama-3.2-3B, rung {rung}, layers "
             f"{layers[rung][0]}-{layers[rung][-1]}: {t['ms']:.4f} ms kernel, "
             f"{t['plain_ms']:.4f} ms plain, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops; {t['fired']}"
-            f" of 64 heads requantize; {SERVING_BATCH * 8} CTAs)")
+            f"({t['bound_by']}: {t['bytes']} B, {t['ops']} ops, "
+            f"{t['int8_ops']} int8; {t['fired']} of 64 heads requantize; "
+            f"{SERVING_BATCH * 8} CTAs)")
     t2, t4 = out[2048], out[4096]
     return dict(max_abs_err=max(errs), ms=t2["ms"], plain_ms=t2["plain_ms"],
                 bound_ms=t2["bound_ms"], bound_by=t2["bound_by"],
@@ -790,8 +844,8 @@ def phase_k1_flags(dev) -> dict:
     log(f"K1 timing, parity flags (presoftmax, delta mode, batch 8, "
         f"capacity 1024): {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms "
         f"plain, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-        f"{t['bytes']} B, {t['ops']} ops; {t['fired']} of 256 heads "
-        "requantize)")
+        f"{t['bytes']} B, {t['ops']} ops, {t['int8_ops']} int8; "
+        f"{t['fired']} of 256 heads requantize)")
     return dict(max_abs_err=max(errs + [r["max_abs_err"]]),
                 parity=dict(ms=t["ms"], plain_ms=t["plain_ms"],
                             bound_ms=t["bound_ms"], bound_by=t["bound_by"]))
@@ -1121,6 +1175,193 @@ def phase_k1_device_scores(dev) -> dict:
                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                          bound_by=t["bound_by"])
     return out
+
+
+# K1 at GQA groups past its largest instance, which it runs in <8, 128>
+# with the score plane in device memory as chunks of 8 query rows: name
+# -> (query heads, kv heads, head_dim, layer bits or None, rungs).
+# Llama-3.1-405B's attention from meta-llama/Llama-3.1-405B's config.json
+# (128 query heads over 8 kv heads of 128).
+WIDE_GROUP_CASES = {
+    "Llama-3.1-405B attention (GQA 16: 128 over 8 x 128)": (
+        128, 8, 128, None, (2048, 4096)),
+    "GQA 12 (48 over 4 x 128), 6-bit": (48, 4, 128, (6, 6), (4096,)),
+}
+WIDE_GROUP_LENGTHS = {2048: [2048, 1601, 977, 33], 4096: [4096, 3100, 2049, 1]}
+
+
+def phase_k1_wide_groups(dev) -> dict:
+    """K1 at GQA groups past 8 (``WIDE_GROUP_CASES``), batch 4, capacity
+    4096, depth 2, a partly head-masked group (and a dead one): under the
+    serving flags at each rung, and at Llama-3.1-405B's attention once
+    more in presoftmax delta mode (f32 metadata, as ``phase_k1_flags``);
+    each held against its plain version, then timed against its
+    bound."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    out, errs, lines = {}, [], []
+    for name, (hq, hkv, d, bits, rungs) in WIDE_GROUP_CASES.items():
+        cfg = k1_shape_config(serving_config(2, layer_bits=bits), hq=hq,
+                              hkv=hkv, d=d, cap=SERVING_CAP)
+        group, vb = hq // hkv, cfg.pruning.v_block_size
+        plan = fd.k1_plan(group, d, SERVING_CAP, vb)
+        check(plan.inst == 8 and plan.rows == 16 and not plan.scores_in_smem,
+              f"{name}: plan {plan}")
+        st, q, kn, vn = k1_inputs(cfg, dev, gen, 4)
+        hm = partial_head_mask(hq, hkv, dev)
+        res = {}
+        for rung in rungs:
+            lengths = torch.tensor(WIDE_GROUP_LENGTHS[rung],
+                                   dtype=torch.int32, device=dev)
+            r = k1_case_logged(errs, lines, f"{name} in <8, 128> ({plan.rows}"
+                               f" rows), serving flags", cfg, st, q, kn, vn,
+                               0, rung, lengths, head_mask=hm)
+            t = time_k1(st, q, kn, vn, lengths, cfg, [0, 1], rung,
+                        r["threshold"], head_mask=hm)
+            lines.append(f"  timing, rung {rung}: {t['ms']:.4f} ms kernel, "
+                         f"{t['plain_ms']:.4f} ms plain, bound "
+                         f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                         f"{t['bytes']} B, {t['ops']} ops, {t['int8_ops']} "
+                         f"int8; {t['fired']} of {4 * hkv} heads "
+                         f"requantize; {4 * hkv} CTAs)")
+            res[rung] = dict(max_abs_err=r["max_abs_err"], ms=t["ms"],
+                             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                             bound_by=t["bound_by"], bytes=t["bytes"],
+                             ops=t["ops"], int8_ops=t["int8_ops"])
+        if bits is None:
+            flat = dataclasses.replace(
+                cfg,
+                quant=dataclasses.replace(cfg.quant, quantize_queries=False,
+                                          pv_int8=False, probs_bf16=False,
+                                          scale_dtype="float32"),
+                pruning=dataclasses.replace(cfg.pruning,
+                                            importance_dtype="float32"))
+            del st
+            free()
+            st, q, kn, vn = k1_inputs(flat, dev, gen, 4)
+            k1_case_logged(errs, lines, f"{name}, presoftmax delta", flat,
+                           st, q, kn, vn, 1, 2048,
+                           torch.tensor(WIDE_GROUP_LENGTHS[2048],
+                                        dtype=torch.int32, device=dev),
+                           head_mask=hm, importance_kind="presoftmax",
+                           delta_mode=True)
+        out[name] = res
+        del st
+        free()
+    log("K1 vs plain, GQA groups past 8: ok\n  " + "\n  ".join(lines))
+    return dict(max_abs_err=max(errs), cases=out)
+
+
+# K1 at windows whose plan passes 227 KB even with the score plane in
+# device memory, so its per-V-block arrays lie in device memory too:
+# name -> (query heads, kv heads, capacity, v_block, lengths); head_dim
+# 128, f32 metadata, the serving flags' V pruning (a quarter of the
+# blocks kept)
+LONG_WINDOW_CASES = {
+    "1 kv head x GQA 8 x 128, 65536 tokens, v_block 16": (
+        8, 1, 65536, 16, [65536, 40001]),
+    "2 kv heads x GQA 1 x 128, 131072 tokens, v_block 8": (
+        2, 2, 131072, 8, [131072]),
+}
+
+
+def peaked_k1_inputs(cfg, dev, gen, lengths, hot_blocks: int):
+    """K1 inputs over ``cfg``'s planes (``kernel_checks.random_state``)
+    whose attention is peaked on ``hot_blocks`` V blocks of each (row, kv
+    head): the queries of a kv head's group share a direction u (plus
+    0.1 noise), and the keys of the hot blocks (drawn among the row's
+    live blocks) are u / 2 over keys of 0.1 noise.  Over tens of
+    thousands of tokens random inputs give every row k-th and (k+1)-th
+    block masses within ``kernel_checks.DECISION_MARGIN``, which the
+    rules exclude; with exactly the kept count of hot blocks the keep
+    decisions are clear (hot block masses ~1e-4, cold ones ~1e-6)."""
+    from spatten_tpu_torch import kernel_checks as kc
+    from spatten_tpu_torch.ops import quantize as qz
+    m, cap = cfg.model, cfg.engine.cache_capacity
+    vb, b = cfg.pruning.v_block_size, len(lengths)
+    hkv, d, g = m.num_kv_heads, m.head_dim, m.q_heads_per_kv
+    st = kc.random_state(cfg, b, gen, dev)
+    u = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
+    q = u.repeat_interleave(g, dim=1) + 0.1 * torch.randn(
+        (b, hkv * g, 1, d), generator=gen, device=dev)
+    k = 0.1 * torch.randn((b, hkv, cap, d), generator=gen, device=dev)
+    for bi, n in enumerate(lengths):
+        for h in range(hkv):
+            hot = torch.randperm(n // vb - 1, generator=gen,
+                                 device=dev)[:hot_blocks]
+            cols = (hot[:, None] * vb + torch.arange(vb, device=dev)).ravel()
+            k[bi, h, cols] += 0.5 * u[bi, h, 0]
+    src = qz.quantize(k, with_msb=True,
+                      with_lsb2=st.cache.k.lsb2 is not None)
+    for name in ("full", "msb", "scale", "lsb2"):
+        dst = getattr(st.cache.k, name)
+        if dst is not None:
+            dst.copy_(getattr(src, name)[None])
+    kn = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
+    vn = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
+    return st, q, kn, vn
+
+
+def phase_k1_long_windows(dev) -> dict:
+    """K1 at ``LONG_WINDOW_CASES`` on peaked inputs (``peaked_k1_inputs``)
+    with f32 and with bf16 scales and importance (the serving default):
+    held against its plain version with every head requantizing
+    (threshold 1.0: the max probabilities, ~1e-5 apart at these windows,
+    leave no split clear of the rules' margin) and with none (threshold
+    0.0), then timed against its bound (depth 2) at threshold 1.0."""
+    from spatten_tpu_torch import kernel_checks as kc
+    from spatten_tpu_torch.ops import fused_decode as fd
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    out, errs, lines = {}, [], []
+    for case, (hq, hkv, cap, vb, lengths) in LONG_WINDOW_CASES.items():
+        base = k1_shape_config(serving_config(2, cap=cap), hq=hq, hkv=hkv,
+                               d=128, cap=cap)
+        plan = fd.k1_plan(hq // hkv, 128, cap, vb)
+        check(not plan.scores_in_smem and not plan.blocks_in_smem,
+              f"{case}: plan {plan}")
+        for meta, tag in (("float32", "f32"), ("bfloat16", "bf16")):
+            name = f"{case}, {tag} metadata"
+            cfg = dataclasses.replace(
+                base,
+                quant=dataclasses.replace(base.quant, scale_dtype=meta),
+                pruning=dataclasses.replace(base.pruning, v_block_size=vb,
+                                            importance_dtype=meta),
+            ).validate()
+            kw = k1_flags(cfg, 0, cap)
+            kb = fd._v_keep_blocks(kw["v_keep"], vb, cap, 0)
+            check(kb > 0, f"{name}: {kb} kept blocks")
+            st, q, kn, vn = peaked_k1_inputs(cfg, dev, gen, lengths, kb)
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            for threshold, fires in ((1.0, hkv * len(lengths)), (0.0, 0)):
+                r = kc.k1_pair(st, q, kn, vn, lens, layer=0,
+                               threshold=threshold, v_block=vb,
+                               keep_blocks_for=lambda _: kb, **kw)
+                check(r["near_rows"] < hq * len(lengths)
+                      and r["fired"] == fires,
+                      f"{name}, threshold {threshold}: {r}")
+                errs.append(r["max_abs_err"])
+                lines.append(
+                    f"{name}, V-block arrays in device memory (layer 0, "
+                    f"{kb} of {cap // vb} blocks kept), threshold "
+                    f"{threshold}: fires {r['fired']}, near rows "
+                    f"{r['near_rows']}, max |out err| "
+                    f"{r['max_abs_err']:.2e}")
+            t = time_k1(st, q, kn, vn, lens, cfg, [0, 1], cap, 1.0)
+            lines.append(
+                f"  timing: {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms"
+                f" plain, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                f"{t['bytes']} B, {t['ops']} ops, {t['int8_ops']} int8; "
+                f"{t['fired']} heads "
+                f"requantize; {len(lengths) * hkv} CTAs, {plan.smem} B of "
+                "shared memory each)")
+            out[name] = dict(max_abs_err=max(errs[-2:]), ms=t["ms"],
+                             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                             bound_by=t["bound_by"], bytes=t["bytes"],
+                             ops=t["ops"])
+            del st
+            free()
+    log("K1 vs plain, long windows: ok\n  " + "\n  ".join(lines))
+    return dict(max_abs_err=max(errs), cases=out)
 
 
 # K1 at the GQA groups it runs in a larger instance (3 in <4, D>; 5, 6
@@ -1587,6 +1828,318 @@ def phase_trace(dev) -> dict:
                 dense_bytes=dense)
 
 
+SUPERVISED_BATCH, SUPERVISED_NEW, SUPERVISED_WINDOW = 2, 64, 16
+
+
+def _dir_bytes(path) -> int:
+    from pathlib import Path
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def phase_supervised(dev) -> dict:
+    """``engine.supervisor.generate_supervised`` on ``serving_config(8)``
+    (Llama-2-7B width, depth 8, random bf16 weights), batch 2, capacity
+    4096, prompt 3072 (prunes fire in prefill, so K2 moves rows), 64 new
+    tokens in windows of 16, snapshots in a temporary directory removed at
+    the end; three ways: uninterrupted, with a health probe that fails
+    once before the third window (the latest snapshot is restored and the
+    window replays), and 32 tokens then a fresh ``resume=True`` call to
+    64.  The three token streams must be equal exactly.  Prints the
+    snapshot bytes, the seconds per snapshot, per restore and of the
+    one-time params checkpoint, and K1/K2 launches of the uninterrupted
+    run; then holds its first window against the plain versions
+    (``window_vs_plain``)."""
+    import shutil
+    import tempfile
+    from spatten_tpu_torch.engine import checkpoint, supervisor
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops.compact_gather import (
+        gather_compact_rows, k2_takes,
+    )
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    base = serving_config(8)
+    cfg = dataclasses.replace(base, engine=dataclasses.replace(
+        base.engine, max_batch_size=SUPERVISED_BATCH)).validate()
+    m = cfg.model
+    params = tr.init_params(m, SEED, dtype=torch.bfloat16, device=dev)
+    prompt = np.random.default_rng(SEED).integers(
+        0, m.vocab_size, (SUPERVISED_BATCH, SERVING_PROMPT))
+    secs = {"snapshot": [], "params": [], "restore": [], "params restore": []}
+    save, restore = checkpoint.save, checkpoint.restore_with_extra
+
+    def timed_save(path, p, state=None, extra=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(path, p, state, extra)
+        secs["snapshot" if p is None else "params"].append(
+            time.perf_counter() - t0)
+
+    def timed_restore(path, device="cuda"):
+        t0 = time.perf_counter()
+        out = restore(path, device)
+        torch.cuda.synchronize()
+        secs["params restore" if out[0] is not None else "restore"].append(
+            time.perf_counter() - t0)
+        return out
+
+    root = tempfile.mkdtemp(prefix="spatten-supervised-")
+    checkpoint.save, checkpoint.restore_with_extra = timed_save, timed_restore
+    try:
+        def run(name, n, **kw):
+            return supervisor.generate_supervised(
+                kw.pop("params", params), cfg, prompt, n,
+                f"{root}/{name}", window=SUPERVISED_WINDOW, device=dev,
+                **dict(dict(health=lambda: True), **kw))
+        fused_decode_attention.launches = gather_compact_rows.launches = 0
+        t0 = time.perf_counter()
+        want = run("a", SUPERVISED_NEW)
+        run_s = time.perf_counter() - t0
+        k1, k2 = fused_decode_attention.launches, gather_compact_rows.launches
+        snap_bytes = _dir_bytes(f"{root}/a/supervised-{SUPERVISED_NEW}")
+        params_bytes = _dir_bytes(f"{root}/a/params")
+        calls = {"n": 0}
+
+        def flaky():
+            calls["n"] += 1
+            return calls["n"] != 3
+        killed = run("b", SUPERVISED_NEW, health=flaky)
+        run("c", SUPERVISED_NEW // 2)
+        resumed = run("c", SUPERVISED_NEW, params=None, resume=True)
+    finally:
+        checkpoint.save, checkpoint.restore_with_extra = save, restore
+        shutil.rmtree(root, ignore_errors=True)
+    check(tuple(want.shape) == (SUPERVISED_BATCH, SUPERVISED_NEW),
+          "supervised: token shape")
+    # prefill prunes; K2 moves the rows where it takes the head_dim
+    check(k1 == m.num_layers * SUPERVISED_NEW
+          and (k2 > 0) is k2_takes(m.head_dim),
+          f"supervised: K1 launched {k1}, K2 {k2}")
+    same_killed = bool(torch.equal(killed, want))
+    same_resumed = bool(torch.equal(resumed, want))
+    log(f"supervised (Llama-2-7B width, depth {m.num_layers}, batch "
+        f"{SUPERVISED_BATCH}, prompt {SERVING_PROMPT}, {SUPERVISED_NEW} "
+        f"tokens in windows of {SUPERVISED_WINDOW}): uninterrupted run "
+        f"{run_s:.2f} s, K1 launches {k1}, K2 launches {k2}; snapshot "
+        f"{snap_bytes} B (state only), {len(secs['snapshot'])} snapshots "
+        f"at {np.mean(secs['snapshot']):.3f} s each (max "
+        f"{max(secs['snapshot']):.3f}), restores "
+        f"{[round(x, 3) for x in secs['restore']]} s; params checkpoint "
+        f"{params_bytes} B written in {secs['params'][0]:.3f} s (once per "
+        f"directory: {[round(x, 3) for x in secs['params']]}), read in "
+        f"{[round(x, 3) for x in secs['params restore']]} s; probe failed "
+        f"once of {calls['n']} calls; tokens equal to the uninterrupted "
+        f"run's: killed window {same_killed}, resumed {same_resumed}")
+    check(same_killed and same_resumed, "supervised: the interrupted or "
+          "resumed token stream differs from the uninterrupted one")
+    # K1 and the compaction at this path's shapes against their plain
+    # versions: the first window of 16 from a fresh prefill
+    state = window_vs_plain("supervised", cfg, dev, params,
+                            prompt, want.to(dev), steps=SUPERVISED_WINDOW)[0]
+    del params, state
+    free()
+    return dict(k1=k1, k2=k2, snapshot_bytes=snap_bytes,
+                snapshot_s=float(np.mean(secs["snapshot"])),
+                restore_s=secs["restore"], params_s=secs["params"][0])
+
+
+CLI_LAYERS, CLI_NEW, CLI_TURNS = 4, 32, (800, 300)
+# meta-llama/Llama-2-7b-hf's published config.json (the widths of every
+# Llama-2-7B cell)
+LLAMA2_7B_HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "hidden_size": 4096, "intermediate_size": 11008,
+    "num_attention_heads": 32, "num_key_value_heads": 32,
+    "num_hidden_layers": 32, "vocab_size": 32000,
+    "max_position_embeddings": 4096, "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0, "tie_word_embeddings": False, "bos_token_id": 1,
+    "eos_token_id": 2, "pad_token_id": 0, "hidden_act": "silu",
+    "torch_dtype": "float16"}
+
+
+def write_random_llama(path, num_layers: int, seed: int = SEED) -> dict:
+    """A Hugging Face ``llama`` checkpoint at Llama-2-7B width
+    (``config.json`` and ``pytorch_model.bin``, random bf16 weights from
+    the seed at 0.02 scale, unit norms) of ``num_layers`` layers."""
+    from pathlib import Path
+    hf = dict(LLAMA2_7B_HF_CONFIG, num_hidden_layers=num_layers)
+    h, f, v = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    gen = torch.Generator().manual_seed(seed)
+
+    def w(*shape):
+        return (0.02 * torch.randn(shape, generator=gen)).to(torch.bfloat16)
+    sd = {"model.embed_tokens.weight": w(v, h), "lm_head.weight": w(v, h),
+          "model.norm.weight": torch.ones(h, dtype=torch.bfloat16)}
+    for i in range(num_layers):
+        pre = f"model.layers.{i}."
+        for name in ("q", "k", "v", "o"):
+            sd[pre + f"self_attn.{name}_proj.weight"] = w(h, h)
+        sd[pre + "mlp.gate_proj.weight"] = w(f, h)
+        sd[pre + "mlp.up_proj.weight"] = w(f, h)
+        sd[pre + "mlp.down_proj.weight"] = w(h, f)
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            sd[pre + f"{name}.weight"] = torch.ones(h, dtype=torch.bfloat16)
+    Path(path).mkdir(parents=True, exist_ok=True)
+    (Path(path) / "config.json").write_text(json.dumps(hf))
+    torch.save(sd, str(Path(path) / "pytorch_model.bin"))
+    return hf
+
+
+def phase_cli(dev) -> dict:
+    """``run_spatten_gpu.py`` as a user runs it, in a subprocess: a random
+    Llama-2-7B-width checkpoint of ``CLI_LAYERS`` layers
+    (``write_random_llama``) and a prompts file of one ``ids`` record of
+    two turns (800 and 300 tokens: the second prunes the 1024-token
+    cache), 32 new tokens a turn, with ``--trace_csv`` and ``--summary``.
+    Checked: exit 0; the printed reply ids equal an in-process
+    ``generate`` on the same loaded params and state sequence, whose K1
+    and K2 launches are counted (K1: layers x tokens a turn); the trace
+    has a row per traced step, layer and kv head; the summary holds the
+    run metrics' fields; the first turn's first decode window against the
+    plain versions (``window_vs_plain``)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+    import run_spatten_gpu as cli
+    from spatten_tpu_torch.engine import generate as gen
+    from spatten_tpu_torch.engine import trace as trc
+    from spatten_tpu_torch.engine.metrics import RunMetrics
+    from spatten_tpu_torch.models import hf_loader
+    from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    root = Path(tempfile.mkdtemp(prefix="spatten-cli-"))
+    try:
+        t0 = time.perf_counter()
+        hf = write_random_llama(root / "ckpt", CLI_LAYERS)
+        write_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED)
+        turns = [rng.integers(3, hf["vocab_size"], n).tolist()
+                 for n in CLI_TURNS]
+        (root / "prompts.jsonl").write_text(json.dumps({"ids": turns}))
+        argv = ["--model_path", str(root / "ckpt"), "--prompts",
+                str(root / "prompts.jsonl"), "--max_new_tokens",
+                str(CLI_NEW), "--trace_csv", str(root / "trace.csv"),
+                "--summary", str(root / "summary.json"), "--device", dev.type]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(cli.__file__).resolve()), *argv],
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"run_spatten_gpu.py exited "
+              f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+              f"{proc.stderr[-4000:]}")
+        got = [json.loads(line.split("reply ids: ", 1)[1])
+               for line in proc.stdout.splitlines()
+               if line.startswith("reply ids: ")]
+        # the same run in process: the loader, the CLI's configuration
+        mcfg, params = hf_loader.load_pretrained(str(root / "ckpt"),
+                                                 device=dev)
+        cfg = cli.build_config(cli.parse_args(argv), mcfg)
+        state, want, lengths, first = None, [], [], None
+        fused_decode_attention.launches = gather_compact_rows.launches = 0
+        for t in turns:
+            res = gen.generate(params, cfg, torch.tensor([t]), CLI_NEW,
+                               eos_token_id=hf["eos_token_id"], state=state,
+                               device=dev)
+            state = res.state
+            first = res.tokens if first is None else first
+            want.append([x for x in res.tokens[0].tolist()
+                         if x != hf["eos_token_id"]])
+            lengths.append(int(state.lengths[0]))
+        k1, k2 = fused_decode_attention.launches, gather_compact_rows.launches
+        rows = trc.read_csv(str(root / "trace.csv"))
+        summary = json.loads((root / "summary.json").read_text())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    m = mcfg
+    steps = min(8, CLI_NEW)
+    check(got == want, "CLI replies differ from the in-process generate")
+    check(k1 == m.num_layers * CLI_NEW * len(turns),
+          f"cli: K1 launched {k1} times in the in-process replay")
+    check(len(rows) == steps * m.num_layers * m.num_kv_heads,
+          f"CLI trace has {len(rows)} rows")
+    fields = set(RunMetrics().summary())
+    check(fields <= set(summary) and summary["generated_tokens"] == CLI_NEW,
+          f"CLI summary {sorted(summary)}")
+    log(f"cli: run_spatten_gpu.py on a random Llama-2-7B-width checkpoint "
+        f"({CLI_LAYERS} layers, written in {write_s:.1f} s), turns "
+        f"{list(CLI_TURNS)} ids, {CLI_NEW} new tokens each: exit 0 in "
+        f"{cli_s:.1f} s; replies equal the in-process generate "
+        f"({sum(map(len, got))} ids; cache lengths {lengths}); trace "
+        f"{len(rows)} rows = {steps} steps x {m.num_layers} layers x "
+        f"{m.num_kv_heads} kv heads; summary {len(summary)} fields, "
+        f"{summary['generated_tokens']} generated, requant rate "
+        f"{summary['requant_rate']}; in-process replay K1 launches {k1}, "
+        f"K2 {k2}")
+    state = window_vs_plain(
+        "cli", cfg, dev, params, np.asarray(turns[:1]), first,
+        steps=min(CLI_NEW, gen.decode_window_steps(cfg)))[0]
+    del params, state
+    free()
+    return dict(seconds=cli_s, rows=len(rows), k1=k1, k2=k2)
+
+
+def phase_debug_hook(dev) -> dict:
+    """``generate`` under ``SPATTEN_DEBUG=1`` (its first prefill chunk,
+    and only that one, under ``utils.debug.checkify_step``) on the first
+    slice at depth 2 (random bf16 weights, batch 4, prompt 1152: prefill
+    prunes), against the same run without the flag: tokens equal; and the
+    checks trap a NaN made by an op on the card."""
+    import os
+    from spatten_tpu_torch.engine import generate as gen
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    from spatten_tpu_torch.utils import debug as dbg
+    cfg = slice_config(2)
+    m = cfg.model
+    params = tr.init_params(m, SEED, dtype=torch.bfloat16, device=dev)
+    prompt = np.random.default_rng(SEED).integers(0, m.vocab_size,
+                                                  (4, 1152))
+    # the checks trap a NaN that an op makes on the card
+    try:
+        dbg.checkify_step(torch.log, -torch.ones(4, device=dev))
+        trapped = False
+    except FloatingPointError:
+        trapped = True
+    plain = gen.generate(params, cfg, prompt, 32, device=dev)
+    checked, real = [], dbg.checkify_step
+
+    def counted(fn, *args, **kw):
+        checked.append(tuple(args[1].shape))      # the chunk's tokens
+        return real(fn, *args, **kw)
+    os.environ["SPATTEN_DEBUG"] = "1"
+    dbg.checkify_step = counted
+    try:
+        check(dbg.enabled(), "SPATTEN_DEBUG is not read")
+        fused_decode_attention.launches = gather_compact_rows.launches = 0
+        t0 = time.perf_counter()
+        debug = gen.generate(params, cfg, prompt, 32, device=dev)
+        secs = time.perf_counter() - t0
+        k1, k2 = (fused_decode_attention.launches,
+                  gather_compact_rows.launches)
+    finally:
+        dbg.checkify_step = real
+        del os.environ["SPATTEN_DEBUG"]
+    same = bool(torch.equal(debug.tokens, plain.tokens))
+    log(f"debug hook: generate under SPATTEN_DEBUG=1 (first slice, depth 2, "
+        f"batch 4, prompt 1152, 32 tokens) in {secs:.2f} s, the float "
+        f"checks over prefill chunks {checked} (prefill "
+        f"{debug.prefill_seconds:.2f} s vs {plain.prefill_seconds:.2f} s "
+        f"without); a NaN made on the card trapped: {trapped}; prune "
+        f"points {len(debug.pruned_layers)}; K1 launches {k1}, K2 {k2}; "
+        f"tokens equal the run without it: {same}")
+    check(trapped and checked == [(4, cfg.engine.prefill_chunk)],
+          "debug hook: the float checks did not run on the first chunk")
+    check(same and debug.pruned_layers == plain.pruned_layers,
+          "debug hook: tokens differ from the run without it")
+    check(k1 == m.num_layers * 32, f"debug hook: K1 launched {k1} times")
+    del params
+    free()
+    return dict(seconds=secs, prefill_s=debug.prefill_seconds,
+                plain_prefill_s=plain.prefill_seconds, k1=k1, k2=k2)
+
+
 def probe_entries(probe: dict, launches: dict) -> list:
     """The ``kernels`` JSON entries of P1-P5 from ``phase_launch_probe``'s
     result; ``launches``: each probe's count on the serving path."""
@@ -1797,10 +2350,11 @@ def run_path(name, cfg, dev, *, batch, prompt_len, new_tokens,
     return out
 
 
-def window_vs_plain(name, cfg, dev, params, prompt, tokens):
-    """The first decode window again from a fresh prefill: kernels, then
-    the plain versions (K1's plain version, the gather compaction) on the
-    card from the same post-prefill state, fed the same tokens."""
+def window_vs_plain(name, cfg, dev, params, prompt, tokens, steps=None):
+    """The first decode window (``steps`` tokens, by default the
+    configuration's window) again from a fresh prefill: kernels, then the
+    plain versions (K1's plain version, the gather compaction) on the card
+    from the same post-prefill state, fed the same tokens."""
     from spatten_tpu_torch.engine import generate as gen
     from spatten_tpu_torch.engine.policy import update_head_mask
     from spatten_tpu_torch.engine.state import init_state
@@ -1819,7 +2373,7 @@ def window_vs_plain(name, cfg, dev, params, prompt, tokens):
     snap = state.clone()
     tables = rope_ops.rope_table(cfg.engine.cache_capacity, m.head_dim,
                                  m.rope_theta, dev)
-    steps = gen.decode_window_steps(cfg)
+    steps = steps or gen.decode_window_steps(cfg)
     tok = torch.argmax(last, -1).to(torch.int32)
     state, host_k, _, _ = gen.window_start(cfg, state, steps, list(host))
     fed, logits_k = [], []
@@ -1944,48 +2498,67 @@ def main() -> int:
                     spills[(name, inst)] = int(m.group(1))
     check(spills.get(("fused_decode", "<1, 128, true>")) == 0,
           "K1 <1, 128, true> (the main path's instance) spills registers")
+    spilled = [i for (n, i), v in spills.items()
+               if n == "fused_decode" and v]
+    check(not spilled, f"K1 instances {spilled} spill registers")
 
-    k1_pr1 = phase_k1_slice1(slice_config(), dev)
-    k1_srv = phase_k1_serving(dev)
-    k1_llama = phase_k1_llama32(dev)
-    k1_flags_res = phase_k1_flags(dev)
-    k1_groups = phase_k1_groups(dev)
-    k1_dims = phase_k1_head_dims(dev)
-    k1_caps = phase_k1_capacity(dev)
-    k1_dev_scores = phase_k1_device_scores(dev)
-    k2_pr1 = phase_k2(dev, b=4, cap=1024, hkv=32, d=128, keep_max=772,
-                      window=1024, lengths=[1024, 1024, 900, 1000],
-                      triggered=[1, 0, 1, 1], keep_count=[772, 772, 600, 772])
+    phase_s = {}
+
+    def timed(fn, *args, **kw):
+        """Run one phase (a path: ``run_path`` and its name) and print
+        its seconds."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        name = args[0] if fn is run_path else fn.__name__
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[{name}: {phase_s[name]:.1f} s]")
+        return out
+
+    k1_pr1 = timed(phase_k1_slice1, slice_config(), dev)
+    k1_srv = timed(phase_k1_serving, dev)
+    k1_llama = timed(phase_k1_llama32, dev)
+    k1_flags_res = timed(phase_k1_flags, dev)
+    k1_groups = timed(phase_k1_groups, dev)
+    k1_dims = timed(phase_k1_head_dims, dev)
+    k1_caps = timed(phase_k1_capacity, dev)
+    k1_dev_scores = timed(phase_k1_device_scores, dev)
+    k1_wide = timed(phase_k1_wide_groups, dev)
+    k1_long = timed(phase_k1_long_windows, dev)
+    k2_pr1 = timed(phase_k2, dev, b=4, cap=1024, hkv=32, d=128,
+                   keep_max=772, window=1024,
+                   lengths=[1024, 1024, 900, 1000], triggered=[1, 0, 1, 1],
+                   keep_count=[772, 772, 600, 772])
     # serving shapes: a deep layer (rung 2048, keep 976) at a decode prune
-    k2_srv = phase_k2(dev, b=SERVING_BATCH, cap=SERVING_CAP, hkv=32, d=128,
-                      keep_max=976, window=2048,
-                      lengths=[2048, 2047, 2000, 2048, 1990, 2048, 2048, 2048],
-                      triggered=[1, 1, 1, 0, 1, 1, 1, 1],
-                      keep_count=[976, 976, 976, 976, 600, 976, 976, 976])
-    split = phase_split_k(dev)
-    probe = phase_launch_probe(dev)
-    small_reference_check(dev)
-    phase_gate(dev)
-    small_server = server_small_check(dev)
+    k2_srv = timed(phase_k2, dev, b=SERVING_BATCH, cap=SERVING_CAP, hkv=32,
+                   d=128, keep_max=976, window=2048,
+                   lengths=[2048, 2047, 2000, 2048, 1990, 2048, 2048, 2048],
+                   triggered=[1, 1, 1, 0, 1, 1, 1, 1],
+                   keep_count=[976, 976, 976, 976, 600, 976, 976, 976])
+    split = timed(phase_split_k, dev)
+    probe = timed(phase_launch_probe, dev)
+    timed(small_reference_check, dev)
+    gate = timed(phase_gate, dev)
+    small_server = timed(server_small_check, dev)
     log(f"kernel phases done at {time.perf_counter() - t_start:.0f} s")
 
-    pr1 = run_path("first slice (depth 8)", slice_config(8), dev, batch=4,
-                   prompt_len=1152, new_tokens=128)
+    pr1 = timed(run_path, "first slice (depth 8)", slice_config(8), dev,
+                batch=4, prompt_len=1152, new_tokens=128)
     del pr1["params"], pr1["res"]
     free()
-    serving = run_path("serving", serving_config(), dev,
-                       batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
-                       new_tokens=128, window_check=True)
+    serving = timed(run_path, "serving", serving_config(), dev,
+                    batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                    new_tokens=128, window_check=True)
     params = serving.pop("params")
     del serving["res"]
     free()
-    dense = run_path("dense", dense_config(), dev, batch=SERVING_BATCH,
-                     prompt_len=SERVING_PROMPT, new_tokens=64, params=params)
+    dense = timed(run_path, "dense", dense_config(), dev,
+                  batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                  new_tokens=64, params=params)
     del params, dense["params"], dense["res"]
     free()
-    prof = run_path("profile 4,4,6,6,8 (depth 8)", profile_config(8), dev,
-                    batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
-                    new_tokens=64)
+    prof = timed(run_path, "profile 4,4,6,6,8 (depth 8)", profile_config(8),
+                 dev, batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                 new_tokens=64)
     lr = prof["res"].layer_requants.tolist()
     bits = profile_config(8).quant.resolved_layer_bits(8)
     check(all((n == 0) == (b == 8) for n, b in zip(lr, bits)),
@@ -1997,23 +2570,26 @@ def main() -> int:
     log(f"dense-int8 baseline decode {dense['tok_s']:.1f} tok/s vs serving "
         f"{serving['tok_s']:.1f} tok/s (batch {SERVING_BATCH}; printed, no "
         f"claim)")
-    parity = run_path("parity", parity_config(), dev, batch=PARITY_BATCH,
-                      prompt_len=PARITY_PROMPT, new_tokens=128,
-                      window_check=True)
+    parity = timed(run_path, "parity", parity_config(), dev,
+                   batch=PARITY_BATCH, prompt_len=PARITY_PROMPT,
+                   new_tokens=128, window_check=True)
     del parity["params"], parity["res"]
     free()
-    llama = run_path("Llama-3.2-3B", llama32_3b_config(), dev,
-                     batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
-                     new_tokens=LLAMA32_NEW_TOKENS, window_check=True)
+    llama = timed(run_path, "Llama-3.2-3B", llama32_3b_config(), dev,
+                  batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                  new_tokens=LLAMA32_NEW_TOKENS, window_check=True)
     del llama["params"], llama["res"]
     free()
-    openllama = run_path("OpenLLaMA-3B", openllama_3b_config(), dev,
-                         batch=SERVING_BATCH, prompt_len=OPENLLAMA_PROMPT,
-                         new_tokens=OPENLLAMA_NEW_TOKENS, window_check=True)
+    openllama = timed(run_path, "OpenLLaMA-3B", openllama_3b_config(), dev,
+                      batch=SERVING_BATCH, prompt_len=OPENLLAMA_PROMPT,
+                      new_tokens=OPENLLAMA_NEW_TOKENS, window_check=True)
     del openllama["params"], openllama["res"]
     free()
-    server = phase_server(dev)
-    trace = phase_trace(dev)
+    server = timed(phase_server, dev)
+    trace = timed(phase_trace, dev)
+    supervised = timed(phase_supervised, dev)
+    cli = timed(phase_cli, dev)
+    debug_hook = timed(phase_debug_hook, dev)
     # the cost model's per-step overhead: the serving path's host time per
     # decode step beyond its device time
     log(f"cost model step overhead, serving path: "
@@ -2027,13 +2603,17 @@ def main() -> int:
              "OpenLLaMA-3B": openllama, "server": server}
     k1_by_path = {k: v["k1"] for k, v in paths.items()}
     k1_by_path.update({"server, small f32": small_server["k1"],
-                       "trace": trace["k1"]})
+                       "trace": trace["k1"], "supervised": supervised["k1"],
+                       "cli": cli["k1"], "debug hook": debug_hook["k1"]})
     k2_by_path = {k: v["k2"] for k, v in paths.items()}
-    k2_by_path["server, small f32"] = small_server["k2"]
+    k2_by_path.update({"server, small f32": small_server["k2"],
+                       "supervised": supervised["k2"], "cli": cli["k2"],
+                       "debug hook": debug_hook["k2"]})
     k1_srv["max_abs_err"] = max(
         [k1_srv["max_abs_err"], k1_flags_res["max_abs_err"],
          k1_llama["max_abs_err"], k1_groups["max_abs_err"],
-         k1_dims["max_abs_err"], k1_caps["max_abs_err"]]
+         k1_dims["max_abs_err"], k1_caps["max_abs_err"],
+         k1_wide["max_abs_err"], k1_long["max_abs_err"]]
         + [r["max_abs_err"] for r in k1_dev_scores.values()])
     kernels_out = [
         dict(name="fused_decode_attention", route="cuda",
@@ -2046,7 +2626,10 @@ def main() -> int:
              llama32_3b=dict(k1_llama, launches=llama["k1"], library_ms=None),
              split_k={k: dict(v) for k, v in split.items()},
              device_scores=k1_dev_scores, head_dims=k1_dims["cases"],
-             capacity=k1_caps["cases"]),
+             capacity=k1_caps["cases"],
+             wide_groups=dict(k1_wide["cases"], gate_model_launches=gate[
+                 GQA16_NAME]["k1"]),
+             long_windows=k1_long["cases"]),
         dict(name="gather_compact_rows", route="cuda",
              source="spatten_tpu_torch/csrc/compact_gather.cu",
              replaces="spatten_tpu/ops/compact_gather.py:335",

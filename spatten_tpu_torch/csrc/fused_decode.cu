@@ -87,7 +87,13 @@
 // the same shared-memory instructions as before.  The slices of a step (B * Hkv * G *
 // C * 4 bytes: 8.4 MB for Llama-2-70B's group at batch 8 and 4096 tokens)
 // fit in the card's 50 MB L2, so the plane should add L2 traffic rather
-// than HBM bytes; the rest of the plan is unchanged.
+// than HBM bytes; the rest of the plan is unchanged.  The device-plane
+// instances also take what the shared ones cannot: a GQA group past 8
+// (Llama-3.1-405B's 16) runs in <8, D, false> as chunks of 8 query rows
+// in the CTA (one append, one requant decision and one importance EMA
+// over every row; pass 1, the recompute and P·V once per chunk), and a
+// window whose per-V-block arrays would still pass 227 KB (1 kv head of
+// group 8 at 65,536 tokens, v_block 16) keeps them in a device plane too.
 //
 // What held the first design far from that bound was latency, not bytes:
 // each warp kept 4 rows of 4 bytes per lane in flight (~4 KB per CTA), and
@@ -176,8 +182,8 @@ struct Params {
   float* delta;          // delta mode: [B, Hkv or Hq, C], or null
   float* mrow;           // [B, Hq] row max, or null (no row stats)
   float* drow;           // [B, Hq] row denominator
-  float* splane;         // [B, Hkv, G, C] score plane in device memory, or
-                         // null (in shared memory)
+  float* splane;         // [B, Hkv, rows, C] score plane in device memory,
+                         // or null (in shared memory)
   int Hq, C, Ct, F, Hkv, pack_unit, layer;
   float sm_scale, threshold, ema;
   int quant, requant, keep_blocks, v_block;
@@ -191,13 +197,16 @@ struct Params {
   int t_msb, tpv, piece;
   int v_box;             // a P·V piece may be one box (128-byte aligned)
   int l2_off;            // where a msb tile's lsb2 rows start (128-aligned)
+  uint8_t* bplane;       // [B, Hkv, bstride] per-V-block arrays in device
+  int bstride;           // memory (device-plane instances), or null
   // TMA tensor maps over this layer's planes, rows of D bytes from the
   // head's first lane at stride F: boxes of kRows (int8 K), t_msb (msb,
   // lsb2) and piece (int8 V) rows
   CUtensorMap kf_map, km_map, kl2_map, vf_map;
 };
 
-// per-row scalars: misc[k * G + g]
+// per-row scalars: misc[k * rows + g] (rows: G, or the score rows of a
+// group run in chunks)
 enum Misc { kDen, kMax, kEmv, kXidx, kKth, kWrow, kEidx, kWmax };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -643,7 +652,7 @@ __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
                             const float (&qr)[G][Lanes<G, D>::CW],
                             const int (&qi)[G][Lanes<G, D>::CW / 4],
                             const RowScale<G>& rsc, int len, int idx,
-                            float* s, float* misc) {
+                            float* s, float* xidx) {
   using L = Lanes<G, D>;
   constexpr int T = L::kRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -706,7 +715,7 @@ __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
             for (int u = 0; u < U; ++u)
               if (lead[u])
                 finalize(acc[u], rsc.rs[g], rsc.off[g], ksc[u], t[u], idx,
-                         s + g * p.C, misc + kXidx * G + g);
+                         s + g * p.C, xidx + g);
           }
         }
       });
@@ -729,7 +738,7 @@ __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
                            const float (&qr)[G][Lanes<G, D>::CW],
                            const int (&qi)[G][Lanes<G, D>::CW / 4],
                            const RowScale<G>& rsc, int len, int idx,
-                           float* s, float* misc) {
+                           float* s, float* xidx) {
   using L = Lanes<G, D>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lrow = lane / L::LPR, lcol = lane % L::LPR;
@@ -842,22 +851,23 @@ __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
             for (int k = 0; k < 2 * U; ++k)
               if (put[k])
                 finalize(acc[k], rsc.rs[g], rsc.off[g], ksc[k], tok[k], idx,
-                         s + g * p.C, misc + kXidx * G + g);
+                         s + g * p.C, xidx + g);
           }
         }
       });
 }
 
-// Softmax statistics over [0, len): the row max, the denominator and, for
-// pv_int8, the running max of e * vscale over the f32 e, into misc; with
-// `write`, also the in-place numerators s <- exp(s - max) (rounded to bf16
-// under probs_bf16).  Presoftmax importance reads the scores first and
-// writes the numerators later (exp_rows), from the same max.  A thread
-// takes 8 consecutive columns at a time (one vector read of V scales).
-template <int G>
+// Softmax statistics over [0, len) of the plane's `rows` score rows: the
+// row max, the denominator and, for pv_int8, the running max of e *
+// vscale over the f32 e, into misc (misc[k * rows + g]); with `write`,
+// also the in-place numerators s <- exp(s - max) (rounded to bf16 under
+// probs_bf16).  Presoftmax importance reads the scores first and writes
+// the numerators later (exp_rows), from the same max.  A thread takes 8
+// consecutive columns at a time (one vector read of V scales).
 __device__ void softmax_rows(const Params& p, float* s, int len, float* red,
-                             float* misc, const uint8_t* vcol, bool write) {
-  for (int g = 0; g < G; ++g) {
+                             float* misc, const uint8_t* vcol, bool write,
+                             int rows) {
+  for (int g = 0; g < rows; ++g) {
     float* row = s + g * p.C;
     float m = -INFINITY;
     for (int t = threadIdx.x; t < len; t += kThreads) m = fmaxf(m, row[t]);
@@ -881,9 +891,9 @@ __device__ void softmax_rows(const Params& p, float* s, int len, float* red,
     if (p.pv_int8)
       emv = block_reduce(emv, red, 0.f, [](float x) { return warp_max(x); });
     if (threadIdx.x == 0) {
-      misc[kDen * G + g] = sum;
-      misc[kMax * G + g] = m;
-      misc[kEmv * G + g] = emv;
+      misc[kDen * rows + g] = sum;
+      misc[kMax * rows + g] = m;
+      misc[kEmv * rows + g] = emv;
     }
   }
   __syncthreads();
@@ -892,12 +902,11 @@ __device__ void softmax_rows(const Params& p, float* s, int len, float* red,
 // The numerators softmax_rows(write = false) summed, written in place.
 // Thread x handles the 8-column chunks importance() reads, so no barrier
 // is needed between the two.
-template <int G>
 __device__ void exp_rows(const Params& p, float* s, int len,
-                         const float* misc) {
-  for (int g = 0; g < G; ++g) {
+                         const float* misc, int rows) {
+  for (int g = 0; g < rows; ++g) {
     float* row = s + g * p.C;
-    const float m = misc[kMax * G + g];
+    const float m = misc[kMax * rows + g];
     for (int c0 = 8 * threadIdx.x; c0 < len; c0 += 8 * kThreads) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -911,15 +920,18 @@ __device__ void exp_rows(const Params& p, float* s, int len,
   }
 }
 
-// This step's importance: delta(g, t) = s[g][t] * wt[g] over the live
-// columns (probabilities times the row weight, or scores times the head
-// mask).  Accumulated into the stacked plane (the appended slot starts
-// from 0), or written to the delta output over the whole window; 8
-// columns per thread, read and written as vectors where they align.
-template <int G>
-__device__ void importance(const Params& p, const float* s, const float* wt,
-                           int len, int idx, bool do_app, size_t col0,
-                           float* dl) {
+// This step's importance: delta(t) = sum over the plane's `rows` score
+// rows g, in row order, of s[g][t] * wt(g) over the live columns
+// (probabilities times the row weight, or scores times the head mask).
+// Accumulated into the stacked plane (the appended slot starts from 0;
+// the EMA applies once to the sum of every row), or written to the delta
+// output over the whole window; 8 columns per thread, read and written as
+// vectors where they align.  Inlined, so that a constant `rows` unrolls.
+template <class W>
+__device__ __forceinline__ void importance(const Params& p, const float* s,
+                                           W wt, int rows, int len, int idx,
+                                           bool do_app, size_t col0,
+                                           float* dl) {
   if (p.imp != nullptr) {
     for (int c0 = 8 * threadIdx.x; c0 < len; c0 += 8 * kThreads) {
       float v[8];
@@ -931,7 +943,8 @@ __device__ void importance(const Params& p, const float* s, const float* wt,
         if (t < len) {
           float delta = 0.f;
 #pragma unroll
-          for (int g = 0; g < G; ++g) delta += __fmul_rn(s[g * p.C + t], wt[g]);
+          for (int g = 0; g < rows; ++g)
+            delta += __fmul_rn(s[g * p.C + t], wt(g));
           const float prev = (do_app && t == idx) ? 0.f : v[j];
           v[j] = __fadd_rn(__fmul_rn(prev, p.ema), delta);
         }
@@ -942,13 +955,13 @@ __device__ void importance(const Params& p, const float* s, const float* wt,
     for (int c0 = 8 * threadIdx.x; c0 < p.C; c0 += 8 * kThreads) {
       if (p.per_row) {
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < rows; ++g) {
           if (g >= p.g) break;                        // padding rows
           float v[8];
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const int t = c0 + j;
-            v[j] = t < len ? __fmul_rn(s[g * p.C + t], wt[g]) : 0.f;
+            v[j] = t < len ? __fmul_rn(s[g * p.C + t], wt(g)) : 0.f;
           }
           store_meta8(dl + static_cast<size_t>(g) * p.C, c0, v, 0,
                       min(8, p.C - c0));
@@ -961,14 +974,61 @@ __device__ void importance(const Params& p, const float* s, const float* wt,
           float delta = 0.f;
           if (t < len) {
 #pragma unroll
-            for (int g = 0; g < G; ++g)
-              delta += __fmul_rn(s[g * p.C + t], wt[g]);
+            for (int g = 0; g < rows; ++g)
+              delta += __fmul_rn(s[g * p.C + t], wt(g));
           }
           v[j] = delta;
         }
         store_meta8(dl, c0, v, 0, min(8, p.C - c0));
       }
     }
+  }
+}
+
+// The k-th largest V-block mass of each of `rows` rows of n non-negative
+// masses, into kth[row], for the device-plane instances (where counting
+// each mass's rank costs n^2 loads at long windows): the largest bit
+// pattern T with at least k masses >= T, found bit by bit (non-negative
+// floats order as their patterns do), which is the value the counting
+// rule picks (0 where k > n, which keeps the same blocks: those of mass
+// > 0).  Rows go to the warps kWarps at a time, each row to kWarps / R
+// warps (R rows in the round) that count slices of it, kSelUnroll loads in
+// flight per lane; their counts meet in red[] once a bit.
+constexpr int kSelUnroll = 8;
+__device__ void kth_largest_rows(const float* mass, int rows, int n, int k,
+                                 float* kth, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* cnt = reinterpret_cast<int*>(red);
+  for (int r0 = 0; r0 < rows; r0 += kWarps) {
+    const int R = min(rows - r0, kWarps), S = kWarps / R;
+    const int row = warp / S, part = warp % S;
+    const bool on = row < R;
+    const float* m = mass + static_cast<size_t>(r0 + row) * n;
+    const int span = (n + S - 1) / S;
+    const int lo = part * span, hi = min(n, lo + span);
+    uint32_t t = 0;
+    for (int bit = 30; bit >= 0; --bit) {
+      const uint32_t cand = t | (1u << bit);
+      int c = 0;
+      for (int j0 = on ? lo : hi; j0 < hi; j0 += 32 * kSelUnroll) {
+        uint32_t v[kSelUnroll];
+#pragma unroll
+        for (int u = 0; u < kSelUnroll; ++u) {
+          const int j = j0 + u * 32 + lane;
+          v[u] = j < hi ? __float_as_uint(m[j]) : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < kSelUnroll; ++u)
+          c += __popc(__ballot_sync(0xffffffffu, v[u] >= cand));
+      }
+      __syncthreads();                     // earlier readers of red are done
+      if (lane == 0) cnt[warp] = c;
+      __syncthreads();
+      int total = 0;
+      for (int q = 0; q < S; ++q) total += on ? cnt[row * S + q] : 0;
+      if (total >= k) t = cand;
+    }
+    if (on && part == 0 && lane == 0) kth[r0 + row] = __uint_as_float(t);
   }
 }
 
@@ -999,6 +1059,21 @@ __device__ void zero_outputs(const Params& p, int b, int hq0, size_t out0,
 // weight and V-block mass, so no importance, keep decision or P·V term),
 // enter neither the group's max probability nor the row stats, and write
 // nothing.  Every [B, Hq] index uses p.g.
+//
+// A group past 8 runs in the device-plane <8, D, false> instances, in
+// chunks of G query rows inside the one CTA of (kv head, batch row): the
+// plane holds rows = ceil(g / G) * G score rows.  The append runs once;
+// pass 1, the requant recompute and P·V run once per chunk (each with the
+// chunk's queries and accumulators in registers); the softmax, the
+// requant decision (one per CTA, over every row), the importance sum (over
+// every row, one EMA), the V-block masses and keep masks run over all
+// rows.  The per-row scalars (misc) hold `rows` entries each.  In those
+// instances the per-V-block arrays (masses, keep masks, kept-block list)
+// lie in shared memory after the scalars, or, where the wrapper passes
+// p.bplane because the plan would pass 227 KB, in this CTA's slice of
+// that device plane (generic loads: the pointer is chosen at run time
+// only here, so the shared-plane instances keep their shared-memory
+// instructions).
 template <int G, int D, bool kSmemScores>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_kernel(const __grid_constant__ Params p) {
@@ -1011,21 +1086,43 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   const int lrow = lane / L::LPR, lcol = lane % L::LPR;
   const int C = p.C, F = p.F;
   const int nvb = C / p.v_block;
+  const int gl = p.g;                               // live rows
+  // chunks of G rows and the score rows: only <8, D, false> runs a group
+  // past its G (elsewhere they are the constants 1 and G, so the other
+  // instances keep their registers)
+  constexpr bool kChunks = !kSmemScores && G == 8;
+  const int nch = kChunks ? (gl + G - 1) / G : 1;
+  const int MG = kChunks ? nch * G : G;
 
   Ring ring{smem, reinterpret_cast<uint64_t*>(smem + kStages * kStageStride),
             0};
   float* scratch = reinterpret_cast<float*>(ring.bar + kStages);
-  float* s = kSmemScores                            // [G, C]
-                 ? scratch
-                 : p.splane + (static_cast<size_t>(b) * p.Hkv + h) * G * C;
-  float* pv = kSmemScores ? s + G * C : scratch;    // [kWarps, G, D]
-  float* mass = pv + kWarps * G * D;                // [G, nvb]
-  float* red = mass + G * nvb;                      // [kWarps]
-  float* misc = red + kWarps;                       // [kMisc, G]
-  float* app = misc + kMisc * G;                    // k, v f32 new scales
-  int* kblk = reinterpret_cast<int*>(app + 2);      // kept blocks, count
-  uint8_t* keep = reinterpret_cast<uint8_t*>(kblk + nvb + 1);   // [G, nvb]
-  uint8_t* keep_any = keep + G * nvb;                            // [nvb]
+  float *s, *pv, *mass, *red, *misc, *app;
+  int* kblk;
+  uint8_t *keep, *keep_any;
+  if constexpr (kSmemScores) {
+    s = scratch;                                    // [G, C]
+    pv = s + G * C;                                 // [kWarps, G, D]
+    mass = pv + kWarps * G * D;                     // [G, nvb]
+    red = mass + G * nvb;                           // [kWarps]
+    misc = red + kWarps;                            // [kMisc, G]
+    app = misc + kMisc * G;                         // k, v f32 new scales
+    kblk = reinterpret_cast<int*>(app + 2);         // kept blocks, count
+    keep = reinterpret_cast<uint8_t*>(kblk + nvb + 1);   // [G, nvb]
+  } else {
+    s = p.splane + (static_cast<size_t>(b) * p.Hkv + h) * MG * C;
+    pv = scratch;
+    red = pv + kWarps * G * D;
+    misc = red + kWarps;                            // [kMisc, MG]
+    app = misc + kMisc * MG;
+    uint8_t* blk = p.bplane != nullptr
+        ? p.bplane + (static_cast<size_t>(b) * p.Hkv + h) * p.bstride
+        : reinterpret_cast<uint8_t*>(app + 2);
+    mass = reinterpret_cast<float*>(blk);           // [MG, nvb]
+    kblk = reinterpret_cast<int*>(mass + MG * nvb);
+    keep = reinterpret_cast<uint8_t*>(kblk + nvb + 1);   // [MG, nvb]
+  }
+  keep_any = keep + MG * nvb;                       // [nvb]
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
@@ -1035,7 +1132,6 @@ fused_decode_kernel(const __grid_constant__ Params p) {
 
   const int len = p.lengths[b];
   const bool do_app = p.appmask == nullptr || p.appmask[b] != 0;
-  const int gl = p.g;                               // live rows of G
   const int hq0 = h * gl;                           // first q head of group
   const int d = p.d;                                // live lanes of D
   const int sh = h * d - box_col(p, h);            // their offset in a row
@@ -1051,20 +1147,33 @@ fused_decode_kernel(const __grid_constant__ Params p) {
     if (threadIdx.x == 0) p.max_prob[b * p.Hkv + h] = NAN;
     return;
   }
+  auto row_alive = [&](int r) {
+    return r < gl && (p.hmask == nullptr || p.hmask[row0 + r] != 0);
+  };
   bool alive[G];
   bool any_alive = false;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    alive[g] = g < gl && (p.hmask == nullptr || p.hmask[row0 + g] != 0);
+    alive[g] = row_alive(g);
     any_alive |= alive[g];
   }
+  for (int r = G; r < MG; ++r) any_alive |= row_alive(r);   // later chunks
+  auto alive_at = [&](int r) {
+    if constexpr (kSmemScores) {
+      return alive[r];
+    } else {
+      return row_alive(r);
+    }
+  };
   if (len == 0) {
     // no live column: every score is masked, so m = MASK_VALUE, e = 0 and
     // den sits at its 1e-30 floor (max prob 1e30, which never requantizes)
     zero_outputs(p, b, hq0, out0, nvb, dl);
-    if (threadIdx.x < gl && p.mrow != nullptr) {
-      p.mrow[row0 + threadIdx.x] = kMaskValue;
-      p.drow[row0 + threadIdx.x] = 1e-30f;
+    if (p.mrow != nullptr) {
+      for (int r = threadIdx.x; r < gl; r += kThreads) {
+        p.mrow[row0 + r] = kMaskValue;
+        p.drow[row0 + r] = 1e-30f;
+      }
     }
     if (threadIdx.x == 0) {
       p.max_prob[b * p.Hkv + h] = any_alive ? 1e30f : 0.f;
@@ -1123,79 +1232,91 @@ fused_decode_kernel(const __grid_constant__ Params p) {
     return;
   }
 
-  // ---- queries in registers (a lane holds tile columns lcol*CW + c of
-  // every row: head column lcol*CW + c - sh; columns outside the head's
-  // d read 0, so the tile bytes there, a neighbouring head's or zeros,
-  // add nothing), optionally quantized to int8 per row; every row group
-  // derives the same row constants
-  float qr[G][CW];
-  float rowscale[G], qsum[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float amax = 0.f;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) {
-      const int col = lcol * CW + c - sh;
-      qr[g][c] = g < gl && col >= 0 && col < d ? p.q[out0 + g * d + col]
-                                                : 0.f;
-      amax = fmaxf(amax, fabsf(qr[g][c]));
-    }
-    rowscale[g] = 1.f;
-    if (p.qq) {
-      rowscale[g] = fmaxf(group_max<L::LPR>(amax), 1e-20f) / 127.f;
-#pragma unroll
-      for (int c = 0; c < CW; ++c)
-        qr[g][c] = fminf(fmaxf(rintf(qr[g][c] / rowscale[g]), -127.f), 127.f);
-    }
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) sum += qr[g][c];
-    qsum[g] = group_sum<L::LPR>(sum);
-  }
-  // int8 queries, 4 per word, for the integer dot products
-  int qi[G][CW / 4];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int k = 0; k < CW / 4; ++k) {
-      uint32_t v = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v |= (static_cast<uint32_t>(static_cast<int>(qr[g][4 * k + j])) & 0xFFu)
-             << (8 * j);
-      qi[g][k] = static_cast<int>(v);
-    }
-
-  // ---- pass 1 on the layer's profile + softmax + requant decision -------
+  // ---- pass 1's profile --------------------------------------------------
   const int bits = !p.quant ? 8 : (p.qbits ? p.qbits[p.layer] : 4);
   const bool p1_full = bits == 8;
   const bool use6 = bits == 6 && kl2 != nullptr;
   const float mult = p1_full ? 1.f : (use6 ? 4.f : 16.f);
   const float moff = p1_full ? 0.f : (use6 ? kMidpoint6 : kMsbMidpoint) - 128.f;
+
+  // ---- the queries of the chunk from row r0 in registers (a lane holds
+  // tile columns lcol*CW + c of every row: head column lcol*CW + c - sh;
+  // columns outside the head's d read 0, so the tile bytes there, a
+  // neighbouring head's or zeros, add nothing), optionally quantized to
+  // int8 per row, with the rows' score constants for pass 1 (rs1) and
+  // the int8 recompute (rs2); every row group derives the same constants
+  float qr[G][CW];
+  int qi[G][CW / 4];                                // int8 queries, 4 a word
   RowScale<G> rs1, rs2;
+  auto load_queries = [&](int r0) {
+    float rowscale[G], qsum[G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    rs1.rs[g] = __fmul_rn(rowscale[g], __fmul_rn(mult, p.sm_scale));
-    rs1.off[g] = p.quant ? __fmul_rn(__fmul_rn(rowscale[g], qsum[g]),
-                                     __fmul_rn(moff, p.sm_scale))
-                         : 0.f;
-    rs2.rs[g] = __fmul_rn(rowscale[g], p.sm_scale);
-    rs2.off[g] = 0.f;
-  }
-  if (p1_full) {
-    scores_full<G, D>(p, b, h, ring, kf, kcol, qr, qi, rs1, len, idx, s,
-                      misc);
-  } else {
-    scores_msb<G, D>(p, b, h, ring, km, use6 ? kl2 : nullptr, kcol, qr, qi,
-                     rs1, len, idx, s, misc);
+    for (int g = 0; g < G; ++g) {
+      const int r = r0 + g;
+      float amax = 0.f;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int col = lcol * CW + c - sh;
+        qr[g][c] = r < gl && col >= 0 && col < d ? p.q[out0 + r * d + col]
+                                                  : 0.f;
+        amax = fmaxf(amax, fabsf(qr[g][c]));
+      }
+      rowscale[g] = 1.f;
+      if (p.qq) {
+        rowscale[g] = fmaxf(group_max<L::LPR>(amax), 1e-20f) / 127.f;
+#pragma unroll
+        for (int c = 0; c < CW; ++c)
+          qr[g][c] = fminf(fmaxf(rintf(qr[g][c] / rowscale[g]), -127.f), 127.f);
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) sum += qr[g][c];
+      qsum[g] = group_sum<L::LPR>(sum);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int k = 0; k < CW / 4; ++k) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v |= (static_cast<uint32_t>(static_cast<int>(qr[g][4 * k + j])) & 0xFFu)
+               << (8 * j);
+        qi[g][k] = static_cast<int>(v);
+      }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      rs1.rs[g] = __fmul_rn(rowscale[g], __fmul_rn(mult, p.sm_scale));
+      rs1.off[g] = p.quant ? __fmul_rn(__fmul_rn(rowscale[g], qsum[g]),
+                                       __fmul_rn(moff, p.sm_scale))
+                           : 0.f;
+      rs2.rs[g] = __fmul_rn(rowscale[g], p.sm_scale);
+      rs2.off[g] = 0.f;
+    }
+  };
+  load_queries(0);
+
+  // ---- pass 1 on the layer's profile (per chunk) + softmax + requant
+  // decision (over every row)
+  for (int c = 0; c < nch; ++c) {
+    if (c > 0) load_queries(c * G);
+    float* sc = s + static_cast<size_t>(c) * G * C;
+    float* xc = misc + kXidx * MG + c * G;
+    if (p1_full) {
+      scores_full<G, D>(p, b, h, ring, kf, kcol, qr, qi, rs1, len, idx, sc,
+                        xc);
+    } else {
+      scores_msb<G, D>(p, b, h, ring, km, use6 ? kl2 : nullptr, kcol, qr, qi,
+                       rs1, len, idx, sc, xc);
+    }
   }
   // presoftmax keeps the scores until its importance has read them
   const bool write_e = !p.presoftmax;
-  softmax_rows<G>(p, s, len, red, misc, vcol, write_e);
+  softmax_rows(p, s, len, red, misc, vcol, write_e, MG);
   float mp = 0.f;
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-    if (g < gl) mp = fmaxf(mp, 1.f / fmaxf(misc[kDen * G + g], 1e-30f));
+  for (int g = 0; g < MG; ++g)
+    if (g < gl) mp = fmaxf(mp, 1.f / fmaxf(misc[kDen * MG + g], 1e-30f));
   // an 8-bit pass 1 already read the int8 plane: it never requantizes
   const bool fire = any_alive && p.requant && !p1_full &&
                     mp < p.threshold;               // uniform
@@ -1205,13 +1326,19 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   }
   if (fire) {
     __syncthreads();
-    scores_full<G, D>(p, b, h, ring, kf, kcol, qr, qi, rs2, len, idx, s,
-                      misc);
-    softmax_rows<G>(p, s, len, red, misc, vcol, write_e);
+    for (int c = 0; c < nch; ++c) {
+      if (nch > 1) load_queries(c * G);
+      scores_full<G, D>(p, b, h, ring, kf, kcol, qr, qi, rs2, len, idx,
+                        s + static_cast<size_t>(c) * G * C,
+                        misc + kXidx * MG + c * G);
+    }
+    softmax_rows(p, s, len, red, misc, vcol, write_e, MG);
   }
-  if (p.mrow != nullptr && threadIdx.x < gl) {
-    p.mrow[row0 + threadIdx.x] = misc[kMax * G + threadIdx.x];
-    p.drow[row0 + threadIdx.x] = fmaxf(misc[kDen * G + threadIdx.x], 1e-30f);
+  if (p.mrow != nullptr) {
+    for (int r = threadIdx.x; r < gl; r += kThreads) {
+      p.mrow[row0 + r] = misc[kMax * MG + r];
+      p.drow[row0 + r] = fmaxf(misc[kDen * MG + r], 1e-30f);
+    }
   }
   if (!any_alive) {                                 // row stats only
     zero_outputs(p, b, hq0, out0, nvb, dl);
@@ -1221,59 +1348,73 @@ fused_decode_kernel(const __grid_constant__ Params p) {
     float hm[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) hm[g] = alive[g] ? 1.f : 0.f;
-    importance<G>(p, s, hm, len, idx, do_app, col0, dl);
-    exp_rows<G>(p, s, len, misc);
+    importance(p, s,
+               [&](int g) {
+                 if constexpr (kSmemScores) {
+                   return hm[g];
+                 } else {
+                   return row_alive(g) ? 1.f : 0.f;
+                 }
+               },
+               MG, len, idx, do_app, col0, dl);
+    exp_rows(p, s, len, misc, MG);
   }
-  if (threadIdx.x < G) {
-    const int g = threadIdx.x;
-    const float inv = 1.f / fmaxf(misc[kDen * G + g], 1e-30f);
-    const float wrow = alive[g] ? inv : 0.f;
-    misc[kWrow * G + g] = wrow;
-    misc[kWmax * G + g] = __fmul_rn(misc[kEmv * G + g], wrow);
+  for (int g = threadIdx.x; g < MG; g += kThreads) {
+    const float inv = 1.f / fmaxf(misc[kDen * MG + g], 1e-30f);
+    const float wrow = alive_at(g) ? inv : 0.f;
+    misc[kWrow * MG + g] = wrow;
+    misc[kWmax * MG + g] = __fmul_rn(misc[kEmv * MG + g], wrow);
     // the appended column's probability with the new row's f32 K scale
-    misc[kEidx * G + g] =
-        do_app ? expf(__fmul_rn(misc[kXidx * G + g], app[0]) -
-                      misc[kMax * G + g])
+    misc[kEidx * MG + g] =
+        do_app ? expf(__fmul_rn(misc[kXidx * MG + g], app[0]) -
+                      misc[kMax * MG + g])
                : 0.f;
   }
   __syncthreads();
-  const float* wrow = misc + kWrow * G;
+  const float* wrow = misc + kWrow * MG;
 
   // ---- prob importance: probabilities times the row weight -------------
-  if (!p.presoftmax) importance<G>(p, s, wrow, len, idx, do_app, col0, dl);
+  if (!p.presoftmax)
+    importance(p, s, [&](int g) { return wrow[g]; }, MG, len, idx, do_app,
+               col0, dl);
 
   // ---- local V pruning: per-row block keep mask --------------------------
   const bool vprune = p.keep_blocks > 0;
   int nk = (len + p.v_block - 1) / p.v_block;      // blocks P·V streams
   if (vprune) {
-    for (int i = threadIdx.x; i < G * nvb; i += kThreads) {
+    for (int i = threadIdx.x; i < MG * nvb; i += kThreads) {
       const int g = i / nvb, j = i % nvb;
       const int t0 = j * p.v_block, t1 = min(t0 + p.v_block, len);
       float m = 0.f;
       for (int t = t0; t < t1; ++t) m += s[g * C + t];
-      mass[i] = alive[g] ? m : 0.f;
+      mass[i] = alive_at(g) ? m : 0.f;
     }
     __syncthreads();
-    // k-th largest by counting: the smallest mass whose strictly-greater
-    // count is below keep_blocks (ties kept)
-    for (int g = 0; g < G; ++g) {
-      float cand = INFINITY;
-      for (int j = threadIdx.x; j < nvb; j += kThreads) {
-        const float mj = mass[g * nvb + j];
-        int rank = 0;
-        for (int i = 0; i < nvb; ++i) rank += mass[g * nvb + i] > mj;
-        if (rank < p.keep_blocks) cand = fminf(cand, mj);
+    if constexpr (kSmemScores) {
+      for (int g = 0; g < G; ++g) {
+        // k-th largest by counting: the smallest mass whose strictly-
+        // greater count is below keep_blocks (ties kept)
+        float cand = INFINITY;
+        for (int j = threadIdx.x; j < nvb; j += kThreads) {
+          const float mj = mass[g * nvb + j];
+          int rank = 0;
+          for (int i = 0; i < nvb; ++i) rank += mass[g * nvb + i] > mj;
+          if (rank < p.keep_blocks) cand = fminf(cand, mj);
+        }
+        cand = block_reduce(cand, red, INFINITY,
+                            [](float x) { return warp_min(x); });
+        if (threadIdx.x == 0) misc[kKth * G + g] = cand;
       }
-      cand = block_reduce(cand, red, INFINITY, [](float x) { return warp_min(x); });
-      if (threadIdx.x == 0) misc[kKth * G + g] = cand;
+    } else {
+      kth_largest_rows(mass, MG, nvb, p.keep_blocks, misc + kKth * MG, red);
     }
     __syncthreads();
     for (int j = threadIdx.x; j < nvb; j += kThreads) {
       uint8_t any = 0;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < MG; ++g) {
         const float mj = mass[g * nvb + j];
-        const uint8_t k = (mj >= misc[kKth * G + g]) && (mj > 0.f);
+        const uint8_t k = (mj >= misc[kKth * MG + g]) && (mj > 0.f);
         keep[g * nvb + j] = k;
         any |= k;
         if (p.keep_out != nullptr && g < gl)
@@ -1303,7 +1444,8 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   // pieces that lie inside one block, each with its V scale segment.  The
   // appended column comes last, from the new row's f32 V scale (pv_int8:
   // 8-bit row weights w8 = rint(w * 127 / wmax) on the stored int8 rows,
-  // int32 sums, kept in the f32 accumulators' bits)
+  // int32 sums, kept in the f32 accumulators' bits).  One stream per chunk
+  // of G rows (the kept blocks are every row's)
   const int tpv = p.tpv, piece = p.piece;
   const int sstride = seg_stride(piece, es), vmis = misalign(vcol);
   const int nvr = nk * p.v_block;
@@ -1321,146 +1463,166 @@ fused_decode_kernel(const __grid_constant__ Params p) {
            (d != D || (tf + piece <= len &&
                        !(do_app && idx >= tf && idx < tf + piece)));
   };
-  float acc[G][CW];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int c = 0; c < CW; ++c) acc[g][c] = 0.f;
-  float wrecip[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-    wrecip[g] = 127.f / fmaxf(misc[kWmax * G + g], 1e-30f);
   const uint8_t* vplane = reinterpret_cast<const uint8_t*>(vf);
-  stream_tiles(
-      ring, (nvr + tpv - 1) / tpv,
-      [&](int i, uint8_t* st, uint32_t bar, bool go) {
-        const int vr0 = i * tpv, rows = min(tpv, nvr - vr0);
-        uint32_t bytes = 0;
-        for (int rr = lane; rr < rows; rr += 32) {
-          const int j = rr / piece;
-          const int t = token(vr0 + rr);
-          if (fetched(t) &&
-              !whole(t - rr % piece, min(piece, rows - j * piece))) {
-            if (go)
-              bulk_copy(st + rr * D, vplane + static_cast<size_t>(t) * F, D,
-                        bar);
-            bytes += D;
-          }
-        }
-        for (int j = lane; j * piece < rows; j += 32) {
-          const int tf = token(vr0 + j * piece);
-          const int n = min(piece, rows - j * piece);
-          bytes += seg_copy(st + kStageBytes + j * sstride, vcol, tf, n, es,
-                            bar, go);
-          if (whole(tf, n)) {
-            if (go)
-              tensor_copy(st + j * piece * D, &p.vf_map, box_col(p, h), b * p.Ct + tf,
-                          bar);
-            bytes += piece * D;
-          }
-        }
-        return bytes;
-      },
-      [&](int i, const uint8_t* st) {
-        const int vr0 = i * tpv, rows = min(tpv, nvr - vr0);
-        for (int base = warp * L::RPW; base < rows; base += kWarps * L::RPW) {
-          const int rr = base + lrow;
-          const int t = rr < rows ? token(vr0 + rr) : len;
-          if (!fetched(t)) continue;                 // no shuffles below
-          uint32_t w[CW / 4];
-          lds<CW>(st + rr * D + lcol * CW, w);
-          const float sc = seg_at(st + kStageBytes + (rr / piece) * sstride,
-                                  vmis, t - rr % piece, t, p.sc_bf16);
-          const int j = t / p.v_block;
+  const float kept_scale = 1.f / 127.f;
+  for (int c = 0; c < nch; ++c) {
+    const int r0 = c * G;
+    const float* sc = s + static_cast<size_t>(r0) * C;
+    const uint8_t* kc = keep + r0 * nvb;
+    const float* wc = wrow + r0;
+    const float* wmx = misc + kWmax * MG + r0;
+    float acc[G][CW];
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const bool kept = !vprune || keep[g * nvb + j];
-            const float wt = kept ? __fmul_rn(__fmul_rn(s[g * C + t], wrow[g]), sc)
-                                  : 0.f;
-            if (p.pv_int8) {
-              const int w8 = static_cast<int>(
-                  fminf(fmaxf(rintf(__fmul_rn(wt, wrecip[g])), 0.f), 127.f));
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-              for (int c = 0; c < CW; ++c)
-                acc[g][c] = __int_as_float(
-                    __float_as_int(acc[g][c]) +
-                    w8 * static_cast<int>(static_cast<int8_t>(byte_at(w, c))));
-            } else {
+      for (int cc = 0; cc < CW; ++cc) acc[g][cc] = 0.f;
+    float wrecip[G];
 #pragma unroll
-              for (int c = 0; c < CW; ++c)
-                acc[g][c] = fmaf(wt, int8_at(w, c), acc[g][c]);
+    for (int g = 0; g < G; ++g) wrecip[g] = 127.f / fmaxf(wmx[g], 1e-30f);
+    stream_tiles(
+        ring, (nvr + tpv - 1) / tpv,
+        [&](int i, uint8_t* st, uint32_t bar, bool go) {
+          const int vr0 = i * tpv, rows = min(tpv, nvr - vr0);
+          uint32_t bytes = 0;
+          for (int rr = lane; rr < rows; rr += 32) {
+            const int j = rr / piece;
+            const int t = token(vr0 + rr);
+            if (fetched(t) &&
+                !whole(t - rr % piece, min(piece, rows - j * piece))) {
+              if (go)
+                bulk_copy(st + rr * D, vplane + static_cast<size_t>(t) * F,
+                          D, bar);
+              bytes += D;
             }
           }
+          for (int j = lane; j * piece < rows; j += 32) {
+            const int tf = token(vr0 + j * piece);
+            const int n = min(piece, rows - j * piece);
+            bytes += seg_copy(st + kStageBytes + j * sstride, vcol, tf, n, es,
+                              bar, go);
+            if (whole(tf, n)) {
+              if (go)
+                tensor_copy(st + j * piece * D, &p.vf_map, box_col(p, h),
+                            b * p.Ct + tf, bar);
+              bytes += piece * D;
+            }
+          }
+          return bytes;
+        },
+        [&](int i, const uint8_t* st) {
+          const int vr0 = i * tpv, rows = min(tpv, nvr - vr0);
+          for (int base = warp * L::RPW; base < rows; base += kWarps * L::RPW) {
+            const int rr = base + lrow;
+            const int t = rr < rows ? token(vr0 + rr) : len;
+            if (!fetched(t)) continue;                 // no shuffles below
+            uint32_t w[CW / 4];
+            lds<CW>(st + rr * D + lcol * CW, w);
+            const float scl = seg_at(st + kStageBytes + (rr / piece) * sstride,
+                                     vmis, t - rr % piece, t, p.sc_bf16);
+            const int j = t / p.v_block;
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              const bool kept = !vprune || kc[g * nvb + j];
+              const float wt = kept
+                  ? __fmul_rn(__fmul_rn(sc[g * C + t], wc[g]), scl)
+                  : 0.f;
+              if (p.pv_int8) {
+                const int w8 = static_cast<int>(
+                    fminf(fmaxf(rintf(__fmul_rn(wt, wrecip[g])), 0.f), 127.f));
+#pragma unroll
+                for (int cc = 0; cc < CW; ++cc)
+                  acc[g][cc] = __int_as_float(
+                      __float_as_int(acc[g][cc]) +
+                      w8 * static_cast<int>(static_cast<int8_t>(byte_at(w, cc))));
+              } else {
+#pragma unroll
+                for (int cc = 0; cc < CW; ++cc)
+                  acc[g][cc] = fmaf(wt, int8_at(w, cc), acc[g][cc]);
+              }
+            }
+          }
+        });
+    // the warp's row groups hold partial sums of the same columns
+#pragma unroll
+    for (int o = L::LPR; o < 32; o <<= 1) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int cc = 0; cc < CW; ++cc) {
+          const float other = __shfl_xor_sync(0xffffffffu, acc[g][cc], o);
+          acc[g][cc] = p.pv_int8 ? __int_as_float(__float_as_int(acc[g][cc]) +
+                                                  __float_as_int(other))
+                                 : acc[g][cc] + other;
         }
-      });
-  // the warp's row groups hold partial sums of the same columns
+    }
+    if (lrow == 0) {
 #pragma unroll
-  for (int o = L::LPR; o < 32; o <<= 1) {
+      for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+        for (int cc = 0; cc < CW; ++cc)
+          pv[(warp * G + g) * D + lcol * CW + cc] = acc[g][cc];
+    }
+    __syncthreads();
+    const int* pvi = reinterpret_cast<const int*>(pv);
+    // the partials' lanes outside the head's (its neighbours' bytes) are
+    // never read; the chunk's live rows only
+    const int glc = min(G, gl - r0);
+    for (int i = threadIdx.x; i < glc * d; i += kThreads) {
+      const int g = i / d, dd = i % d, k = g * D + sh + dd;
+      float o;
+      if (p.pv_int8) {
+        int sum = 0;
 #pragma unroll
-      for (int c = 0; c < CW; ++c) {
-        const float other = __shfl_xor_sync(0xffffffffu, acc[g][c], o);
-        acc[g][c] = p.pv_int8 ? __int_as_float(__float_as_int(acc[g][c]) +
-                                               __float_as_int(other))
-                              : acc[g][c] + other;
+        for (int w = 0; w < kWarps; ++w) sum += pvi[w * G * D + k];
+        o = __fmul_rn(static_cast<float>(sum), __fmul_rn(wmx[g], kept_scale));
+      } else {
+        o = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) o += pv[w * G * D + k];
       }
-  }
-  if (lrow == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int c = 0; c < CW; ++c)
-        pv[(warp * G + g) * D + lcol * CW + c] = acc[g][c];
-  }
-  __syncthreads();
-  const int* pvi = reinterpret_cast<const int*>(pv);
-  const float kept_scale = 1.f / 127.f;
-  // the partials' lanes outside the head's (its neighbours' bytes) are
-  // never read
-  for (int i = threadIdx.x; i < gl * d; i += kThreads) {
-    const int g = i / d, dd = i % d, k = g * D + sh + dd;
-    float o;
-    if (p.pv_int8) {
-      int sum = 0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += pvi[w * G * D + k];
-      o = __fmul_rn(static_cast<float>(sum),
-                    __fmul_rn(misc[kWmax * G + g], kept_scale));
-    } else {
-      o = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) o += pv[w * G * D + k];
+      if (do_app) {
+        const float kept_new =
+            (!vprune || kc[g * nvb + idx / p.v_block]) ? 1.f : 0.f;
+        const float p_idx = __fmul_rn(
+            __fmul_rn(misc[kEidx * MG + r0 + g], wc[g]), kept_new);
+        const float vnew = __fmul_rn(
+            static_cast<float>(vf[static_cast<size_t>(idx) * F + dd]), app[1]);
+        o = __fadd_rn(o, __fmul_rn(p_idx, vnew));
+      }
+      p.out[out0 + static_cast<size_t>(r0) * d + i] = o;
     }
-    if (do_app) {
-      const float kept_new =
-          (!vprune || keep[g * nvb + idx / p.v_block]) ? 1.f : 0.f;
-      const float p_idx =
-          __fmul_rn(__fmul_rn(misc[kEidx * G + g], wrow[g]), kept_new);
-      const float vnew = __fmul_rn(
-          static_cast<float>(vf[static_cast<size_t>(idx) * F + dd]), app[1]);
-      o = __fadd_rn(o, __fmul_rn(p_idx, vnew));
-    }
-    p.out[out0 + i] = o;
+    if (c + 1 < nch) __syncthreads();               // pv is the next chunk's
   }
 }
 
-// Shared memory of one CTA (the [G, C] score plane only when it is not in
-// device memory); spatten_tpu_torch/ops/fused_decode.py::smem_bytes
+// Bytes of one CTA's per-V-block arrays over `rows` score rows: masses
+// (f32 [rows, nvb]), the kept-block list and its count (int [nvb + 1]),
+// the keep masks ([rows, nvb] bytes) and their union ([nvb] bytes).
+size_t block_bytes(int rows, int nvb) {
+  return sizeof(float) * (static_cast<size_t>(rows) * nvb + nvb + 1) +
+         static_cast<size_t>(rows + 1) * nvb;
+}
+
+// Shared memory of one CTA of instance <G, D> over `rows` score rows (G,
+// or a multiple of it for a group past the instance's): the ring, the
+// [G, C] score plane only when it is not in device memory, the per-warp
+// P·V partials, the scalars and, unless they lie in device memory, the
+// per-V-block arrays.  spatten_tpu_torch/ops/fused_decode.py::smem_bytes
 // mirrors it (and raises before a launch past the limit).
-size_t smem_bytes(int G, int D, int C, int v_block, bool scores_in_smem) {
+size_t smem_bytes(int G, int D, int C, int v_block, bool scores_in_smem,
+                  int rows, bool blocks_in_smem) {
   const int nvb = C / v_block;
   return static_cast<size_t>(kStages) * (kStageStride + sizeof(uint64_t)) +
          sizeof(float) * ((scores_in_smem ? static_cast<size_t>(G) * C : 0) +
-                          kWarps * G * D + G * nvb + kWarps + kMisc * G + 2 +
-                          nvb + 1) +
-         static_cast<size_t>(G + 1) * nvb;
+                          kWarps * G * D + kWarps + kMisc * rows + 2) +
+         (blocks_in_smem ? block_bytes(rows, nvb) : 0);
 }
 
 template <int G, int D>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int B, int rows, cudaStream_t stream) {
   const bool in_smem = p.splane == nullptr;
-  const size_t smem = smem_bytes(G, D, p.C, p.v_block, in_smem);
+  const size_t smem = smem_bytes(G, D, p.C, p.v_block, in_smem, rows,
+                                 p.bplane == nullptr);
   void (*kernel)(Params) = in_smem ? fused_decode_kernel<G, D, true>
                                    : fused_decode_kernel<G, D, false>;
   if (smem > 48 * 1024) {
@@ -1474,15 +1636,16 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 }
 
 // G: the instance the wrapper chose for the model's group p.g (the
-// smallest of 1, 2, 4, 8 that holds it; its shared-memory plan and score
-// plane slices are sized by G).
+// smallest of 1, 2, 4, 8 that holds it, and 8 past 8; its shared-memory
+// plan and score plane slices are sized by G and `rows`).
 template <int D>
-cudaError_t launch_g(const Params& p, int B, int G, cudaStream_t stream) {
+cudaError_t launch_g(const Params& p, int B, int G, int rows,
+                     cudaStream_t stream) {
   switch (G) {
-    case 1: return launch<1, D>(p, B, stream);
-    case 2: return launch<2, D>(p, B, stream);
-    case 4: return launch<4, D>(p, B, stream);
-    case 8: return launch<8, D>(p, B, stream);
+    case 1: return launch<1, D>(p, B, rows, stream);
+    case 2: return launch<2, D>(p, B, rows, stream);
+    case 4: return launch<4, D>(p, B, rows, stream);
+    case 8: return launch<8, D>(p, B, rows, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1595,10 +1758,14 @@ cudaError_t plan_ring(Params& p, int B, int D) {
 // row stride F = Hkv * d that is a multiple of 16; scale, importance and
 // delta columns may start anywhere (their segments and vectors align
 // themselves).  `G`, `D`: the <G, D> instance, which holds the model's
-// group Hq / Hkv (its smallest such G) and head_dim d (the wrapper's
-// fused_decode.instance_dim); `splane`: f32 [B, Hkv, G, C] for the score
-// plane when the wrapper finds that the instance's shared-memory plan
-// with it would pass 227 KB, else null.
+// group g = Hq / Hkv (its smallest such G, or 8 in chunks of 8 rows for g
+// past 8) and head_dim d (the wrapper's fused_decode.instance_dim);
+// `splane`: f32 [B, Hkv, rows, C] for the score plane, rows = ceil(g / G)
+// * G, when the wrapper finds that the instance's shared-memory plan with
+// it would pass 227 KB or g passes G, else null; `bplane`: bytes [B, Hkv,
+// round16(block_bytes(rows, C / v_block))] for the per-V-block arrays when
+// the plan with them would still pass 227 KB (only with `splane`), else
+// null.
 extern "C" int spatten_fused_decode(
     const float* q, const float* k_new, const float* v_new, const int* lengths,
     int8_t* kfull, uint8_t* kmsb, uint8_t* klsb2, void* kscale, int8_t* vfull,
@@ -1609,10 +1776,11 @@ extern "C" int spatten_fused_decode(
     int pack_unit, int layer,
     float sm_scale, float threshold, float ema, int quant, int requant,
     int keep_blocks, int v_block, int sc_bf16, int imp_bf16, int qq,
-    int pv_int8, int probs_bf16, int presoftmax, int per_row, void* stream) {
+    int pv_int8, int probs_bf16, int presoftmax, int per_row, uint8_t* bplane,
+    void* stream) {
   if (Ct % 2 || C % 2 || (klsb2 && pack_unit % 4) || (Hkv * d) % 16 || misaligned(kfull) ||
       misaligned(kmsb) || misaligned(klsb2) || misaligned(vfull) ||
-      misaligned(vmsb) || misaligned(splane))
+      misaligned(vmsb) || misaligned(splane) || misaligned(bplane))
     return static_cast<int>(cudaErrorMisalignedAddress);
   Params p{q, k_new, v_new, lengths, kfull, kmsb, klsb2, kscale, vfull, vmsb,
            vscale, imp, hmask, qbits, appmask, out, max_prob, need, keep_out,
@@ -1621,18 +1789,25 @@ extern "C" int spatten_fused_decode(
            sc_bf16, imp_bf16, qq, pv_int8, probs_bf16, presoftmax, per_row};
   p.g = Hq / Hkv;
   p.d = d;
+  p.bplane = bplane;
+  const int rows = G < 1 ? 0 : (p.g + G - 1) / G * G;
+  p.bstride = static_cast<int>((block_bytes(rows, C / v_block) + 15) & ~size_t{15});
   const int low = d & -d;                  // a box row's lead-in is at
   const int lead = low < 16 ? 16 - low : 0;   // most 16 - gcd(d, 16)
-  if (Hq % Hkv || p.g > G || (G > 1 && 2 * p.g <= G) || d < 1 ||
+  // a group past its instance runs in chunks only in <8, D, false>; the
+  // block plane comes only with the score plane
+  if (G < 1 || Hq % Hkv || p.g < 1 || (G > 1 && 2 * p.g <= G) ||
+      (p.g > G && (G != 8 || splane == nullptr)) ||
+      (bplane != nullptr && splane == nullptr) || d < 1 ||
       d + lead > D || (D != 64 && D != 128 && D != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = plan_ring(p, B, D);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return static_cast<int>(launch_g<64>(p, B, G, s));
-    case 128: return static_cast<int>(launch_g<128>(p, B, G, s));
-    case 256: return static_cast<int>(launch_g<256>(p, B, G, s));
+    case 64: return static_cast<int>(launch_g<64>(p, B, G, rows, s));
+    case 128: return static_cast<int>(launch_g<128>(p, B, G, rows, s));
+    case 256: return static_cast<int>(launch_g<256>(p, B, G, rows, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

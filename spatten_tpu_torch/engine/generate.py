@@ -12,6 +12,8 @@ produce the same greedy token stream:
   chunk that would overflow a layer's capacity rung;
 * decode runs in windows of ``decode_window`` steps (clamped to the
   pruning headroom) with a prune, when scheduled, before each window;
+* under ``SPATTEN_DEBUG=1`` a prompt's first chunk runs under
+  ``utils.debug.checkify_step``;
 * head pruning derives the per-layer head mask from the importance
   accumulators once after prefill and, on the fly, at every window
   boundary where the length clock crosses ``head_update_interval``
@@ -26,6 +28,7 @@ take a state update its tensors in place and consume it.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import NamedTuple, Optional
 
@@ -39,6 +42,7 @@ from spatten_tpu_torch.engine.state import DecodeState, init_state
 from spatten_tpu_torch.models import transformer
 from spatten_tpu_torch.ops import rope as rope_ops
 from spatten_tpu_torch.pruning import compact, token_pruning
+from spatten_tpu_torch.utils import debug as dbg
 
 
 def maybe_prune(cfg: SpAttenConfig, state: DecodeState, num_coming: int,
@@ -137,9 +141,23 @@ def prefill_chunk(params, cfg: SpAttenConfig, state: DecodeState,
     return logits[:, -1], state, aux
 
 
+def _prefill_step(params, cfg: SpAttenConfig, state: DecodeState,
+                  tokens: torch.Tensor, layers, first: bool):
+    """``prefill_chunk``; under ``SPATTEN_DEBUG=1`` a prompt's first chunk
+    runs under ``utils.debug.checkify_step``, so numeric corruption (a
+    NaN escaping a masked region, a zero softmax denominator) raises at
+    the producing op instead of surfacing as garbage tokens."""
+    step = functools.partial(prefill_chunk, params, cfg,
+                             static_layers=layers)
+    if first and dbg.enabled():
+        return dbg.checkify_step(step, state, tokens)
+    return step(state, tokens)
+
+
 def prefill(params, cfg: SpAttenConfig, state: DecodeState,
             tokens: torch.Tensor, host_lens: Optional[list] = None):
-    """Full prompt prefill with schedule-known prunes between chunks.
+    """Full prompt prefill with schedule-known prunes between chunks (the
+    first chunk checked under ``SPATTEN_DEBUG=1``, ``_prefill_step``).
     Consumes ``state``.  Returns (last_logits, state, host_lens,
     pruned_layers): the layers pruned at each prune point, in order."""
     total = tokens.shape[1]
@@ -152,8 +170,9 @@ def prefill(params, cfg: SpAttenConfig, state: DecodeState,
         layers, host_lens = prune_schedule_step(cfg, host_lens, n)
         if layers:
             pruned.append(layers)
-        last_logits, state, _ = prefill_chunk(
-            params, cfg, state, tokens[:, pos:pos + n], static_layers=layers)
+        last_logits, state, _ = _prefill_step(
+            params, cfg, state, tokens[:, pos:pos + n], layers,
+            first=pos == 0)
     return last_logits, state, host_lens, pruned
 
 
@@ -289,8 +308,9 @@ def generate(
     else:
         chunk = cfg.engine.prefill_chunk
         for pos in range(0, prompt.shape[1], chunk):
-            last_logits, state, _ = prefill_chunk(
-                params, cfg, state, prompt[:, pos:pos + chunk])
+            last_logits, state, _ = _prefill_step(
+                params, cfg, state, prompt[:, pos:pos + chunk], None,
+                first=pos == 0)
     head_updates: list = []
     head_compact = None
     if cfg.pruning.enable_head_pruning and cfg.pruning.head_keep > 0:

@@ -29,13 +29,17 @@ for CPU tensors; for CUDA tensors it launches the kernel or raises.
 has instances for GQA groups 1, 2, 4 and 8 and head dims 64, 128 and 256;
 a group of 3 runs in the group-4 instance and 5-7 in the group-8 one
 (``instance_group``), whose extra rows are padding that the kernel skips,
+a group past 8 in the group-8 instance with its score plane in device
+memory, as chunks of 8 rows (``plane_rows`` rows, the last chunk padded),
 and a head_dim d in the smallest instance dim D >= d (``instance_dim``),
-whose lanes past d it reads and never uses.
+whose lanes past d it reads and never uses.  ``k1_plan`` says where a
+launch keeps its score plane and its per-V-block arrays; K1 refuses only
+a head_dim past 256 lanes (``k1_shape_error``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -320,12 +324,19 @@ def fused_decode_attention_plain(
 def instance_group(group: int) -> int:
     """The ``<G, D>`` instance that runs a model's GQA group: the smallest
     of ``_GROUPS`` that holds it (3 runs in 4; 5, 6 and 7 in 8, whose rows
-    past the model's group are padding the kernel skips).  ValueError for
-    a group outside 1..8."""
-    if not 1 <= group <= _GROUPS[-1]:
-        raise ValueError(f"GQA group {group}: K1's instances hold groups 1 "
-                         f"to {_GROUPS[-1]}")
-    return next(g for g in _GROUPS if g >= group)
+    past the model's group are padding the kernel skips), and 8 for a
+    group past 8, which the kernel runs in chunks of 8 rows.  ValueError
+    for a group below 1."""
+    if group < 1:
+        raise ValueError(f"GQA group {group}")
+    return next((g for g in _GROUPS if g >= group), _GROUPS[-1])
+
+
+def plane_rows(group: int) -> int:
+    """Score rows of a K1 launch at a model's GQA group: the instance
+    group, or for a group past 8 the group rounded up to chunks of 8."""
+    inst = instance_group(group)
+    return -(-group // inst) * inst
 
 
 def _lead_in(head_dim: int) -> int:
@@ -352,26 +363,44 @@ def instance_dim(head_dim: int) -> int:
     return next(x for x in _HEAD_DIMS[1:] if x >= need)
 
 
+def block_bytes(rows: int, nvb: int) -> int:
+    """Bytes of one K1 CTA's per-V-block arrays over ``rows`` score rows
+    and ``nvb`` V blocks (``block_bytes`` in ``csrc/fused_decode.cu``):
+    f32 masses [rows, nvb], the kept-block list and its count (int32
+    [nvb + 1]), the keep masks [rows, nvb] and their union [nvb] (bytes).
+    A device block plane gives each CTA this rounded up to 16 bytes."""
+    return 4 * (rows * nvb + nvb + 1) + (rows + 1) * nvb
+
+
 def smem_bytes(group: int, head_dim: int, cap: int, v_block: int,
-               in_smem: bool = True) -> int:
+               in_smem: bool = True, rows: Optional[int] = None,
+               blocks_in_smem: bool = True) -> int:
     """Shared memory of one K1 CTA of instance ``<group, head_dim>``
     (``group`` one of ``_GROUPS``, ``head_dim`` one of ``_HEAD_DIMS``; see
-    ``instance_group`` and ``instance_dim``), mirroring ``smem_bytes`` in
-    ``csrc/fused_decode.cu``: the tile ring, the [G, cap] score plane
-    (unless it lies in device memory), the per-warp P·V partials, the
-    V-block masses, scalars, the kept-block list and the keep masks."""
+    ``instance_group`` and ``instance_dim``) over ``rows`` score rows
+    (default ``group``; more only with the plane in device memory),
+    mirroring ``smem_bytes`` in ``csrc/fused_decode.cu``: the tile ring,
+    the [G, cap] score plane (unless it lies in device memory), the
+    per-warp P·V partials, scalars per row and, unless they lie in device
+    memory, the per-V-block arrays (``block_bytes``)."""
     if group not in _GROUPS:
         raise ValueError(f"group {group} is not a K1 instance group "
                          f"{_GROUPS}")
     if head_dim not in _HEAD_DIMS:
         raise ValueError(f"head_dim {head_dim} is not a K1 instance dim "
                          f"{_HEAD_DIMS}")
+    rows = group if rows is None else rows
+    if in_smem and rows != group:
+        raise ValueError("a score plane in shared memory holds the "
+                         "instance group's rows")
+    if in_smem and not blocks_in_smem:
+        raise ValueError("the V-block arrays leave shared memory only "
+                         "with the score plane")
     nvb = cap // v_block
     return (_STAGES * (_STAGE_STRIDE + _BARRIER)
             + 4 * (group * cap * in_smem + _WARPS * group * head_dim
-                   + group * nvb + _WARPS + _MISC_PER_ROW * group + 2 + nvb
-                   + 1)
-            + (group + 1) * nvb)
+                   + _WARPS + _MISC_PER_ROW * rows + 2)
+            + block_bytes(rows, nvb) * blocks_in_smem)
 
 
 def scores_in_smem(group: int, head_dim: int, cap: int, v_block: int
@@ -383,46 +412,66 @@ def scores_in_smem(group: int, head_dim: int, cap: int, v_block: int
     return smem_bytes(group, head_dim, cap, v_block) <= _SMEM_LIMIT
 
 
-def _smem_error(group: int, head_dim: int, cap: int, v_block: int,
-                in_smem: bool = True) -> Optional[str]:
-    smem = smem_bytes(group, head_dim, cap, v_block, in_smem)
-    if smem > _SMEM_LIMIT:
-        return (f"K1 on CUDA: window {cap} x GQA group {group} needs {smem} "
-                "B of shared memory"
-                + ("" if in_smem else " with its score plane in device "
-                   "memory"))
-    return None
+class K1Plan(NamedTuple):
+    """Where a K1 launch keeps its planes (``k1_plan``)."""
+    inst: int                 # the <G, D> instance's group
+    dim: int                  # and head dim
+    rows: int                 # score rows (``plane_rows``)
+    scores_in_smem: bool      # the [rows, rung] score plane
+    blocks_in_smem: bool      # the per-V-block arrays
+    smem: int                 # shared memory of one CTA
+
+
+def k1_plan(group: int, head_dim: int, rung: int, v_block: int) -> K1Plan:
+    """The plan of a K1 launch at a model's GQA group and head_dim over a
+    window of ``rung`` tokens: everything in shared memory where it fits
+    227 KB (and the group fits its instance); else the score plane in
+    device memory; else the per-V-block arrays there too.  ValueError for
+    a head_dim past 256 lanes."""
+    inst, dim = instance_group(group), instance_dim(head_dim)
+    rows = plane_rows(group)
+    if rows == inst and scores_in_smem(inst, dim, rung, v_block):
+        return K1Plan(inst, dim, rows, True, True,
+                      smem_bytes(inst, dim, rung, v_block))
+    smem = smem_bytes(inst, dim, rung, v_block, False, rows)
+    if smem <= _SMEM_LIMIT:
+        return K1Plan(inst, dim, rows, False, True, smem)
+    return K1Plan(inst, dim, rows, False, False,
+                  smem_bytes(inst, dim, rung, v_block, False, rows, False))
 
 
 def check_smem(group: int, head_dim: int, cap: int, v_block: int) -> int:
     """The shared memory of a K1 launch of instance group ``group`` with
     its score plane in shared memory; NotImplementedError past the card's
     227 KB per block."""
-    err = _smem_error(group, head_dim, cap, v_block)
-    if err:
-        raise NotImplementedError(err)
-    return smem_bytes(group, head_dim, cap, v_block)
+    smem = smem_bytes(group, head_dim, cap, v_block)
+    if smem > _SMEM_LIMIT:
+        raise NotImplementedError(
+            f"K1 on CUDA: window {cap} x GQA group {group} needs {smem} B "
+            "of shared memory")
+    return smem
 
 
 def k1_shape_error(group: int, head_dim: int, cap_total: int, rung: int,
                    v_block: int) -> Optional[str]:
     """Why K1 on the card does not take a call of this shape, or None when
-    it does: a GQA group (the model's) past the largest instance, a
-    head_dim past the largest, or a shared-memory plan past 227 KB even
-    with the score plane in device memory (the plan of the instance that
-    runs the group and head_dim).  Any stored capacity and rung the
-    wrapper's layout rules admit run.  The wrapper raises
+    it does.  It takes every GQA group (past 8 in chunks of 8 rows) and
+    every window (the score plane and then the per-V-block arrays move to
+    device memory as the window grows, ``k1_plan``), and any stored
+    capacity and rung the wrapper's layout rules admit; it refuses only a
+    head_dim past its largest instance's 256 lanes.  The wrapper raises
     ``NotImplementedError`` with this message."""
-    if not 1 <= group <= _GROUPS[-1]:
-        return (f"K1 on CUDA: GQA group {group} (the kernel's instances "
-                f"hold groups 1 to {_GROUPS[-1]}; no configuration the "
-                "port drives has a larger one)")
+    if group < 1:
+        return f"K1 on CUDA: GQA group {group}"
     if head_dim < 1 or head_dim + _lead_in(head_dim) > _HEAD_DIMS[-1]:
         return (f"K1 on CUDA: head_dim {head_dim} (the kernel's instances "
                 f"hold head dims up to {_HEAD_DIMS[-1]} lanes)")
-    inst, dim = instance_group(group), instance_dim(head_dim)
-    return _smem_error(inst, dim, rung, v_block,
-                       scores_in_smem(inst, dim, rung, v_block))
+    plan = k1_plan(group, head_dim, rung, v_block)
+    if plan.smem > _SMEM_LIMIT:
+        return (f"K1 on CUDA: window {rung} x GQA group {group} needs "
+                f"{plan.smem} B of shared memory with its score plane and "
+                "V-block arrays in device memory")
+    return None
 
 
 def fused_decode_attention(
@@ -543,8 +592,7 @@ def fused_decode_attention(
     shape_error = k1_shape_error(group, d, cap_total, cap, v_block_size)
     if shape_error:
         raise NotImplementedError(shape_error)
-    inst = instance_group(group)            # the <G, D> instance
-    dim = instance_dim(d)
+    plan = k1_plan(group, d, cap, v_block_size)   # the <G, D> instance
     nvb = cap // v_block_size
 
     dev = q.device
@@ -578,10 +626,16 @@ def fused_decode_attention(
         delta = torch.empty((b, hq if per_row else hkv, cap),
                             dtype=torch.float32, device=dev)
     # the score plane, where the instance's shared-memory plan cannot hold
-    # it: one [G, cap] slice per CTA, padding rows included
-    splane = None
-    if not scores_in_smem(inst, dim, cap, v_block_size):
-        splane = torch.empty((b, hkv, inst, cap), dtype=torch.float32,
+    # it (or the group runs in chunks): one [rows, cap] slice per CTA,
+    # padding rows included; and the per-V-block arrays, where the plan
+    # cannot hold them either: one 16-byte-aligned slice per CTA
+    splane = bplane = None
+    if not plan.scores_in_smem:
+        splane = torch.empty((b, hkv, plan.rows, cap), dtype=torch.float32,
+                             device=dev)
+    if not plan.blocks_in_smem:
+        stride = -(-block_bytes(plan.rows, nvb) // 16) * 16
+        bplane = torch.empty((b, hkv, stride), dtype=torch.uint8,
                              device=dev)
     m_rows = den_rows = None
     if return_row_stats:
@@ -603,7 +657,8 @@ def fused_decode_attention(
         kernels.ptr(qbits), kernels.ptr(appm), out.data_ptr(),
         max_prob.data_ptr(), need.data_ptr(), kernels.ptr(keep_out),
         kernels.ptr(delta), kernels.ptr(m_rows), kernels.ptr(den_rows),
-        kernels.ptr(splane), b, hq, hkv, inst, dim, d, cap, cap_total,
+        kernels.ptr(splane), b, hq, hkv, plan.inst, plan.dim, d, cap,
+        cap_total,
         qz.pack_unit(cap_total),
         0 if layer is None else int(layer),
         float(sm_scale), float(requant_threshold), float(importance_ema),
@@ -611,7 +666,8 @@ def fused_decode_attention(
         int(kq.scale.dtype == torch.bfloat16),
         int(accumulate and imp.dtype == torch.bfloat16),
         int(quantize_queries), int(pv_int8), int(probs_bf16),
-        int(importance_kind == "presoftmax"), int(per_row))
+        int(importance_kind == "presoftmax"), int(per_row),
+        kernels.ptr(bplane))
     fused_decode_attention.launches += 1
     if accumulate:
         delta = importance_in

@@ -3,11 +3,13 @@
 ``split_k``: split-K (sequence-parallel) flash decode over a cache whose
 token axis is sharded across an explicit list of devices, driven by one
 controller (the counterpart of the JAX package's ``shard_map`` over a
-``kv`` mesh axis).  The multi-process slice -- DP x TP (``sharded.py``),
-pipeline stages (``pipeline.py``) and multi-host (``multihost.py``) over
-``torch.distributed`` -- is not ported yet.
+``kv`` mesh axis).  ``multihost``: joining a ``torch.distributed`` process
+group and the heartbeat that the supervised decode probes with.  The
+multi-card slice -- DP x TP (``sharded.py``), pipeline stages
+(``pipeline.py``) and split-K across processes -- is not ported yet.
 """
 
+from spatten_tpu_torch.parallel.multihost import health_check, initialize
 from spatten_tpu_torch.parallel.split_k import (
     KVMesh,
     join_kv,
@@ -24,6 +26,8 @@ from spatten_tpu_torch.parallel.split_k import (
 
 __all__ = [
     "KVMesh",
+    "health_check",
+    "initialize",
     "join_kv",
     "join_tokens",
     "make_kv_mesh",

@@ -195,6 +195,17 @@ SPLIT_K_CASES = {
                           return_row_stats=True,
                           append_mask=[False, True, False, False],
                           head_mask=[True, True, True, False, True, True])),
+    # groups past 8 (two chunks of 8 rows in <8, 128>): per-row deltas,
+    # row stats and the presoftmax sum over every row of both chunks
+    "per_row_gqa16": (16, [256, 129, 40, 0],
+                      dict(per_row_importance=True, delta_mode=True,
+                           return_row_stats=True,
+                           append_mask=[False, True, False, False],
+                           head_mask=[i not in (3, 20) for i in range(32)])),
+    "presoftmax_delta_gqa12": (12, [256, 200, 33, 2],
+                               dict(importance_kind="presoftmax",
+                                    delta_mode=True, return_row_stats=True,
+                                    head_mask=[i != 9 for i in range(24)])),
 }
 
 
@@ -684,3 +695,119 @@ def test_engine_kernels_match_plain_path(dev):
         errs.append(float((logits[0] - logits[1]).abs().max()))
         tok = torch.argmax(logits[1], -1).to(torch.int32)
     assert np.mean(np.asarray(errs) <= 1e-3) >= 0.9, errs
+
+
+# name -> (query heads, kv heads, head_dim, capacity, lengths, layer
+# bits): GQA groups past 8, which K1 runs in <8, D> as chunks of 8 rows
+# of a device score plane
+WIDE_GROUP_CASES = {
+    "GQA 16 (32 over 2 x 128)": (32, 2, 128, 256, [256, 129, 40, 1], None),
+    "GQA 12 (24 over 2 x 64), 6-bit": (24, 2, 64, 256, [256, 200, 33, 2],
+                                       (4, 6)),
+}
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("case", list(WIDE_GROUP_CASES))
+def test_k1_groups_past_8_match_plain(dev, case, bf16):
+    """K1 at groups 16 and 12 with a partly alive group, under the serving
+    flags (bf16 metadata, int8 queries, pv_int8, probs_bf16) or f32
+    metadata (out within 1e-4)."""
+    hq, hkv, d, cap, lengths, bits = WIDE_GROUP_CASES[case]
+    plan = fd.k1_plan(hq // hkv, d, cap, 16)
+    assert plan.inst == 8 and plan.rows == 16 and not plan.scores_in_smem
+    cfg = serving_small(cap=cap, hq=hq, hkv=hkv, d=d, bf16=bf16,
+                        layer_bits=bits)
+    hm = torch.ones((hkv, hq // hkv), dtype=torch.bool)
+    hm[-1, 0] = False
+    hm[-1, 9] = False                       # a dead row in the 2nd chunk
+    g = torch.Generator(device=dev).manual_seed(800 + hq + 7 * bf16)
+    flags = (dict(quantize_queries=True, pv_int8=True, probs_bf16=True)
+             if bf16 else {})
+    res = run_pair(dev, cfg, g, lengths, requant=True, v_keep=(64, 64),
+                   head_mask=hm.reshape(hq).to(dev), **flags)
+    if not bf16:
+        assert res["max_abs_err"] <= 1e-4
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.LONG_WINDOW_CASES))
+def test_k1_long_windows_match_plain(dev, case):
+    """K1 where its per-V-block arrays lie in device memory (1 kv head of
+    group 8 at 65,536 tokens, 2 kv heads at 131,072), on inputs peaked on
+    the kept count of blocks (``chip_smoke.peaked_k1_inputs``), every
+    head requantizing."""
+    hq, hkv, cap, vb, lengths = chip_smoke.LONG_WINDOW_CASES[case]
+    base = chip_smoke.k1_shape_config(chip_smoke.serving_config(2, cap=cap),
+                                      hq=hq, hkv=hkv, d=128, cap=cap)
+    cfg = dataclasses.replace(
+        base, quant=dataclasses.replace(base.quant, scale_dtype="float32"),
+        pruning=dataclasses.replace(base.pruning, v_block_size=vb,
+                                    importance_dtype="float32")).validate()
+    assert not fd.k1_plan(hq // hkv, 128, cap, vb).blocks_in_smem
+    kw = chip_smoke.k1_flags(cfg, 0, cap)
+    kb = fd._v_keep_blocks(kw["v_keep"], vb, cap, 0)
+    g = torch.Generator(device=dev).manual_seed(900 + hkv)
+    st, q, kn, vn = chip_smoke.peaked_k1_inputs(cfg, dev, g, lengths, kb)
+    res = kc.k1_pair(st, q, kn, vn,
+                     torch.tensor(lengths, dtype=torch.int32, device=dev),
+                     layer=0, threshold=1.0, v_block=vb,
+                     keep_blocks_for=lambda _: kb, **kw)
+    assert res["near_rows"] == 0 and res["fired"] == hkv * len(lengths)
+
+
+def test_supervised_streams_equal_on_the_card(dev, tmp_path):
+    """``generate_supervised`` on the GQA-3 gate model (f32, K1 in <4,
+    64>): a probe that fails before the second window, and a run resumed
+    from disk, give the uninterrupted run's tokens exactly."""
+    from spatten_tpu_torch.engine.supervisor import generate_supervised
+    cfg, batch, plen, _ = chip_smoke.group_configs()[chip_smoke.GQA3_NAME]
+    params = tr.init_params(cfg.model, 0, dtype=torch.float32, device=dev)
+    prompt = np.random.default_rng(0).integers(0, cfg.model.vocab_size,
+                                               (batch, plen))
+    before = fd.fused_decode_attention.launches
+    want = generate_supervised(params, cfg, prompt, 24, str(tmp_path / "a"),
+                               window=8, health=lambda: True, device=dev)
+    assert fd.fused_decode_attention.launches - before == 2 * 24
+    calls = iter([True, False])
+    got = generate_supervised(params, cfg, prompt, 24, str(tmp_path / "b"),
+                              window=8, health=lambda: next(calls, True),
+                              device=dev)
+    assert torch.equal(got, want)
+    generate_supervised(params, cfg, prompt, 16, str(tmp_path / "c"),
+                        window=8, health=lambda: True, device=dev)
+    got = generate_supervised(None, cfg, prompt, 24, str(tmp_path / "c"),
+                              window=8, health=lambda: True, resume=True,
+                              device=dev)
+    assert torch.equal(got, want)
+
+
+def test_checkpoint_round_trip_of_a_card_state(dev, tmp_path):
+    """A card state (bf16 scales and importance) and its params restore
+    byte for byte on the card, and the next decode step from the copy
+    equals the one from the original."""
+    from spatten_tpu_torch.engine import checkpoint
+    cfg, batch, plen, _ = chip_smoke.group_configs()[chip_smoke.GQA3_NAME]
+    cfg = dataclasses.replace(
+        cfg, quant=dataclasses.replace(cfg.quant, scale_dtype="bfloat16"),
+        pruning=dataclasses.replace(cfg.pruning,
+                                    importance_dtype="bfloat16")).validate()
+    params = tr.init_params(cfg.model, 0, dtype=torch.bfloat16, device=dev)
+    prompt = np.random.default_rng(1).integers(0, cfg.model.vocab_size,
+                                               (batch, plen))
+    res = gen.generate(params, cfg, prompt, 8, device=dev)
+    checkpoint.save(str(tmp_path / "s"), params, res.state,
+                    extra={"token": res.tokens[:, -1]})
+    p2, s2, extra = checkpoint.restore_with_extra(str(tmp_path / "s"), dev)
+    a = res.state
+    for x, y in zip(a.cache.k + a.cache.v + tuple(a[1:]),
+                    s2.cache.k + s2.cache.v + tuple(s2[1:])):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert y.device == x.device and y.dtype == x.dtype
+            assert torch.equal(x, y)
+    assert all(torch.equal(params["layers"][k], p2["layers"][k])
+               for k in params["layers"])
+    tok = extra["token"].to(dev)
+    t1, _, _ = gen.decode_step(params, cfg, a.clone(), tok)
+    t2, _, _ = gen.decode_step(p2, cfg, s2, tok)
+    assert torch.equal(t1, t2)

@@ -45,7 +45,7 @@ torch.set_num_threads(1)
 
 [TINY] = list(chip_smoke.gate_configs())
 [GQA8] = list(chip_smoke.device_scores_configs())
-[GQA3] = list(chip_smoke.group_configs())
+GQA3 = chip_smoke.GQA3_NAME
 
 
 def gqa4_16k():
@@ -70,6 +70,9 @@ SHAPES = {
     "parity": (chip_smoke.parity_config, True, False),
     "GQA 3 x 64, cap 64": (
         lambda: chip_smoke.group_configs()[GQA3][0], True, False),
+    "GQA 16 x 128, cap 64": (
+        lambda: chip_smoke.group_configs()[chip_smoke.GQA16_NAME][0], True,
+        True),
     "Llama-3.2-3B (GQA 3 x 128), rungs 2048/4096": (
         chip_smoke.llama32_3b_config, True, False),
 }
@@ -157,10 +160,10 @@ def test_gate_matches_the_wrappers_limits(monkeypatch):
             [(kernel, args)] = launched[before:]
             assert kernel == "fused_decode", (name, rung)
             # the score plane's pointer (null: in shared memory), by the
-            # plan of the instance that runs the group and head_dim
-            in_smem = fd.scores_in_smem(fd.instance_group(m.q_heads_per_kv),
-                                        fd.instance_dim(m.head_dim),
-                                        rung, vb)
+            # plan of the instance that runs the group and head_dim (a
+            # group past 8 keeps it in device memory)
+            in_smem = fd.k1_plan(m.q_heads_per_kv, m.head_dim, rung,
+                                 vb).scores_in_smem
             assert (args[22] is None) is in_smem, (name, rung)
             if rung == cap:
                 assert in_smem is not device_scores, name
@@ -172,10 +175,11 @@ def test_gate_limits_are_the_smem_plans():
     """``smem_bytes`` at v_block 64: GQA 8 at 4096 tokens and GQA 4 at
     16384 pass 227 KB with the score plane in shared memory and fit with
     it in device memory, so K1 takes them; the main path's instance keeps
-    it in shared memory at both serving rungs.  K1 refuses a plan that
-    overflows even without the plane, and the head dims it has no
-    instance for; head dims and capacities it runs (head_dim 8 in 64,
-    100 in 128; 1020 tokens at v_block 4) pass."""
+    it in shared memory at both serving rungs.  A plan that overflows
+    even without the plane keeps its per-V-block arrays in device memory
+    too, and K1 takes it; K1 refuses the head dims it has no instance
+    for; head dims and capacities it runs (head_dim 8 in 64, 100 in 128;
+    1020 tokens at v_block 4) pass."""
     assert fd.smem_bytes(8, 128, 4096, 64) == 241_804
     assert fd.smem_bytes(4, 128, 16384, 64) == 359_884
     assert fd.smem_bytes(8, 128, 4096, 64, in_smem=False) == 110_732
@@ -186,8 +190,12 @@ def test_gate_limits_are_the_smem_plans():
     for rung in (2048, 4096):
         assert fd.scores_in_smem(1, 128, 4096, 64)
         assert fd.k1_shape_error(1, 128, 4096, rung, 64) is None
-    assert "score plane in device memory" in fd.k1_shape_error(
-        8, 128, 262144, 262144, 64)
+    assert fd.k1_shape_error(8, 128, 262144, 262144, 64) is None
+    plan = fd.k1_plan(8, 128, 262144, 64)
+    assert not plan.scores_in_smem and not plan.blocks_in_smem
+    assert fd.smem_bytes(8, 128, 262144, 64, in_smem=False) > 227 * 1024
+    assert plan.smem == fd.smem_bytes(8, 128, 262144, 64, in_smem=False,
+                                      blocks_in_smem=False) <= 227 * 1024
     assert "head_dim 300" in fd.k1_shape_error(2, 300, 64, 64, 8)
     assert fd.k1_shape_error(2, 8, 64, 64, 8) is None
     assert fd.k1_shape_error(1, 100, 2048, 2048, 64) is None
@@ -272,13 +280,22 @@ def test_group_runs_in_a_larger_instance(monkeypatch, group):
 
 
 def test_group_past_the_instances_raises():
-    """Groups above 8 keep their refusal (no configuration has one)."""
-    assert "GQA group 9" in fd.k1_shape_error(9, 64, 64, 64, 8)
-    assert "GQA group 16" in fd.k1_shape_error(16, 128, 64, 64, 8)
+    """Groups above 8 run in the group-8 instance, in chunks of 8 rows of
+    a score plane in device memory, so K1 takes them; what still raises:
+    a group below 1, a plan for a group that is not an instance group,
+    and a shared-memory score plan of more rows than the instance's."""
+    for group, rows in ((9, 16), (12, 16), (16, 16), (17, 24), (32, 32)):
+        assert fd.instance_group(group) == 8
+        assert fd.plane_rows(group) == rows
+        assert fd.k1_shape_error(group, 128, 64, 64, 8) is None
+        plan = fd.k1_plan(group, 128, 64, 8)
+        assert plan.rows == rows and not plan.scores_in_smem
     with pytest.raises(ValueError):
-        fd.instance_group(9)
+        fd.instance_group(0)
     with pytest.raises(ValueError):
         fd.smem_bytes(3, 128, 4096, 64)      # not an instance group
+    with pytest.raises(ValueError):
+        fd.smem_bytes(8, 128, 64, 8, rows=16)
 
 
 def test_admitted_head_dim_k1_lacks_raises(monkeypatch):

@@ -243,7 +243,7 @@ def in_package(mod, obj):
 
 @pytest.fixture(scope="module")
 def gqa3_runs():
-    [(cfg, batch, plen, new)] = chip_smoke.group_configs().values()
+    cfg, batch, plen, new = chip_smoke.group_configs()[chip_smoke.GQA3_NAME]
     jc, tc = in_package(jcfg, cfg).validate(), in_package(tcfg, cfg)
     assert tc == cfg and tc.model.q_heads_per_kv == 3
     jparams = jtr.init_params(jc.model, jax.random.PRNGKey(0),
