@@ -29,7 +29,11 @@ failures is caught:
    bits); K1 with its per-V-block arrays in device memory too
    (``phase_k1_long_windows``: 1 kv head of group 8 at 65,536 tokens, 2
    kv heads at 131,072; f32 and bf16 metadata, every head requantizing
-   and none);
+   and none); K1 at head dims past 256 lanes, which it runs in <G, 256>
+   as boxes of 256 bytes side by side (``phase_k1_wide_head_dims``: 288,
+   384, 512 and 1024 at capacity 4096, batch 4) and at the shard shapes
+   of the mesh phases (``phase_k1_shard_shapes``: Llama-2-7B's TP-4 shard
+   in <1, 128>, Llama-2-70B's TP-8 shard in <8, 128> on 4 CTAs);
    rules and tolerances in ``spatten_tpu_torch/kernel_checks.py``.  K1's times (``time_k1``)
    are device times per call from CUDA events over back-to-back calls
    that walk the stacked layers, so each call finds its planes cold in
@@ -68,15 +72,17 @@ failures is caught:
       queries, integer P·V, bf16 probabilities and metadata; then its
       first decode window again through the plain versions, fed the same
       tokens, and a profile of decode;
-   c. ``dense_config()``: the dense-int8 baseline (``build_cfg(spatten=
-      False)``), prefill and 64 decode steps (tok/s printed, no claim);
+   c. ``dense_config(8)``: the dense-int8 baseline (``build_cfg(spatten=
+      False)``) at depth 8, prefill and 64 decode steps (tok/s printed, no
+      claim);
    d. ``profile_config()``: the serving configuration with the 4/4/6/6/8
       quant profile, depth 8, 64 new tokens;
-   e. ``parity_config()``: the JAX CLI's defaults (``run_spatten_tpu.py``)
+   e. ``parity_config(8)``: the JAX CLI's defaults (``run_spatten_tpu.py``)
       with the reference-parity importance signal (presoftmax, not
-      accumulated) at Llama-2-7B width and depth, batch 8, prompt 1152,
+      accumulated) at Llama-2-7B width, depth 8, batch 8, prompt 1152,
       128 new tokens; its first decode window again through the plain
-      versions;
+      versions (the dense and parity paths run at depth 8 since the
+      multi-card phases k.-m. came in);
    f. ``llama32_3b_config()``: Llama-3.2-3B's published widths and depth
       (28 layers, 24 query heads over 8 kv heads of 128, vocab 128256,
       random bf16 weights) under the serving settings, batch 8, capacity
@@ -97,14 +103,38 @@ failures is caught:
    j. ``phase_debug_hook``: ``generate`` under ``SPATTEN_DEBUG=1`` (the
       first prefill chunk under the float checks; launches counted)
       equal to the run without it;
+   the multi-card slice, each rank a process on cuda:0 under gloo (NCCL
+   refuses two ranks of one communicator on one card; the collectives go
+   through the host, so these times say nothing of NVLink), each rank's
+   ``generate`` counted and recorded (``mesh_rank``), its first decode
+   window again through the plain versions, K1 = local layers x tokens
+   (x microbatches), K2 = the layer compactions of its prune schedule,
+   and the run's logits against the same engine's 1-rank run fed the
+   same tokens (``against_one_rank``: equal for pipeline stages without
+   TP; printed beside the window limits for TP and DP runs, whose
+   last-bit differences SpAtten's discrete decisions amplify);
+   before the paths, ``mesh_small_check``: an f32 DP 2 x TP 2 run at
+   small width whose tokens equal the same ranks' run on the CPU and
+   whose decode steps each match their CPU replay within 1e-3;
+   k. ``phase_sharded``: ``ShardedEngine`` on ``serving_config()`` at
+      Llama-2-7B width and depth, mesh data 2 x model 4 (8 ranks, each
+      [32, 4, 4096, 1024] planes in K1's <1, 128>), batch 8, prompt 3072,
+      32 new tokens;
+   l. ``phase_sharded_70b``: Llama-2-70B's widths, depth 8, mesh 1 x 8
+      (each rank one kv head of group 8: K1's <8, 128> on 4 CTAs), batch
+      4, capacity 4096, prompt 3072, 32 new tokens;
+   m. ``phase_pipeline``: ``PipelineEngine`` on Llama-2-7B, 4 stages of 8
+      layers, batch 8, M = 1 and M = 2; then 2 stages x TP 2 at depth 16,
+      batch 4, M = 2;
    every phase's seconds are printed;
 7. a ``kernels`` JSON line: per kernel its launches on the serving path
    (the probes: 0, with their own phase's count beside), error, time on
    the card (``ms``), its plain version's (``plain_ms``), the least time
    the card could take (``bound_ms``, with ``bound_by``) and a PyTorch
    library call's time where one computes the same function; K1's
-   4096-rung, parity, split-K, Llama-3.2-3B, group-16 and long-window
-   numbers and the first slice's ride along in extra fields;
+   4096-rung, parity, split-K, Llama-3.2-3B, group-16, long-window,
+   wide-head-dim, shard-shape and mesh numbers and the first slice's
+   ride along in extra fields;
 8. the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -311,6 +341,7 @@ def openllama_3b_config(num_layers: int = 26):
 
 
 PARITY_BATCH, PARITY_PROMPT = 8, 1152
+EARLY_DEPTH = 8         # the dense and parity paths' depth (see main)
 
 
 def parity_config(num_layers: int = 32):
@@ -1498,6 +1529,121 @@ def phase_k1_head_dims(dev) -> dict:
     return dict(max_abs_err=max(errs), cases=out)
 
 
+# K1 at head dims past 256 lanes, which it runs in <G, 256> as lane
+# pieces: name -> (query heads, kv heads, head_dim, lengths at capacity
+# 4096, batch 4), each on a 4-layer stack of 4, 6, 8 and 4 bits
+WIDE_HEAD_DIM_CASES = {
+    "head_dim 288, GQA 4 (16 over 4)": (16, 4, 288, [4096, 3001, 977, 1]),
+    "head_dim 384, GQA 2 (4 over 2)": (4, 2, 384, [4096, 2049, 700, 64]),
+    "head_dim 512, GQA 8 (8 over 1)": (8, 1, 512, [4096, 3100, 1500, 33]),
+    "head_dim 1024, MHA (1 over 1)": (1, 1, 1024, [4096, 4000, 2049, 3]),
+}
+WIDE_HEAD_DIM_CAP = 4096
+
+
+def phase_k1_wide_head_dims(dev) -> dict:
+    """K1 at head dims past 256 lanes (``WIDE_HEAD_DIM_CASES``), which the
+    JAX kernel takes and K1 runs in its <G, 256> instances as
+    ``lane_pieces`` boxes side by side, under the serving flags at a stack
+    of 4, 6, 8 and 4 bits with a serving head mask, capacity 4096, batch
+    4: held against its plain version on the 4-, 6- and 8-bit layers
+    (every plane byte exact), then timed on each against its bound.
+    Where the plan puts the score plane in device memory the metadata is
+    f32, as in ``phase_k1_head_dims``."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    cap, bits = WIDE_HEAD_DIM_CAP, (4, 6, 8, 4)
+    out, errs, lines = {}, [], []
+    for name, (hq, hkv, d, lengths) in WIDE_HEAD_DIM_CASES.items():
+        base = serving_config(len(bits), layer_bits=bits, cap=cap)
+        cfg = k1_shape_config(base, hq=hq, hkv=hkv, d=d, cap=cap,
+                              layers=len(bits))
+        vb = cfg.pruning.v_block_size
+        plan = fd.k1_plan(hq // hkv, d, cap, vb)
+        pieces = fd.lane_pieces(d)
+        check(plan.dim == 256 and pieces > 1,
+              f"{name}: instance <{plan.inst}, {plan.dim}>, {pieces} pieces")
+        if not plan.scores_in_smem:
+            cfg = dataclasses.replace(
+                cfg,
+                quant=dataclasses.replace(cfg.quant, scale_dtype="float32"),
+                pruning=dataclasses.replace(cfg.pruning,
+                                            importance_dtype="float32"))
+        st, q, kn, vn = k1_inputs(cfg, dev, gen, len(lengths))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        hm = serving_head_mask(cfg, gen, dev)
+        where = "shared" if plan.scores_in_smem else "device"
+        res = {}
+        for layer, b in enumerate(bits[:3]):
+            r = k1_case_logged(
+                errs, lines, f"{name} in <{plan.inst}, 256> x {pieces} "
+                f"pieces, {b}-bit, plane in {where} memory", cfg, st, q, kn,
+                vn, layer, cap, lens, head_mask=hm)
+            t = time_k1(st, q, kn, vn, lens, cfg, [layer], cap,
+                        r["threshold"], head_mask=hm)
+            res[f"{b}-bit"] = dict(max_abs_err=r["max_abs_err"], ms=t["ms"],
+                                   plain_ms=t["plain_ms"],
+                                   bound_ms=t["bound_ms"],
+                                   bound_by=t["bound_by"], bytes=t["bytes"])
+            lines.append(f"  timing: {t['ms']:.4f} ms kernel, "
+                         f"{t['plain_ms']:.4f} ms plain, bound "
+                         f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                         f"{t['bytes']} B; {t['fired']} heads requantize;"
+                         f" {len(lengths) * hkv} CTAs)")
+        out[name] = res
+        del st
+        free()
+    log("K1 vs plain, head dims past 256 lanes: ok\n  "
+        + "\n  ".join(lines))
+    return dict(max_abs_err=max(errs), cases=out)
+
+
+# K1 at the shard shapes of the mesh phases: name -> (query heads, kv
+# heads, batch lengths at capacity 4096)
+SHARD_SHAPE_CASES = {
+    "Llama-2-7B TP-4 shard (8 over 8 kv heads of 128)": (
+        8, 8, [4096, 3100, 2049, 977]),
+    "Llama-2-70B TP-8 shard (8 over 1 kv head of 128)": (
+        8, 1, [4096, 3100, 2049, 977]),
+}
+
+
+def phase_k1_shard_shapes(dev) -> dict:
+    """K1 at the per-rank shapes of ``phase_sharded`` (<1, 128>, 8 kv
+    heads a rank) and ``phase_sharded_70b`` (<8, 128>, 1 kv head of group
+    8: 4 CTAs at batch 4, the score plane in device memory) under the
+    serving flags, capacity 4096, batch 4: held against its plain version
+    on one layer and timed against its bound."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    out, errs, lines = {}, [], []
+    for name, (hq, hkv, lengths) in SHARD_SHAPE_CASES.items():
+        cfg = k1_shape_config(serving_config(2), hq=hq, hkv=hkv, d=128,
+                              cap=SERVING_CAP)
+        plan = fd.k1_plan(hq // hkv, 128, SERVING_CAP,
+                          cfg.pruning.v_block_size)
+        st, q, kn, vn = k1_inputs(cfg, dev, gen, len(lengths))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        r = k1_case_logged(errs, lines, f"{name} in <{plan.inst}, 128>",
+                           cfg, st, q, kn, vn, 0, SERVING_CAP, lens)
+        t = time_k1(st, q, kn, vn, lens, cfg, [0, 1], SERVING_CAP,
+                    r["threshold"])
+        out[name] = dict(max_abs_err=r["max_abs_err"], ms=t["ms"],
+                         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                         bound_by=t["bound_by"], bytes=t["bytes"],
+                         ctas=len(lengths) * hkv,
+                         scores_in_smem=plan.scores_in_smem)
+        lines.append(f"  timing: {t['ms']:.4f} ms kernel, "
+                     f"{t['plain_ms']:.4f} ms plain, bound "
+                     f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                     f"{t['bytes']} B; {t['fired']} heads requantize; "
+                     f"{len(lengths) * hkv} CTAs)")
+        del st
+        free()
+    log("K1 vs plain, mesh shard shapes: ok\n  " + "\n  ".join(lines))
+    return dict(max_abs_err=max(errs), cases=out)
+
+
 # K1 at stored capacities and rungs off a multiple of 8, Llama-2-7B's
 # attention (32 kv heads of 128), batch 8: name -> (capacity, rung,
 # v_block, bf16 metadata, layer bits, lengths)
@@ -2456,6 +2602,551 @@ def profile_decode(name, params, cfg, state, tok, tables, step_s: float,
     return idle
 
 
+# ---------------------------------------------------------------- meshes
+# The multi-card slice on one card: each phase spawns its ranks on cuda:0
+# under gloo (NCCL refuses two ranks of one communicator on one card), so
+# every kernel and matmul runs on the card and only the collectives go
+# through the host.  These times say nothing of NVLink.
+MESH_NEW_TOKENS, MESH_WINDOW = 32, 16
+MESH_TIMEOUT = 420
+
+
+def llama2_70b_config(num_layers: int = 8, batch: int = 4):
+    """Llama-2-70B's widths (``meta-llama/Llama-2-70b-hf`` config.json:
+    hidden 8192, 64 query heads over 8 kv heads of 128, intermediate
+    28672, vocab 32000) at ``num_layers`` of its 80 under the serving
+    settings (``serving_config``), capacity 4096; head pruning keeps the
+    serving share (3/4) of the kv heads."""
+    base = serving_config(num_layers)
+    model = dataclasses.replace(
+        base.model, hidden_size=8192, num_heads=64, num_kv_heads=8,
+        head_dim=128, intermediate_size=28672, vocab_size=32000)
+    return dataclasses.replace(
+        base, model=model,
+        pruning=dataclasses.replace(base.pruning, head_keep=6),
+        engine=dataclasses.replace(base.engine, max_batch_size=batch),
+    ).validate()
+
+
+def pipeline_config(num_layers: int = 32, batch: int = SERVING_BATCH):
+    """The serving settings at Llama-2-7B width with one budget and one
+    pass-1 profile for every layer: a pipeline stage reads the cascade
+    ratios, layer bits and capacity rungs of its own L/P layers (JAX's
+    ``pipeline_local_config``; ROADMAP's reference quirks), so with
+    per-layer tuples a staged run would be another configuration than
+    the 1-rank run it is held against."""
+    base = serving_config(num_layers)
+    return dataclasses.replace(
+        base, pruning=dataclasses.replace(base.pruning,
+                                          cascade_layer_ratios=None),
+        engine=dataclasses.replace(base.engine, max_batch_size=batch),
+    ).validate()
+
+
+def mesh_small_config():
+    """A small f32-able model whose TP-2 shard keeps 2 kv heads of 64 (a
+    128-lane width, so K1 launches on the card): 8 query heads over 4 kv
+    heads, 2 layers, capacity 128 (prunes in prefill and decode)."""
+    from spatten_tpu_torch.config import (
+        EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
+    )
+    return SpAttenConfig(
+        model=ModelConfig(vocab_size=512, hidden_size=512, num_layers=2,
+                          num_heads=8, num_kv_heads=4, head_dim=64,
+                          intermediate_size=512),
+        pruning=PruningConfig(start_size=4, important_size=40,
+                              recent_size=32, v_block_size=16),
+        quant=QuantConfig(requant_threshold=0.1),
+        engine=EngineConfig(max_batch_size=4, cache_capacity=128,
+                            prefill_chunk=32),
+    ).validate()
+
+
+MESH_CONFIGS = {"serving": serving_config, "70b": llama2_70b_config,
+                "pipeline": pipeline_config, "small": mesh_small_config}
+
+
+def mesh_engine(spec, mesh):
+    from spatten_tpu_torch.parallel import PipelineEngine, ShardedEngine
+    cfg = MESH_CONFIGS[spec["config"]](*spec.get("config_args", ()))
+    if spec["engine"] == "sharded":
+        return ShardedEngine(cfg, mesh)
+    return PipelineEngine(cfg, mesh, microbatches=spec.get("micro", 1))
+
+
+def mesh_steps(eng, params, prompt, tokens):
+    """Teacher-forced run of an engine from an empty state: the prompt in
+    chunks, then the decode steps fed ``tokens`` [B, n] (the global batch;
+    a sharded rank feeds its rows).  Returns (the logits of the last
+    prompt position and of each step, f32 [1 + n, B_rank, V] on the host,
+    seconds of prefill and of decode)."""
+    sharded = hasattr(eng, "rows")
+    b = prompt.shape[0]
+    rows = eng.rows(b) if sharded else slice(0, b)
+    p = torch.as_tensor(prompt, device=eng.device)[rows].long()
+    toks = torch.as_tensor(tokens, device=eng.device)[rows].to(torch.int32)
+    state = eng.init_sharded_state(b)
+    chunk = eng.cfg.engine.prefill_chunk
+    sync = (torch.cuda.synchronize if eng.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    out = []
+    for pos in range(0, p.shape[1], chunk):
+        x = p[:, pos:pos + chunk]
+        lg, state = (eng.prefill_step()(params, state, x) if sharded
+                     else eng.step_fn(x.shape[1])(params, state, x))
+    out.append(lg.float().cpu())
+    sync()
+    t1 = time.perf_counter()
+    for i in range(toks.shape[1]):
+        tok = toks[:, i]
+        lg, state = (eng.decode_logits(params, state, tok) if sharded
+                     else eng.step_fn(1)(params, state, tok[:, None]))
+        out.append(lg.float().cpu())
+    sync()
+    return torch.stack(out), t1 - t0, time.perf_counter() - t1
+
+
+class _Recorder:
+    """Wraps an engine's step functions on the instance while ``generate``
+    runs: keeps the logits of the last prompt position and of every decode
+    step on the host, a copy of the state at the first decode step, the
+    host clock and the transport's seconds over the first ``MESH_WINDOW``
+    decode steps, and a device-time profile of the next few."""
+
+    def __init__(self, eng, cuda: bool):
+        from torch.profiler import ProfilerActivity, profile
+        self.eng, self.cuda = eng, cuda
+        self.logits, self.snap, self.clock = [], None, {}
+        self.steps = 0
+        self.prof_steps = range(MESH_WINDOW, MESH_WINDOW + 4)
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA]) if cuda \
+            else None
+        if hasattr(eng, "rows"):               # ShardedEngine
+            prefill, decode = eng.prefill_logits, eng.decode_logits
+            eng.prefill_logits = self._wrap(prefill, False)
+            eng.decode_logits = self._wrap(decode, True)
+        else:                                  # PipelineEngine
+            step_fn = eng.step_fn
+            eng.step_fn = lambda n: self._wrap(step_fn(n), n == 1)
+
+    def _sync(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def _wrap(self, fn, decode: bool):
+        from spatten_tpu_torch.parallel import mesh as transport
+
+        def call(params, state, x):
+            if decode:
+                i = self.steps
+                if i == 0:
+                    self.snap = state.clone()
+                    self._sync()
+                    transport.reset_counts()
+                    self.clock["t0"] = time.perf_counter()
+                    self.clock["prefill_s"] = (self.clock["t0"]
+                                               - self.clock["start"])
+                if i == MESH_WINDOW:
+                    self._sync()
+                    self.clock["window_s"] = (time.perf_counter()
+                                              - self.clock["t0"])
+                    self.clock["all_reduce_s"] = transport.all_reduce.seconds
+                    self.clock["handoff_s"] = (transport.send.seconds
+                                               + transport.recv.seconds)
+                if self.prof is not None and i == self.prof_steps.start:
+                    self.prof.__enter__()
+                if self.prof is not None and i == self.prof_steps.stop:
+                    self._sync()
+                    self.prof.__exit__(None, None, None)
+                self.steps += 1
+            lg, state = fn(params, state, x)
+            if decode or not self.logits:
+                self.logits.append(lg.float().cpu())
+            else:                                  # a later prompt chunk
+                self.logits[0] = lg.float().cpu()
+            return lg, state
+        return call
+
+    def device_ms(self):
+        if self.prof is None:
+            return None
+        busy = sum(ev.self_device_time_total
+                   for ev in self.prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+        return busy / 1e3 / len(self.prof_steps) if busy else None
+
+
+def mesh_rank(rank, world, spec):
+    """One rank of a mesh phase (``run_mesh``).  With ``spec['forced']``
+    (the 1-rank reference): the prompt, then the decode steps fed those
+    tokens, logits kept.  Else the main path: ``generate`` with the K1/K2
+    counts set to 0 just before it and read just after, its logits, host
+    clock, collective seconds and a device-time profile recorded around
+    the engine's step functions (``_Recorder``); then the first decode
+    window again through the plain versions (K1's plain version, the
+    gather compaction) from the state at its first decode step, fed the
+    same tokens.  ``spec['replay']``: every forward call of ``generate``
+    is first replayed on the CPU from a copy of its state
+    (``kernel_checks``' rule: logits within ``CPU_REPLAY_LOGIT_TOL``)."""
+    from spatten_tpu_torch import kernel_checks as kc
+    from spatten_tpu_torch.config import MeshConfig
+    from spatten_tpu_torch.engine import generate as gen
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops.compact_gather import (
+        gather_compact_rows, k2_takes,
+    )
+    from spatten_tpu_torch.ops.fused_decode import (
+        fused_decode_attention, fused_decode_attention_plain,
+    )
+    from spatten_tpu_torch.parallel import make_mesh
+    from spatten_tpu_torch.pruning import compact
+    cuda = spec.get("device", "cuda") == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats(dev)
+    a, b = spec["mesh"]
+    names = ("data", "model") if spec["engine"] == "sharded" else (
+        "pipe", "model")
+    mesh = make_mesh(MeshConfig(data=a, model=b, axis_names=names),
+                     device=dev)
+    out = dict(coords=mesh.coords)
+    if mesh.coords is None:
+        return out
+    dtype = torch.float32 if spec.get("f32") else torch.bfloat16
+    t0 = time.perf_counter()
+    eng = mesh_engine(spec, mesh)
+    host_params = None
+    if spec.get("f32"):
+        # drawn on the host, so that the card's and the CPU's ranks (and
+        # the CPU replay) hold the same weights
+        params = eng.shard_params(tr.init_params(eng.cfg.model, SEED, dtype,
+                                                 "cpu"))
+        host_params = kc._to(params, torch.device("cpu"))
+    else:
+        params = eng.init_params(SEED, dtype)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    out["params_s"] = time.perf_counter() - t0
+    m, lcfg = eng.cfg.model, eng.lcfg
+    batch, plen, new = spec["batch"], spec["prompt_len"], spec["new"]
+    prompt = np.random.default_rng(SEED).integers(0, m.vocab_size,
+                                                  (batch, plen))
+    # the prune schedule a rank's maybe_prune follows: every prompt chunk,
+    # then every decode step (the engines prune step by step)
+    lens, points = [0] * lcfg.model.num_layers, 0
+    for pos in range(0, plen, lcfg.engine.prefill_chunk):
+        layers, lens = gen.prune_schedule_step(
+            lcfg, lens, min(lcfg.engine.prefill_chunk, plen - pos))
+        points += len(layers)
+    for _ in range(new):
+        layers, lens = gen.prune_schedule_step(lcfg, lens, 1)
+        points += len(layers)
+    out["k2_expected"] = points if (cuda and k2_takes(m.head_dim)) else 0
+    out["local_layers"] = lcfg.model.num_layers
+    keep = mesh.coords.get("model", 0) == 0 and mesh.coords.get(
+        "pipe", 0) == 0       # one copy of the global logits is enough
+    runs = []
+    for micro in spec.get("micros", [1]):
+        if hasattr(eng, "microbatches"):
+            eng.microbatches = micro
+        fused_decode_attention.launches = 0
+        gather_compact_rows.launches = 0
+        if spec.get("forced") is not None:
+            logits, pre_s, dec_s = mesh_steps(eng, params, prompt,
+                                              spec["forced"])
+            runs.append(dict(micro=micro, k1=fused_decode_attention.launches,
+                             k2=gather_compact_rows.launches,
+                             logits=logits.numpy() if keep else None,
+                             prefill_s=pre_s, decode_ms=dec_s / new * 1e3,
+                             device_ms=None, collective_ms=0.0,
+                             handoff_ms=0.0, seconds=pre_s + dec_s))
+            continue
+        rec = _Recorder(eng, cuda)
+        replay = kc._CpuReplay(host_params) if spec.get("replay") else None
+        if replay is not None:
+            replay.__enter__()
+        try:
+            if cuda:
+                torch.cuda.synchronize(dev)
+            t0 = rec.clock["start"] = time.perf_counter()
+            kw = {} if hasattr(eng, "microbatches") else {"eos_token_id": None}
+            tokens = eng.generate(params, prompt, new, **kw)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+        finally:
+            if replay is not None:
+                replay.__exit__()
+            for name in ("prefill_logits", "decode_logits", "step_fn"):
+                eng.__dict__.pop(name, None)
+        logits = torch.stack(rec.logits)          # [1 + new, B_rank, V]
+        run = dict(micro=micro, seconds=seconds,
+                   k1=fused_decode_attention.launches,
+                   k2=gather_compact_rows.launches,
+                   tokens=tokens.cpu().numpy(),
+                   logits=logits.numpy() if keep else None,
+                   prefill_s=rec.clock["prefill_s"],
+                   decode_ms=rec.clock["window_s"] / MESH_WINDOW * 1e3,
+                   device_ms=rec.device_ms(),
+                   collective_ms=rec.clock["all_reduce_s"] / MESH_WINDOW
+                   * 1e3,
+                   handoff_ms=rec.clock["handoff_s"] / MESH_WINDOW * 1e3)
+        if replay is not None:
+            # kernel_checks.check_server_against_cpu's rule: the single-
+            # token calls within CPU_REPLAY_LOGIT_TOL; a prompt chunk
+            # quantizes a row per token and layer, each of whose int8
+            # roundings a last-bit projection difference may flip at half
+            # a step, so its error is reported
+            errs = replay.errors()
+            run["replay_err"] = max((e for e, _, sh in errs if sh[1] == 1),
+                                    default=0.0)
+            run["replay_prefill_err"] = max(
+                (e for e, _, sh in errs if sh[1] > 1), default=0.0)
+            check(run["replay_err"] <= kc.CPU_REPLAY_LOGIT_TOL,
+                  f"decode logits differ from the CPU replay's by "
+                  f"{run['replay_err']:.3e}")
+            chosen = torch.stack(replay.want)[-new - 1:-1]
+            clear = kc._clear(chosen)
+            sharded = hasattr(eng, "rows")
+            rows = eng.rows(batch) if sharded else slice(0, batch)
+            mine = torch.as_tensor(run["tokens"])[rows].T
+            check(bool((chosen.argmax(-1) == mine)[clear].all()),
+                  "greedy tokens differ from the CPU replay's where its "
+                  "top-2 margin is clear")
+            run["replay_clear"] = float(clear.float().mean())
+        if spec.get("window", True):
+            # the first window again through the plain versions, from the
+            # state at the first decode step, fed the same tokens
+            state = rec.snap
+            sharded = hasattr(eng, "rows")
+            rows = eng.rows(batch) if sharded else slice(0, batch)
+            toks = torch.as_tensor(run["tokens"], device=dev)[rows].to(
+                torch.int32)
+            tr.fused_decode_attention = fused_decode_attention_plain
+            compact.k2_takes = lambda d: False
+            try:
+                plain = []
+                for i in range(MESH_WINDOW):
+                    tok = toks[:, i]
+                    lg, state = (eng.decode_logits(params, state, tok)
+                                 if sharded else
+                                 eng.step_fn(1)(params, state, tok[:, None]))
+                    plain.append(lg.float().cpu())
+            finally:
+                tr.fused_decode_attention = fused_decode_attention
+                compact.k2_takes = k2_takes
+            lk = logits[1:MESH_WINDOW + 1]
+            lp = torch.stack(plain)
+            run["window_mean_err"] = float((lk - lp).abs().mean())
+            run["window_argmax"] = float(
+                (lk.argmax(-1) == lp.argmax(-1)).float().mean())
+            del state
+        del rec
+        runs.append(run)
+        if cuda:
+            torch.cuda.empty_cache()
+    out["runs"] = runs
+    if cuda:
+        out["max_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def run_mesh(name, spec, world, device="cuda") -> list:
+    """Spawn ``world`` gloo ranks of ``mesh_rank`` (on cuda:0, or the CPU)
+    and check each: K1 = local layers x tokens, K2 = the schedule's layer
+    compactions, the first window against the plain versions."""
+    from spatten_tpu_torch.parallel import launch
+    spec = dict(spec, device=device)
+    t0 = time.perf_counter()
+    ranks = launch.spawn("chip_smoke:mesh_rank", world, spec,
+                         timeout=MESH_TIMEOUT, threads=1)
+    members = [r for r in ranks if r["coords"] is not None]
+    for r in members:
+        for run in r["runs"]:
+            # K1 runs once per layer, step and microbatch
+            expect = r["local_layers"] * spec["new"] * run["micro"]
+            check(run["k1"] == (expect if device == "cuda" else 0),
+                  f"{name} rank {r['coords']} M={run['micro']}: K1 launched "
+                  f"{run['k1']} times, expected {expect}")
+            check(run["k2"] == r["k2_expected"],
+                  f"{name} rank {r['coords']}: K2 launched {run['k2']} "
+                  f"times, expected {r['k2_expected']}")
+            if "window_mean_err" in run:
+                check(run["window_mean_err"] <= WINDOW_MEAN_TOL
+                      and run["window_argmax"] >= WINDOW_ARGMAX_MIN,
+                      f"{name} rank {r['coords']}: first window vs plain "
+                      f"mean {run['window_mean_err']}, argmax "
+                      f"{run['window_argmax']}")
+            check(run["logits"] is None or np.isfinite(run["logits"]).all(),
+                  f"{name}: non-finite logits")
+    log(f"{name}: {len(members)} ranks in {time.perf_counter() - t0:.1f} s")
+    for r in members:
+        for run in r["runs"]:
+            log(f"  rank {r['coords']} M={run['micro']}: "
+                + ("teacher-forced" if "forced" in spec else "generate")
+                + f" {run['seconds']:.2f} s: prefill {run['prefill_s']:.2f} "
+                f"s, decode {run['decode_ms']:.2f} ms/step (host), device "
+                + (f"{run['device_ms']:.3f}" if run["device_ms"] else
+                   "not measured")
+                + f" ms/step, all-reduce {run['collective_ms']:.3f} ms/step "
+                f"(host), hand-off {run['handoff_ms']:.3f} ms/step; K1 "
+                f"{run['k1']}, K2 {run['k2']}; first window vs plain: mean "
+                f"|diff| {run.get('window_mean_err', float('nan')):.2e}, "
+                f"argmax {run.get('window_argmax', float('nan')):.3f}; "
+                f"params {r['params_s']:.1f} s; peak memory "
+                f"{r.get('max_memory_gb', 0):.1f} GB")
+    return members
+
+
+def gathered_logits(members, run_idx=0) -> np.ndarray:
+    """The global [1 + n, B, V] logits of a mesh run from its ranks (the
+    data shards' rows of model rank 0; a pipeline's rank 0 holds all)."""
+    parts = []
+    for r in members:
+        c = r["coords"]
+        if c.get("model", 0) == 0 and c.get("pipe", 0) == 0:
+            parts.append((c.get("data", 0), r["runs"][run_idx]["logits"]))
+    return np.concatenate([p for _, p in sorted(parts, key=lambda x: x[0])],
+                          axis=1).astype(np.float32)
+
+
+# A run whose shards are wired wrong gives logits unrelated to its 1-rank
+# run's, whose argmax agrees about 1 in V times.
+FAULT_ARGMAX_MIN = 0.5
+
+
+def against_one_rank(name, members, spec, run_idx=0) -> dict:
+    """The mesh run's logits against the same engine's 1-rank run on the
+    same weights, fed the same tokens, with the same microbatches.  A mesh
+    whose ranks run the 1-rank run's arithmetic (pipeline stages without
+    TP or DP: the same GEMM shapes, bf16 activations handed over as they
+    are) must give its logits exactly.  Tensor and data parallelism change
+    the GEMMs' shapes and the order of the o_proj / down_proj sums, and
+    SpAtten's discrete decisions (prompt prunes, requants, V-block keeps)
+    amplify those last-bit differences: the mean |diff| and argmax
+    agreement are printed beside the window limits (WINDOW_MEAN_TOL,
+    WINDOW_ARGMAX_MIN), and only agreement below FAULT_ARGMAX_MIN fails."""
+    run = members[0]["runs"][run_idx]
+    micro = run["micro"]
+    one = run_mesh(f"{name}, 1 rank", dict(spec, mesh=(1, 1),
+                                           forced=run["tokens"],
+                                           window=False, micros=[micro]), 1)
+    got, want = gathered_logits(members, run_idx), gathered_logits(one)
+    diff = np.abs(got - want)
+    mean = float(diff.mean())
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    by_step = diff.mean(axis=(1, 2))
+    exact = spec["engine"] == "pipeline" and spec["mesh"][1] == 1
+    log(f"{name} M={micro}: logits vs the 1-rank run (same weights, same "
+        f"tokens, {got.shape[0]} steps): mean |diff| {mean:.2e}, argmax "
+        f"agreement {agree:.4f} (window limits {WINDOW_MEAN_TOL} / "
+        f"{WINDOW_ARGMAX_MIN}); mean by step "
+        f"{' '.join(f'{x:.4f}' for x in by_step)}; identical: "
+        f"{bool(mean == 0.0)}")
+    if exact:
+        check(mean == 0.0, f"{name} M={micro}: stages differ from the 1-rank"
+              f" run (mean {mean})")
+    check(agree >= FAULT_ARGMAX_MIN, f"{name} M={micro}: argmax agreement "
+          f"{agree} with the 1-rank run")
+    return dict(mean_err=mean, argmax=agree, exact=exact,
+                one_rank=mesh_summary(one))
+
+
+def mesh_summary(members) -> dict:
+    runs = [run for r in members for run in r["runs"]]
+    return dict(
+        ranks=len(members),
+        decode_ms=max(run["decode_ms"] for run in runs),
+        device_ms=max((run["device_ms"] or 0.0) for run in runs),
+        collective_ms=max(run["collective_ms"] for run in runs),
+        handoff_ms=max(run["handoff_ms"] for run in runs),
+        max_memory_gb=max(r.get("max_memory_gb", 0.0) for r in members),
+        k1=sum(run["k1"] for run in runs), k2=sum(run["k2"] for run in runs))
+
+
+def phase_sharded(dev) -> dict:
+    """``ShardedEngine`` on ``serving_config()`` (Llama-2-7B width and all
+    32 layers, random bf16 weights from seed 0), mesh data 2 x model 4: 8
+    ranks, each [32, 4, 4096, 1024] planes in K1's <1, 128>; batch 8,
+    prompt 3072, 32 new tokens; then its logits against the 1-rank run."""
+    spec = dict(engine="sharded", config="serving", mesh=(2, 4),
+                batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                new=MESH_NEW_TOKENS)
+    members = run_mesh("sharded Llama-2-7B 2x4", spec, 8)
+    return dict(mesh_summary(members), vs_one_rank=against_one_rank(
+        "sharded Llama-2-7B 2x4", members, spec))
+
+
+def phase_sharded_70b(dev) -> dict:
+    """``ShardedEngine`` at Llama-2-70B's widths, depth 8 of 80 (one card),
+    mesh 1 x 8: each rank 1 kv head of group 8, K1's <8, 128> in 4 CTAs
+    at batch 4; capacity 4096, prompt 3072, 32 new tokens -- the shard
+    shape of Llama-2-70B served over TP 8; then against the 1-rank run."""
+    spec = dict(engine="sharded", config="70b", mesh=(1, 8), batch=4,
+                prompt_len=SERVING_PROMPT, new=MESH_NEW_TOKENS)
+    members = run_mesh("sharded Llama-2-70B widths 1x8", spec, 8)
+    return dict(mesh_summary(members), vs_one_rank=against_one_rank(
+        "sharded Llama-2-70B widths 1x8", members, spec))
+
+
+def phase_pipeline(dev) -> dict:
+    """``PipelineEngine`` on Llama-2-7B (``pipeline_config()``), 4 stages
+    of 8 layers, batch 8, M = 1 then M = 2, each against the 1-rank run
+    with the same microbatches (equal logits); then pipe 2 x model 2 at
+    depth 16, batch 4, M = 2, against its 1-rank run."""
+    spec = dict(engine="pipeline", config="pipeline", mesh=(4, 1),
+                batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                new=MESH_NEW_TOKENS, micros=[1, 2])
+    members = run_mesh("pipeline Llama-2-7B 4 stages", spec, 4)
+    pp4 = dict(mesh_summary(members), vs_one_rank=[
+        against_one_rank("pipeline 4 stages", members, spec, i)
+        for i in range(2)])
+    spec = dict(engine="pipeline", config="pipeline", config_args=(16, 4),
+                mesh=(2, 2), batch=4, prompt_len=SERVING_PROMPT,
+                new=MESH_NEW_TOKENS, micros=[2])
+    members = run_mesh("pipeline Llama-2-7B depth 16, 2 stages x TP 2",
+                       spec, 4)
+    return dict(pp4=pp4, pp2_tp2=dict(mesh_summary(members), vs_one_rank=(
+        against_one_rank("pipeline 2 stages x TP 2", members, spec))))
+
+
+def mesh_small_check(dev) -> dict:
+    """An f32 run at small width, DP 2 x TP 2 (2 kv heads of 64 a shard,
+    so K1 launches), through ``ShardedEngine.generate``: its tokens equal
+    the same ranks' run on the CPU (gloo), and every decode step of the
+    card's run, replayed on the CPU from a copy of its state (its
+    all-reduces over the same gloo groups), gives logits within
+    ``CPU_REPLAY_LOGIT_TOL`` and the CPU's greedy token where its top two
+    are clear (``kernel_checks``' rules for the server: two free runs
+    drift apart once an int8 rounding at half a step flips, so the free
+    runs' logits and the prompt chunks' replay errors are printed)."""
+    from spatten_tpu_torch import kernel_checks as kc
+    spec = dict(engine="sharded", config="small", mesh=(2, 2), batch=4,
+                prompt_len=200, new=24, f32=True, window=False, replay=True)
+    card = run_mesh("small f32 2x2 on the card", spec, 4)
+    cpu = run_mesh("small f32 2x2 on the CPU", dict(spec, replay=False), 4,
+                   device="cpu")
+    same = bool(np.array_equal(card[0]["runs"][0]["tokens"],
+                               cpu[0]["runs"][0]["tokens"]))
+    free = float(np.abs(gathered_logits(card) - gathered_logits(cpu)).max())
+    err = max(r["runs"][0]["replay_err"] for r in card)
+    pre = max(r["runs"][0]["replay_prefill_err"] for r in card)
+    log(f"small f32 2x2: tokens equal the CPU run's: {same}; each decode "
+        f"step vs its CPU replay: logits max |diff| {err:.2e} (tolerance "
+        f"{kc.CPU_REPLAY_LOGIT_TOL}; prompt chunks {pre:.2e}), top-2 clear "
+        f"in {min(r['runs'][0]['replay_clear'] for r in card):.3f} of rows;"
+        f" free runs' logits max |diff| {free:.2e}")
+    check(same, "small f32 2x2: tokens differ from the CPU run")
+    return dict(k1=sum(r["runs"][0]["k1"] for r in card),
+                k2=sum(r["runs"][0]["k2"] for r in card), replay_err=err,
+                replay_prefill_err=pre, free_run_err=free)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2524,6 +3215,8 @@ def main() -> int:
     k1_dev_scores = timed(phase_k1_device_scores, dev)
     k1_wide = timed(phase_k1_wide_groups, dev)
     k1_long = timed(phase_k1_long_windows, dev)
+    k1_wide_dims = timed(phase_k1_wide_head_dims, dev)
+    k1_shards = timed(phase_k1_shard_shapes, dev)
     k2_pr1 = timed(phase_k2, dev, b=4, cap=1024, hkv=32, d=128,
                    keep_max=772, window=1024,
                    lengths=[1024, 1024, 900, 1000], triggered=[1, 0, 1, 1],
@@ -2539,6 +3232,7 @@ def main() -> int:
     timed(small_reference_check, dev)
     gate = timed(phase_gate, dev)
     small_server = timed(server_small_check, dev)
+    small_mesh = timed(mesh_small_check, dev)
     log(f"kernel phases done at {time.perf_counter() - t_start:.0f} s")
 
     pr1 = timed(run_path, "first slice (depth 8)", slice_config(8), dev,
@@ -2551,9 +3245,12 @@ def main() -> int:
     params = serving.pop("params")
     del serving["res"]
     free()
-    dense = timed(run_path, "dense", dense_config(), dev,
-                  batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
-                  new_tokens=64, params=params)
+    # the dense and parity paths at depth 8 (with the profile path's 8):
+    # the multi-card phases below take the time their full depth took
+    dense = timed(run_path, "dense (depth 8)", dense_config(EARLY_DEPTH),
+                  dev, batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                  new_tokens=64, params=dict(params, layers={
+                      k: v[:EARLY_DEPTH] for k, v in params["layers"].items()}))
     del params, dense["params"], dense["res"]
     free()
     prof = timed(run_path, "profile 4,4,6,6,8 (depth 8)", profile_config(8),
@@ -2570,7 +3267,8 @@ def main() -> int:
     log(f"dense-int8 baseline decode {dense['tok_s']:.1f} tok/s vs serving "
         f"{serving['tok_s']:.1f} tok/s (batch {SERVING_BATCH}; printed, no "
         f"claim)")
-    parity = timed(run_path, "parity", parity_config(), dev,
+    parity = timed(run_path, "parity (depth 8)", parity_config(EARLY_DEPTH),
+                   dev,
                    batch=PARITY_BATCH, prompt_len=PARITY_PROMPT,
                    new_tokens=128, window_check=True)
     del parity["params"], parity["res"]
@@ -2590,6 +3288,9 @@ def main() -> int:
     supervised = timed(phase_supervised, dev)
     cli = timed(phase_cli, dev)
     debug_hook = timed(phase_debug_hook, dev)
+    sharded = timed(phase_sharded, dev)
+    sharded_70b = timed(phase_sharded_70b, dev)
+    pipeline = timed(phase_pipeline, dev)
     # the cost model's per-step overhead: the serving path's host time per
     # decode step beyond its device time
     log(f"cost model step overhead, serving path: "
@@ -2604,16 +3305,27 @@ def main() -> int:
     k1_by_path = {k: v["k1"] for k, v in paths.items()}
     k1_by_path.update({"server, small f32": small_server["k1"],
                        "trace": trace["k1"], "supervised": supervised["k1"],
-                       "cli": cli["k1"], "debug hook": debug_hook["k1"]})
+                       "cli": cli["k1"], "debug hook": debug_hook["k1"],
+                       "sharded 2x4": sharded["k1"],
+                       "sharded 70B widths 1x8": sharded_70b["k1"],
+                       "pipeline 4 stages (M=1, M=2)": pipeline["pp4"]["k1"],
+                       "pipeline 2x2": pipeline["pp2_tp2"]["k1"],
+                       "sharded small f32 2x2": small_mesh["k1"]})
     k2_by_path = {k: v["k2"] for k, v in paths.items()}
     k2_by_path.update({"server, small f32": small_server["k2"],
                        "supervised": supervised["k2"], "cli": cli["k2"],
-                       "debug hook": debug_hook["k2"]})
+                       "debug hook": debug_hook["k2"],
+                       "sharded 2x4": sharded["k2"],
+                       "sharded 70B widths 1x8": sharded_70b["k2"],
+                       "pipeline 4 stages (M=1, M=2)": pipeline["pp4"]["k2"],
+                       "pipeline 2x2": pipeline["pp2_tp2"]["k2"],
+                       "sharded small f32 2x2": small_mesh["k2"]})
     k1_srv["max_abs_err"] = max(
         [k1_srv["max_abs_err"], k1_flags_res["max_abs_err"],
          k1_llama["max_abs_err"], k1_groups["max_abs_err"],
          k1_dims["max_abs_err"], k1_caps["max_abs_err"],
-         k1_wide["max_abs_err"], k1_long["max_abs_err"]]
+         k1_wide["max_abs_err"], k1_long["max_abs_err"],
+         k1_wide_dims["max_abs_err"], k1_shards["max_abs_err"]]
         + [r["max_abs_err"] for r in k1_dev_scores.values()])
     kernels_out = [
         dict(name="fused_decode_attention", route="cuda",
@@ -2629,7 +3341,11 @@ def main() -> int:
              capacity=k1_caps["cases"],
              wide_groups=dict(k1_wide["cases"], gate_model_launches=gate[
                  GQA16_NAME]["k1"]),
-             long_windows=k1_long["cases"]),
+             long_windows=k1_long["cases"],
+             wide_head_dims=k1_wide_dims["cases"],
+             shard_shapes=k1_shards["cases"],
+             meshes={"sharded 2x4": sharded, "sharded 70B widths 1x8":
+                     sharded_70b, "pipeline": pipeline}),
         dict(name="gather_compact_rows", route="cuda",
              source="spatten_tpu_torch/csrc/compact_gather.cu",
              replaces="spatten_tpu/ops/compact_gather.py:335",

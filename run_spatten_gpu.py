@@ -24,12 +24,24 @@ ids per turn, which needs no tokenizer (replies then print as ids, and
 the end-of-sequence id is the checkpoint config's ``eos_token_id``).
 Without --prompts a built-in two-turn text prompt runs.  --device cpu
 runs on the CPU; the default is the card, and the kernels build there at
-first use.  --mesh_data / --mesh_model above 1 are not ported yet.
+first use.
+
+--mesh_data / --mesh_model above 1 serve on a DP x TP mesh of processes
+(``parallel.ShardedEngine``), one per rank, as the JAX CLI's mesh path
+does: greedy, each turn from a fresh state, no trace or summary; rank 0
+prints.  Start the ranks with PyTorch's launcher, which names the
+rendezvous (``env://``), e.g. two ranks on the CPU:
+
+  python -m torch.distributed.run --standalone --nproc_per_node 2 \
+      run_spatten_gpu.py --model_path ... --mesh_model 2 --device cpu
+
+The backend is gloo on the CPU and NCCL on cards (one card per rank).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -146,10 +158,7 @@ def build_config(args, mcfg):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh_data * args.mesh_model > 1:
-        raise NotImplementedError(
-            "--mesh_data/--mesh_model > 1: the multi-card slice (DP x TP, "
-            "pipeline stages) is not ported yet (ROADMAP.md, queue 1)")
+    use_mesh = args.mesh_data * args.mesh_model > 1
 
     import torch
 
@@ -160,10 +169,24 @@ def main(argv=None):
     from spatten_tpu_torch.models import hf_loader
 
     dev = resolve_device(args.device)
+    mesh = None
+    if use_mesh:
+        from spatten_tpu_torch.config import MeshConfig
+        from spatten_tpu_torch.parallel import make_mesh, multihost
+        multihost.initialize(backend="gloo" if dev.type == "cpu"
+                             else "nccl")
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh(MeshConfig(data=args.mesh_data,
+                                    model=args.mesh_model), device=dev)
+    show = print if mesh is None or mesh.coords == {"data": 0, "model": 0} \
+        else (lambda *a, **k: None)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    print(f"[spatten-gpu] device: {dev} ({name})")
-    mcfg, params = hf_loader.load_pretrained(args.model_path, device=dev)
+    show(f"[spatten-gpu] device: {dev} ({name})"
+         + (f"; mesh {args.mesh_data} x {args.mesh_model}" if mesh else ""))
+    mcfg, params = hf_loader.load_pretrained(
+        args.model_path, device="cpu" if mesh else dev)
     convs = load_conversations(args.prompts, args.max_prompts)
     texts = any(isinstance(t, str) for turns in convs for t in turns)
     tokenizer = load_tokenizer(args.model_path) if texts else None
@@ -174,6 +197,13 @@ def main(argv=None):
             eos = json.load(fh).get("eos_token_id")
 
     cfg = build_config(args, mcfg)
+    if mesh is not None:
+        from spatten_tpu_torch.parallel import ShardedEngine
+        cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, mesh=MeshConfig(data=args.mesh_data,
+                                        model=args.mesh_model)))
+        eng = ShardedEngine(cfg, mesh)
+        params = eng.shard_params(params)
 
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
@@ -198,23 +228,32 @@ def main(argv=None):
             else:
                 ids = torch.tensor([prompt], dtype=torch.int64)
                 shown = f"{len(prompt)} ids"
-            print(f"\n=== conv {i} round {r}: {shown} "
-                  f"({ids.shape[1]} tokens)")
+            show(f"\n=== conv {i} round {r}: {shown} "
+                 f"({ids.shape[1]} tokens)")
             t0 = time.perf_counter()
-            result = gen.generate(params, cfg, ids, args.max_new_tokens,
-                                  eos_token_id=eos, sampling=sampling,
-                                  state=state, generator=generator,
-                                  device=dev)
-            state = result.state
-            toks = result.tokens.cpu()
+            if mesh is not None:
+                # the JAX CLI's mesh path: greedy, a fresh state per turn
+                toks = eng.generate(params, ids, args.max_new_tokens,
+                                    eos_token_id=eos).cpu()
+                result, cache_len = None, "?"
+            else:
+                result = gen.generate(params, cfg, ids, args.max_new_tokens,
+                                      eos_token_id=eos, sampling=sampling,
+                                      state=state, generator=generator,
+                                      device=dev)
+                state = result.state
+                toks = result.tokens.cpu()
+                cache_len = int(state.lengths[0])
             dt = time.perf_counter() - t0
             reply = [t for t in toks[0].tolist() if t != eos]
             if tokenizer is not None:
-                print(tokenizer.decode(reply, skip_special_tokens=True))
+                show(tokenizer.decode(reply, skip_special_tokens=True))
             else:
-                print("reply ids: " + json.dumps(reply))
-            print(f"--- {toks.shape[1] / dt:.1f} tok/s; {dt:.1f}s; "
-                  f"cache len {int(state.lengths[0])}")
+                show("reply ids: " + json.dumps(reply))
+            show(f"--- {toks.shape[1] / dt:.1f} tok/s; {dt:.1f}s; "
+                 f"cache len {cache_len}")
+        if mesh is not None:
+            continue
         if args.trace_csv and i == 0:
             from spatten_tpu_torch.engine.trace import collect_trace
             all_rows = collect_trace(params, cfg, ids,
@@ -231,7 +270,7 @@ def main(argv=None):
         from spatten_tpu_torch.engine.trace import write_csv
         write_csv(all_rows, args.trace_csv)
         print(f"[trace -> {args.trace_csv}] {len(all_rows)} rows")
-    print(f"\ntotal {time.perf_counter() - t_total0:.1f}s")
+    show(f"\ntotal {time.perf_counter() - t_total0:.1f}s")
 
 
 if __name__ == "__main__":

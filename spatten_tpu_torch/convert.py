@@ -3,7 +3,11 @@ numpy arrays, into the port's tensors -- so that both packages can compute
 the same thing on the same inputs (the parity tests).
 
 Nothing here imports JAX: callers pass ``jax.tree.map(np.asarray, tree)``.
-The JAX state's NamedTuples are read by field name.
+The JAX state's NamedTuples are read by field name.  The ``local_``
+functions give one rank's part of a global tree on a mesh
+(``parallel.mesh.Mesh``: a position will do), cut by the spec trees of
+``parallel.sharded`` / ``parallel.pipeline``, as the JAX array's shard at
+the same mesh position holds it.
 """
 
 from __future__ import annotations
@@ -62,3 +66,24 @@ def state_from_jax(np_state: Any, device: str | torch.device = "cuda"
         requant_events=tensor_from_numpy(np_state.requant_events, dev),
         quant_bits=tensor_from_numpy(np_state.quant_bits, dev),
     )
+
+
+def local_params_from_jax(np_tree: Any, specs: Any, mesh,
+                          device: str | torch.device = "cuda") -> Any:
+    """One rank's block of a global parameter tree (numpy, ``init_params``
+    layout) under ``specs`` (``sharded.param_pspecs`` or
+    ``pipeline.pipeline_param_pspecs`` of it) at ``mesh``'s position."""
+    from spatten_tpu_torch.parallel.sharded import shard_tree
+    dev = resolve_device(device)
+    return shard_tree(params_from_jax(np_tree, "cpu"), specs, mesh, dev)
+
+
+def local_state_from_jax(np_state: Any, specs: Any, mesh,
+                         device: str | torch.device = "cuda"
+                         ) -> DecodeState:
+    """One rank's block of a global JAX ``DecodeState`` (numpy leaves)
+    under ``specs`` (``sharded.state_pspecs`` or
+    ``pipeline.pipeline_state_pspecs``) at ``mesh``'s position."""
+    from spatten_tpu_torch.parallel.sharded import shard_tree
+    dev = resolve_device(device)
+    return shard_tree(state_from_jax(np_state, "cpu"), specs, mesh, dev)

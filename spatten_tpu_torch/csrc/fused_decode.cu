@@ -53,7 +53,21 @@
 // Head dims: instances exist for D = 64, 128 and 256; a model's head_dim
 // d runs in D = 64 if d is 64, else in the smallest of 128 and 256 that
 // holds d lanes after a lead-in of up to 16 - gcd(d, 16) bytes
-// (instance_dim in the wrapper), with the live lanes p.d.  Its tiles keep rows of D bytes: a box of D bytes from the head's
+// (instance_dim in the wrapper), with the live lanes p.d.  A head past
+// 256 lanes (the JAX kernel takes up to 3,712) runs in D = 256 as lane
+// pieces: a TMA box is at most 256 bytes wide, so a CTA reads its head's
+// rows as ceil((sh + d) / 256) boxes side by side, piece j from plane
+// column box_col + 256 j.  Each streaming pass runs once per piece, with
+// that piece's query lanes in registers (re-read from the query row; a
+// row's int8 query scale and lane sum still cover all d lanes): pass 1
+// and the requant recompute add each piece's raw dot products into the
+// score plane in piece order (as int32 under int8 queries, so the sum
+// stays exact) and scale the sum after the last piece; P·V accumulates
+// and writes each piece's columns.  The append, the softmax, the requant
+// decision, the importance and the V-block keep sets are per row, as for
+// one piece.  A head of one piece runs the code it ran before.
+//
+// Its tiles keep rows of D bytes: a box of D bytes from the head's
 // first lane h*d rounded down to 16 bytes holds, around the head's d
 // lanes, its neighbours' lanes (or zeros past the row), which the zero
 // query lanes weight by 0 and P·V never writes.  A head's rows are then
@@ -191,7 +205,8 @@ struct Params {
   int g;                 // the model's GQA group Hq / Hkv: the live rows
                          // of the instance's G (1 <= g <= G)
   int d;                 // the model's head_dim: the live lanes of the
-                         // instance's D (1 <= d <= D)
+                         // instance's D (1 <= d <= D), or of its lane
+                         // pieces (D = 256, d past 256 lanes)
   // the ring's geometry (host-computed): packed rows of a msb tile, V
   // rows of a P·V tile and of one of its pieces (inside one V block)
   int t_msb, tpv, piece;
@@ -255,42 +270,46 @@ __device__ __forceinline__ float round_bf16(float v) {
 }
 
 // Quantize one head's new row of d values (one warp; VEC = D / 32 lanes
-// each, those past d idle): int8 + scale into slot idx of the full plane,
-// the nibble RMW of the packed plane and the 2-bit RMW of the lsb2 plane,
-// byte by byte in the head's own d lanes (the next head's CTA appends the
-// lanes after them).  The f32 scale also goes to *scale_f32.
+// each, those past d idle, in rounds of D lanes past D): int8 + scale into
+// slot idx of the full plane, the nibble RMW of the packed plane and the
+// 2-bit RMW of the lsb2 plane, byte by byte in the head's own d lanes (the
+// next head's CTA appends the lanes after them).  The f32 scale also goes
+// to *scale_f32.
 template <int VEC>
 __device__ void append_row(const float* x, int d, int8_t* full_row,
                            void* scale, size_t scale_idx, int sc_bf16,
                            float* scale_f32, uint8_t* msb_row, bool is_hi,
                            uint8_t* l2_row, int l2_shift) {
   const int lane = threadIdx.x & 31;
-  float v[VEC];
+  // below D = 256 the row takes one round of D lanes (d <= D); at 256 a
+  // head of lane pieces takes as many as it needs
+  constexpr int kRound = 32 * VEC;
+  const int rounds = VEC < 8 ? 1 : (d + kRound - 1) / kRound;
   float amax = 0.f;
+  for (int c0 = lane * VEC, k = 0; k < rounds; c0 += kRound, ++k)
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    v[i] = lane * VEC + i < d ? x[lane * VEC + i] : 0.f;
-    amax = fmaxf(amax, fabsf(v[i]));
-  }
+    for (int i = 0; i < VEC; ++i)
+      if (c0 + i < d) amax = fmaxf(amax, fabsf(x[c0 + i]));
   amax = warp_max(amax);
   const float s = amax > 0.f ? amax / 127.f : 1.f;
+  for (int c0 = lane * VEC, k = 0; k < rounds; c0 += kRound, ++k)
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    if (lane * VEC + i >= d) break;
-    const float r = fminf(fmaxf(rintf(v[i] / s), -127.f), 127.f);
+    const int c = c0 + i;
+    if (c >= d) break;
+    const float r = fminf(fmaxf(rintf(x[c] / s), -127.f), 127.f);
     const int q8 = static_cast<int>(r);
-    full_row[lane * VEC + i] = static_cast<int8_t>(q8);
+    full_row[c] = static_cast<int8_t>(q8);
     if (msb_row != nullptr) {
       const uint8_t nib = static_cast<uint8_t>(((q8 >> 4) & 0xF) ^ 8);
-      const uint8_t old = msb_row[lane * VEC + i];
-      msb_row[lane * VEC + i] =
-          is_hi ? static_cast<uint8_t>((nib << 4) | (old & 0x0F))
-                : static_cast<uint8_t>((old & 0xF0) | nib);
+      const uint8_t old = msb_row[c];
+      msb_row[c] = is_hi ? static_cast<uint8_t>((nib << 4) | (old & 0x0F))
+                         : static_cast<uint8_t>((old & 0xF0) | nib);
     }
     if (l2_row != nullptr) {
       const int f2 = (q8 >> 2) & 0x3;
-      const int old = l2_row[lane * VEC + i];
-      l2_row[lane * VEC + i] =
+      const int old = l2_row[c];
+      l2_row[c] =
           static_cast<uint8_t>((old & ~(0x3 << l2_shift)) | (f2 << l2_shift));
     }
   }
@@ -634,20 +653,51 @@ __device__ __forceinline__ void finalize(float raw, float rs, float off,
   srow[t] = __fmul_rn(x, ksc);
 }
 
+// Which lane piece a scoring pass reads: piece `j` of a head's boxes (from
+// plane column `col`), the last one when `last`.  A head of one piece has
+// j = 0 and last = true; only the D = 256 instances read pieces, so the
+// passes of the others compile as if there were none (kPieces).
+struct Piece {
+  int j, col;
+  bool last;
+};
+
+template <int D>
+constexpr bool kPieces = D == 256;
+
+// A piece's raw score of column t: added to the earlier pieces' sum, kept
+// in the score plane (int32 bits under int8 queries, so the sum is
+// exact), and scaled by finalize() after the last piece.
+__device__ __forceinline__ void piece_score(float raw, bool qq,
+                                            Piece pc, float rs,
+                                            float off, float ksc, int t,
+                                            int idx, float* srow,
+                                            float* xidx) {
+  if (pc.j > 0)
+    raw = qq ? static_cast<float>(static_cast<int>(raw) +
+                                  __float_as_int(srow[t]))
+             : __fadd_rn(srow[t], raw);
+  if (pc.last)
+    finalize(raw, rs, off, ksc, t, idx, srow, xidx);
+  else
+    srow[t] = qq ? __int_as_float(static_cast<int>(raw)) : raw;
+}
+
 // The first plane column of head h's boxes: its first lane h*d rounded
 // down to 16 bytes, so a box starts on a 16-byte address; the head's d
 // lanes then sit `sh` = h*d - box_col bytes into each D-byte tile row
-// (instance_dim keeps sh + d <= D).  sh = 0 wherever d % 16 == 0.
+// (instance_dim keeps sh + d <= D, or runs the head in lane pieces of
+// D = 256 from box_col + 256 j).  sh = 0 wherever d % 16 == 0.
 __device__ __forceinline__ int box_col(const Params& p, int h) {
   return (h * p.d) & ~15;
 }
 
 // Raw scores of every live token from the int8 plane: tiles of kRows
 // tokens (one TMA box, or row copies for a ragged last tile where rows are
-// D bytes) with their K scale segment.  (b, h): the CTA's batch row and kv
-// head.
+// D bytes) with their K scale segment (the last piece's tiles only).  (b,
+// pc): the CTA's batch row and the lane piece.
 template <int G, int D>
-__device__ void scores_full(const Params& p, int b, int h, Ring& ring,
+__device__ void scores_full(const Params& p, int b, Piece pc, Ring& ring,
                             const int8_t* kf, const uint8_t* kcol,
                             const float (&qr)[G][Lanes<G, D>::CW],
                             const int (&qi)[G][Lanes<G, D>::CW / 4],
@@ -658,6 +708,7 @@ __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lrow = lane / L::LPR, lcol = lane % L::LPR;
   const int es = p.sc_bf16 ? 2 : 4, kmis = misalign(kcol);
+  const bool last = !kPieces<D> || pc.last;
   const uint8_t* plane = reinterpret_cast<const uint8_t*>(kf);
   stream_tiles(
       ring, (len + T - 1) / T,
@@ -668,7 +719,7 @@ __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
           // a whole box (a ragged one reads rows past the length, or zeros
           // past the plane); rows of d < D lanes are only 4-byte aligned
           if (lane == 0) {
-            if (go) tensor_copy(st, &p.kf_map, box_col(p, h), b * p.Ct + t0, bar);
+            if (go) tensor_copy(st, &p.kf_map, pc.col, b * p.Ct + t0, bar);
             bytes += T * D;
           }
         } else {
@@ -679,7 +730,7 @@ __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
             bytes += D;
           }
         }
-        if (lane == 0)
+        if (lane == 0 && last)
           bytes += seg_copy(st + kStageBytes, kcol, t0, rows, es, bar, go);
         return bytes;
       },
@@ -700,9 +751,9 @@ __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
             t[u] = t0 + rr;
             if (live) lds<L::CW>(st + rr * D + lcol * L::CW, w[u]);
             lead[u] = live && lcol == 0;
-            ksc[u] = lead[u] ? seg_at(st + kStageBytes, kmis, t0, t[u],
-                                      p.sc_bf16)
-                             : 0.f;
+            ksc[u] = lead[u] && last ? seg_at(st + kStageBytes, kmis, t0,
+                                              t[u], p.sc_bf16)
+                                     : 0.f;
 #pragma unroll
             for (int k = 0; k < L::CW / 4; ++k)
               x[u][k] = w[u][k] ^ 0x80808080u;       // int8 as byte ^ 0x80
@@ -712,10 +763,15 @@ __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
             float acc[U];
             row_dots<L::CW, L::LPR>(p.qq, qr[g], qi[g], w, x, kBias8, acc);
 #pragma unroll
-            for (int u = 0; u < U; ++u)
-              if (lead[u])
+            for (int u = 0; u < U; ++u) {
+              if (!lead[u]) continue;
+              if constexpr (kPieces<D>)
+                piece_score(acc[u], p.qq, pc, rsc.rs[g], rsc.off[g], ksc[u],
+                            t[u], idx, s + g * p.C, xidx + g);
+              else
                 finalize(acc[u], rsc.rs[g], rsc.off[g], ksc[u], t[u], idx,
                          s + g * p.C, xidx + g);
+            }
           }
         }
       });
@@ -732,7 +788,7 @@ __device__ void scores_full(const Params& p, int b, int h, Ring& ring,
 // is one TMA box of msb rows (and one of lsb2 rows); a ragged last tile is
 // copied row by row where rows are D bytes, else it is a whole box too.
 template <int G, int D>
-__device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
+__device__ void scores_msb(const Params& p, int b, Piece pc, Ring& ring,
                            const uint8_t* km,
                            const uint8_t* kl2, const uint8_t* kcol,
                            const float (&qr)[G][Lanes<G, D>::CW],
@@ -746,6 +802,7 @@ __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
   const int u = p.pack_unit, half_u = u / 2, quarter_u = u / 4;
   const int nr = (len / u) * half_u + min(len % u, half_u);
   const int T = p.t_msb;
+  const bool last = !kPieces<D> || pc.last;
   auto hi_token = [&](int r) { return (r / half_u) * u + r % half_u; };
   stream_tiles(
       ring, (nr + T - 1) / T,
@@ -754,14 +811,13 @@ __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
         uint32_t bytes = 0;
         if (rows == T || p.d != D) {       // whole boxes, as in scores_full
           if (lane == 0) {
-            if (go)
-              tensor_copy(st, &p.km_map, box_col(p, h), b * (p.Ct / 2) + r0, bar);
+            if (go) tensor_copy(st, &p.km_map, pc.col, b * (p.Ct / 2) + r0, bar);
             bytes += T * D;
           }
           if (kl2 != nullptr && lane == 2) {
             const int lr0 = (r0 / half_u) * quarter_u + r0 % quarter_u;
             if (go)
-              tensor_copy(st + p.l2_off, &p.kl2_map, box_col(p, h),
+              tensor_copy(st + p.l2_off, &p.kl2_map, pc.col,
                           b * (p.Ct / 4) + lr0, bar);
             bytes += T * D;
           }
@@ -781,9 +837,9 @@ __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
           }
         }
         const int thi0 = hi_token(r0);
-        if (lane == 0)
+        if (lane == 0 && last)
           bytes += seg_copy(st + kStageBytes, kcol, thi0, rows, es, bar, go);
-        if (lane == 1)
+        if (lane == 1 && last)
           bytes += seg_copy(st + kStageBytes + kSegHalf, kcol, thi0 + half_u,
                             rows, es, bar, go);
         return bytes;
@@ -835,23 +891,28 @@ __device__ void scores_msb(const Params& p, int b, int h, Ring& ring,
             tok[2 * u + 1] = tlo;
             put[2 * u] = lead;
             put[2 * u + 1] = lead && tlo < len;
-            ksc[2 * u] =
-                lead ? seg_at(st + kStageBytes, kmis, thi0, thi, p.sc_bf16)
-                     : 0.f;
-            ksc[2 * u + 1] =
-                put[2 * u + 1] ? seg_at(st + kStageBytes + kSegHalf, kmis,
-                                        thi0 + half_u, tlo, p.sc_bf16)
-                               : 0.f;
+            ksc[2 * u] = lead && last ? seg_at(st + kStageBytes, kmis, thi0,
+                                               thi, p.sc_bf16)
+                                      : 0.f;
+            ksc[2 * u + 1] = put[2 * u + 1] && last
+                                 ? seg_at(st + kStageBytes + kSegHalf, kmis,
+                                          thi0 + half_u, tlo, p.sc_bf16)
+                                 : 0.f;
           }
 #pragma unroll
           for (int g = 0; g < G; ++g) {
             float acc[2 * U];
             row_dots<L::CW, L::LPR>(p.qq, qr[g], qi[g], v, v, kBias, acc);
 #pragma unroll
-            for (int k = 0; k < 2 * U; ++k)
-              if (put[k])
+            for (int k = 0; k < 2 * U; ++k) {
+              if (!put[k]) continue;
+              if constexpr (kPieces<D>)
+                piece_score(acc[k], p.qq, pc, rsc.rs[g], rsc.off[g], ksc[k],
+                            tok[k], idx, s + g * p.C, xidx + g);
+              else
                 finalize(acc[k], rsc.rs[g], rsc.off[g], ksc[k], tok[k], idx,
                          s + g * p.C, xidx + g);
+            }
           }
         }
       });
@@ -1135,6 +1196,12 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   const int hq0 = h * gl;                           // first q head of group
   const int d = p.d;                                // live lanes of D
   const int sh = h * d - box_col(p, h);            // their offset in a row
+  // lane pieces (boxes): only D = 256 runs a head in more than one, so
+  // the other instances compile the one-piece code they had before
+  const int npc = kPieces<D> ? (sh + d + D - 1) / D : 1;
+  auto lane_piece = [&](int j) {
+    return Piece{j, box_col(p, h) + j * D, j + 1 == npc};
+  };
   const size_t out0 = (static_cast<size_t>(b) * p.Hq + hq0) * d;
   const size_t row0 = static_cast<size_t>(b) * p.Hq + hq0;   // [B, Hq] index
   float* dl = p.delta == nullptr ? nullptr
@@ -1239,27 +1306,58 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   const float mult = p1_full ? 1.f : (use6 ? 4.f : 16.f);
   const float moff = p1_full ? 0.f : (use6 ? kMidpoint6 : kMsbMidpoint) - 128.f;
 
-  // ---- the queries of the chunk from row r0 in registers (a lane holds
-  // tile columns lcol*CW + c of every row: head column lcol*CW + c - sh;
-  // columns outside the head's d read 0, so the tile bytes there, a
-  // neighbouring head's or zeros, add nothing), optionally quantized to
-  // int8 per row, with the rows' score constants for pass 1 (rs1) and
-  // the int8 recompute (rs2); every row group derives the same constants
+  // ---- the queries of the chunk from row r0 in registers, piece j's
+  // lanes (a lane holds tile columns lcol*CW + c of every row: head column
+  // j*D + lcol*CW + c - sh; columns outside the head's d read 0, so the
+  // tile bytes there, a neighbouring head's or zeros, add nothing),
+  // optionally quantized to int8 per row (by the whole row's amax), with
+  // the rows' score constants for pass 1 (rs1) and the int8 recompute
+  // (rs2), whose lane sums run over every piece in piece order; every row
+  // group derives the same constants
   float qr[G][CW];
   int qi[G][CW / 4];                                // int8 queries, 4 a word
   RowScale<G> rs1, rs2;
-  auto load_queries = [&](int r0) {
+  auto load_queries = [&](int r0, int j) {
     float rowscale[G], qsum[G];
+    auto qval = [&](int r, int jj, int c) {
+      const int col = jj * D + lcol * CW + c - sh;
+      return r < gl && col >= 0 && col < d ? p.q[out0 + r * d + col] : 0.f;
+    };
 #pragma unroll
     for (int g = 0; g < G; ++g) {
+      if constexpr (!kPieces<D>) {                   // one piece
+        const int r = r0 + g;
+        float amax = 0.f;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          qr[g][c] = qval(r, 0, c);
+          amax = fmaxf(amax, fabsf(qr[g][c]));
+        }
+        rowscale[g] = 1.f;
+        if (p.qq) {
+          rowscale[g] = fmaxf(group_max<L::LPR>(amax), 1e-20f) / 127.f;
+#pragma unroll
+          for (int c = 0; c < CW; ++c)
+            qr[g][c] =
+                fminf(fmaxf(rintf(qr[g][c] / rowscale[g]), -127.f), 127.f);
+        }
+        float sum = 0.f;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) sum += qr[g][c];
+        qsum[g] = group_sum<L::LPR>(sum);
+        continue;
+      }
       const int r = r0 + g;
       float amax = 0.f;
 #pragma unroll
       for (int c = 0; c < CW; ++c) {
-        const int col = lcol * CW + c - sh;
-        qr[g][c] = r < gl && col >= 0 && col < d ? p.q[out0 + r * d + col]
-                                                  : 0.f;
+        qr[g][c] = qval(r, j, c);
         amax = fmaxf(amax, fabsf(qr[g][c]));
+      }
+      for (int jj = 0; jj < npc; ++jj) {
+        if (jj == j) continue;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) amax = fmaxf(amax, fabsf(qval(r, jj, c)));
       }
       rowscale[g] = 1.f;
       if (p.qq) {
@@ -1268,10 +1366,20 @@ fused_decode_kernel(const __grid_constant__ Params p) {
         for (int c = 0; c < CW; ++c)
           qr[g][c] = fminf(fmaxf(rintf(qr[g][c] / rowscale[g]), -127.f), 127.f);
       }
-      float sum = 0.f;
+      qsum[g] = 0.f;
+      for (int jj = 0; jj < npc; ++jj) {
+        float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < CW; ++c) sum += qr[g][c];
-      qsum[g] = group_sum<L::LPR>(sum);
+        for (int c = 0; c < CW; ++c) {
+          float v = qr[g][c];
+          if (jj != j) {
+            v = qval(r, jj, c);
+            if (p.qq) v = fminf(fmaxf(rintf(v / rowscale[g]), -127.f), 127.f);
+          }
+          sum += v;
+        }
+        qsum[g] += group_sum<L::LPR>(sum);
+      }
     }
 #pragma unroll
     for (int g = 0; g < G; ++g)
@@ -1294,20 +1402,22 @@ fused_decode_kernel(const __grid_constant__ Params p) {
       rs2.off[g] = 0.f;
     }
   };
-  load_queries(0);
+  load_queries(0, 0);
 
-  // ---- pass 1 on the layer's profile (per chunk) + softmax + requant
-  // decision (over every row)
+  // ---- pass 1 on the layer's profile (per chunk and lane piece) +
+  // softmax + requant decision (over every row)
   for (int c = 0; c < nch; ++c) {
-    if (c > 0) load_queries(c * G);
     float* sc = s + static_cast<size_t>(c) * G * C;
     float* xc = misc + kXidx * MG + c * G;
-    if (p1_full) {
-      scores_full<G, D>(p, b, h, ring, kf, kcol, qr, qi, rs1, len, idx, sc,
-                        xc);
-    } else {
-      scores_msb<G, D>(p, b, h, ring, km, use6 ? kl2 : nullptr, kcol, qr, qi,
-                       rs1, len, idx, sc, xc);
+    for (int j = 0; j < npc; ++j) {
+      if (c > 0 || j > 0) load_queries(c * G, j);
+      if (p1_full) {
+        scores_full<G, D>(p, b, lane_piece(j), ring, kf, kcol, qr, qi, rs1, len,
+                          idx, sc, xc);
+      } else {
+        scores_msb<G, D>(p, b, lane_piece(j), ring, km, use6 ? kl2 : nullptr, kcol,
+                         qr, qi, rs1, len, idx, sc, xc);
+      }
     }
   }
   // presoftmax keeps the scores until its importance has read them
@@ -1326,12 +1436,13 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   }
   if (fire) {
     __syncthreads();
-    for (int c = 0; c < nch; ++c) {
-      if (nch > 1) load_queries(c * G);
-      scores_full<G, D>(p, b, h, ring, kf, kcol, qr, qi, rs2, len, idx,
-                        s + static_cast<size_t>(c) * G * C,
-                        misc + kXidx * MG + c * G);
-    }
+    for (int c = 0; c < nch; ++c)
+      for (int j = 0; j < npc; ++j) {
+        if (nch > 1 || npc > 1) load_queries(c * G, j);
+        scores_full<G, D>(p, b, lane_piece(j), ring, kf, kcol, qr, qi, rs2, len,
+                          idx, s + static_cast<size_t>(c) * G * C,
+                          misc + kXidx * MG + c * G);
+      }
     softmax_rows(p, s, len, red, misc, vcol, write_e, MG);
   }
   if (p.mrow != nullptr) {
@@ -1445,7 +1556,8 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   // appended column comes last, from the new row's f32 V scale (pv_int8:
   // 8-bit row weights w8 = rint(w * 127 / wmax) on the stored int8 rows,
   // int32 sums, kept in the f32 accumulators' bits).  One stream per chunk
-  // of G rows (the kept blocks are every row's)
+  // of G rows (the kept blocks are every row's) and lane piece, which
+  // writes the piece's columns
   const int tpv = p.tpv, piece = p.piece;
   const int sstride = seg_stride(piece, es), vmis = misalign(vcol);
   const int nvr = nk * p.v_block;
@@ -1465,8 +1577,10 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   };
   const uint8_t* vplane = reinterpret_cast<const uint8_t*>(vf);
   const float kept_scale = 1.f / 127.f;
-  for (int c = 0; c < nch; ++c) {
+  for (int c = 0; c < nch; ++c)
+  for (int lp = 0; lp < npc; ++lp) {
     const int r0 = c * G;
+    const int pcol = box_col(p, h) + lp * D;        // the piece's boxes
     const float* sc = s + static_cast<size_t>(r0) * C;
     const uint8_t* kc = keep + r0 * nvb;
     const float* wc = wrow + r0;
@@ -1502,8 +1616,8 @@ fused_decode_kernel(const __grid_constant__ Params p) {
                               bar, go);
             if (whole(tf, n)) {
               if (go)
-                tensor_copy(st + j * piece * D, &p.vf_map, box_col(p, h),
-                            b * p.Ct + tf, bar);
+                tensor_copy(st + j * piece * D, &p.vf_map, pcol, b * p.Ct + tf,
+                            bar);
               bytes += piece * D;
             }
           }
@@ -1565,10 +1679,16 @@ fused_decode_kernel(const __grid_constant__ Params p) {
     __syncthreads();
     const int* pvi = reinterpret_cast<const int*>(pv);
     // the partials' lanes outside the head's (its neighbours' bytes) are
-    // never read; the chunk's live rows only
+    // never read; the chunk's live rows only, the head columns [lo, hi) of
+    // the piece
     const int glc = min(G, gl - r0);
-    for (int i = threadIdx.x; i < glc * d; i += kThreads) {
-      const int g = i / d, dd = i % d, k = g * D + sh + dd;
+    int lo = 0, n = d;
+    if constexpr (kPieces<D>) {
+      lo = max(0, lp * D - sh);
+      n = min(d, (lp + 1) * D - sh) - lo;
+    }
+    for (int i = threadIdx.x; i < glc * n; i += kThreads) {
+      const int g = i / n, dd = lo + i % n, k = g * D + sh + dd - lp * D;
       float o;
       if (p.pv_int8) {
         int sum = 0;
@@ -1589,9 +1709,9 @@ fused_decode_kernel(const __grid_constant__ Params p) {
             static_cast<float>(vf[static_cast<size_t>(idx) * F + dd]), app[1]);
         o = __fadd_rn(o, __fmul_rn(p_idx, vnew));
       }
-      p.out[out0 + static_cast<size_t>(r0) * d + i] = o;
+      p.out[out0 + static_cast<size_t>(r0 + g) * d + dd] = o;
     }
-    if (c + 1 < nch) __syncthreads();               // pv is the next chunk's
+    if (c + 1 < nch || lp + 1 < npc) __syncthreads();   // pv is the next's
   }
 }
 
@@ -1759,7 +1879,8 @@ cudaError_t plan_ring(Params& p, int B, int D) {
 // delta columns may start anywhere (their segments and vectors align
 // themselves).  `G`, `D`: the <G, D> instance, which holds the model's
 // group g = Hq / Hkv (its smallest such G, or 8 in chunks of 8 rows for g
-// past 8) and head_dim d (the wrapper's fused_decode.instance_dim);
+// past 8) and head_dim d (the wrapper's fused_decode.instance_dim: 256 in
+// lane pieces for d past 256 lanes);
 // `splane`: f32 [B, Hkv, rows, C] for the score plane, rows = ceil(g / G)
 // * G, when the wrapper finds that the instance's shared-memory plan with
 // it would pass 227 KB or g passes G, else null; `bplane`: bytes [B, Hkv,
@@ -1795,11 +1916,12 @@ extern "C" int spatten_fused_decode(
   const int low = d & -d;                  // a box row's lead-in is at
   const int lead = low < 16 ? 16 - low : 0;   // most 16 - gcd(d, 16)
   // a group past its instance runs in chunks only in <8, D, false>; the
-  // block plane comes only with the score plane
+  // block plane comes only with the score plane; a head past D lanes runs
+  // in lane pieces only in D = 256
   if (G < 1 || Hq % Hkv || p.g < 1 || (G > 1 && 2 * p.g <= G) ||
       (p.g > G && (G != 8 || splane == nullptr)) ||
       (bplane != nullptr && splane == nullptr) || d < 1 ||
-      d + lead > D || (D != 64 && D != 128 && D != 256))
+      (d + lead > D && D != 256) || (D != 64 && D != 128 && D != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = plan_ring(p, B, D);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -302,7 +302,9 @@ class _CpuReplay:
     """While active, ``transformer.forward`` first replays each call on
     the CPU from a copy of the state it was given (``params``: f32, on the
     CPU), then runs it; ``got`` / ``want`` collect the card's and the
-    CPU's last-token logits [B, V] and ``shapes`` the token shapes."""
+    CPU's last-token logits [B, V] and ``shapes`` the token shapes.  A
+    tensor-parallel call (``tp_group``) replays its all-reduces on the
+    CPU copies over the same group, so every rank must replay."""
 
     def __init__(self, params):
         from spatten_tpu_torch.models import transformer as tr
@@ -311,13 +313,13 @@ class _CpuReplay:
         self.got, self.want, self.shapes = [], [], []
 
     def forward(self, p, cfg_, state, tokens, rope_tables=None,
-                head_compact=None):
+                head_compact=None, **kw):
         cpu = torch.device("cpu")
         ref = self.run_forward(self.params, cfg_, state.clone(cpu),
                                tokens.to(cpu), _to(rope_tables, cpu),
-                               _to(head_compact, cpu))[0]
+                               _to(head_compact, cpu), **kw)[0]
         out = self.run_forward(p, cfg_, state, tokens, rope_tables,
-                               head_compact)
+                               head_compact, **kw)
         self.got.append(out[0][:, -1].to(cpu))
         self.want.append(ref[:, -1])
         self.shapes.append(tuple(tokens.shape))

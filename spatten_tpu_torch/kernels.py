@@ -5,7 +5,11 @@ own with ``nvcc`` for ``sm_90a`` into ``build/cuda/lib<source>.so`` at the
 repo root (listed in ``.gitignore``), the first time one of its kernels
 is needed or when the source is newer than the library.  ``build_all``
 starts one ``nvcc`` per source at once, so a fresh checkout builds in the
-time of the slowest file.  Libraries load with ``ctypes``; the wrappers
+time of the slowest file.  Several processes may reach first use at
+once (the ranks of a mesh): a build holds a file lock in the build
+directory, each library is written under a temporary name and renamed
+into place, and a process that waited on the lock finds the library
+fresh and builds nothing.  Libraries load with ``ctypes``; the wrappers
 pass pointers (``tensor.data_ptr()``) and PyTorch's current stream, and
 raise when the C function returns a CUDA error code.
 
@@ -14,7 +18,9 @@ Nothing here runs at import time: a CPU-only host imports every module.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -67,28 +73,49 @@ def _stale(source: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """The build directory's lock, held while a process builds (released
+    by the system if the process dies)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build_all(names=None, force: bool = False) -> tuple[float, dict]:
-    """Compile the given sources (default: all) in parallel.
+    """Compile the given sources (default: all) in parallel, under the
+    build lock (another process's build of the same sources is waited for
+    and not repeated unless ``force``).
 
     Returns (seconds, {source: ptxas report}).  Raises RuntimeError with
     the compiler output when a build fails."""
     names = list(SOURCES) if names is None else list(names)
-    todo = [n for n in names if force or _stale(n)]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    procs = {}
-    for n in todo:
-        cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(library_path(n)), str(CSRC / f"{n}.cu")]
-        procs[n] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-    reports, failed = {}, []
-    for n, proc in procs.items():
-        out, _ = proc.communicate()
-        reports[n] = out
-        if proc.returncode != 0:
-            failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+    with _build_lock():
+        todo = [n for n in names if force or _stale(n)]
+        procs = {}
+        for n in todo:
+            tmp = library_path(n).with_name(
+                f"lib{n}.{os.getpid()}.tmp.so")
+            cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                   "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT,
+                                              text=True))
+        reports, failed = {}, []
+        for n, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            reports[n] = out
+            if proc.returncode != 0:
+                failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, library_path(n))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0, reports
@@ -100,7 +127,7 @@ def load(source: str) -> ctypes.CDLL:
     lib = _loaded.get(source)
     if lib is None:
         if _stale(source):
-            build_all([source])
+            build_all([source])         # a no-op if another process did
         lib = ctypes.CDLL(str(library_path(source)))
         for src, fn_name, argtypes in SIGNATURES.values():
             if src == source:

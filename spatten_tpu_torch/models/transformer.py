@@ -25,6 +25,15 @@ IN PLACE: ``forward`` consumes its input state.
 attention projections (permanent head pruning); ``forward(head_compact=
 ...)`` then computes q/k/v on the compact width and scatters them into
 their physical head slots, so dead heads get exact zeros.
+
+Tensor parallelism (``tp_group``, a process group of ``parallel.mesh``):
+the parameters and ``cfg`` describe this rank's heads and MLP columns,
+and the o_proj and MLP outputs are summed over the group
+(``mesh.all_reduce``) before the replicated biases are added, where the
+JAX model psums over its ``tp_axis`` (in the activations' dtype, as
+the psum adds them).  ``layer_offset``: the global index
+of local layer 0 (a pipeline stage), read by the per-layer attention
+scale.  With neither, every path is the code it was.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from spatten_tpu_torch.ops import rope as rope_ops
 from spatten_tpu_torch.ops.attention_ref import spatten_attention_reference
 from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
 from spatten_tpu_torch.ops.prefill_attention import prefill_attention
+from spatten_tpu_torch.parallel.mesh import all_reduce
 from spatten_tpu_torch.pruning.token_pruning import (
     layer_budgets_static, layer_capacity_groups,
 )
@@ -55,12 +65,19 @@ Params = Dict[str, Any]
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
                 dtype: torch.dtype = torch.bfloat16,
-                device: str | torch.device = "cuda") -> Params:
+                device: str | torch.device = "cuda", keep=None) -> Params:
     """Random parameters: dense weights ~ N(0, 1/fan_in), norms at 1.
 
     ``generator`` is a ``torch.Generator`` on ``device`` or an int seed.
     Each layer's slice is drawn separately, so the f32 transient stays
-    one layer's matrix (Llama-2-7B: 13.5 GB of bf16 weights)."""
+    one layer's matrix (Llama-2-7B: 13.5 GB of bf16 weights).
+
+    ``keep(name, layer, t)``: a rank's part of the tree (a shard of a
+    model too large for one card), given each leaf's layer slice
+    (``layer`` its index, None for an unstacked leaf) as the whole tree
+    would hold it; it returns the part to keep, or None to drop a layer.
+    The random stream is drawn in full, so the parts are those of the
+    whole tree from the same seed."""
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
@@ -68,51 +85,72 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
     L, D, I = m.num_layers, m.hidden_size, m.intermediate_size
     hq, hkv, dh = m.num_heads, m.num_kv_heads, m.head_dim
 
-    def dense(shape, fan_in, stacked=True):
+    def kept(name, parts):
+        parts = [t for t in parts if t is not None]
+        return torch.stack(parts) if parts else None
+
+    def dense(name, shape, fan_in, stacked=True):
+        if keep is not None:
+            def draw(part_shape, layer):
+                t = (torch.randn(part_shape, generator=generator, device=dev)
+                     / math.sqrt(fan_in)).to(dtype)
+                t = keep(name, layer, t)
+                return None if t is None else t.contiguous()
+            if not stacked:
+                return draw(shape, None)
+            return kept(name, [draw(shape[1:], l) for l in range(shape[0])])
         out = torch.empty(shape, dtype=dtype, device=dev)
         for part in (out if stacked else [out]):
             part.copy_(torch.randn(part.shape, generator=generator,
                                    device=dev) / math.sqrt(fan_in))
         return out
 
-    def const(shape, value):
+    def const(name, shape, value, stacked=True):
+        if keep is not None:
+            t = torch.full(shape[1:] if stacked else shape, value,
+                           dtype=dtype, device=dev)
+            if not stacked:
+                return keep(name, None, t)
+            return kept(name, [keep(name, l, t) for l in range(shape[0])])
         return torch.full(shape, value, dtype=dtype, device=dev)
 
     layers = {
-        "attn_norm_w": const((L, D), 1.0),
-        "wq": dense((L, D, hq * dh), D),
-        "wk": dense((L, D, hkv * dh), D),
-        "wv": dense((L, D, hkv * dh), D),
-        "wo": dense((L, hq * dh, D), hq * dh),
-        "mlp_norm_w": const((L, D), 1.0),
-        "w_up": dense((L, D, I), D),
-        "w_down": dense((L, I, D), I),
+        "attn_norm_w": const("attn_norm_w", (L, D), 1.0),
+        "wq": dense("wq", (L, D, hq * dh), D),
+        "wk": dense("wk", (L, D, hkv * dh), D),
+        "wv": dense("wv", (L, D, hkv * dh), D),
+        "wo": dense("wo", (L, hq * dh, D), hq * dh),
+        "mlp_norm_w": const("mlp_norm_w", (L, D), 1.0),
+        "w_up": dense("w_up", (L, D, I), D),
+        "w_down": dense("w_down", (L, I, D), I),
     }
     if m.activation == "silu":
-        layers["w_gate"] = dense((L, D, I), D)
+        layers["w_gate"] = dense("w_gate", (L, D, I), D)
     if m.layernorm_kind == "layernorm":
-        layers["attn_norm_b"] = const((L, D), 0.0)
-        layers["mlp_norm_b"] = const((L, D), 0.0)
+        layers["attn_norm_b"] = const("attn_norm_b", (L, D), 0.0)
+        layers["mlp_norm_b"] = const("mlp_norm_b", (L, D), 0.0)
     if m.use_qkv_bias:
-        layers["bq"] = const((L, hq * dh), 0.0)
-        layers["bk"] = const((L, hkv * dh), 0.0)
-        layers["bv"] = const((L, hkv * dh), 0.0)
-        layers["bo"] = const((L, D), 0.0)
+        layers["bq"] = const("bq", (L, hq * dh), 0.0)
+        layers["bk"] = const("bk", (L, hkv * dh), 0.0)
+        layers["bv"] = const("bv", (L, hkv * dh), 0.0)
+        layers["bo"] = const("bo", (L, D), 0.0)
     if m.use_mlp_bias:
-        layers["b_up"] = const((L, I), 0.0)
-        layers["b_down"] = const((L, D), 0.0)
+        layers["b_up"] = const("b_up", (L, I), 0.0)
+        layers["b_down"] = const("b_down", (L, D), 0.0)
     params: Params = {
-        "embed": dense((m.vocab_size, D), D, stacked=False),
+        "embed": dense("embed", (m.vocab_size, D), D, stacked=False),
         "layers": layers,
-        "final_norm_w": const((D,), 1.0),
+        "final_norm_w": const("final_norm_w", (D,), 1.0, stacked=False),
     }
     if m.layernorm_kind == "layernorm":
-        params["final_norm_b"] = const((D,), 0.0)
+        params["final_norm_b"] = const("final_norm_b", (D,), 0.0,
+                                       stacked=False)
     if m.use_abs_pos_emb:
-        params["wpe"] = dense((m.max_position_embeddings, D), D,
+        params["wpe"] = dense("wpe", (m.max_position_embeddings, D), D,
                               stacked=False)
     if not m.tie_word_embeddings:
-        params["lm_head"] = dense((D, m.vocab_size), D, stacked=False)
+        params["lm_head"] = dense("lm_head", (D, m.vocab_size), D,
+                                  stacked=False)
     return params
 
 
@@ -279,7 +317,8 @@ def decode_uses_kernel(cfg: SpAttenConfig, device_type: str) -> bool:
 def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
                x: torch.Tensor,
                rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
-               head_kept: tuple[torch.Tensor, torch.Tensor] | None = None):
+               head_kept: tuple[torch.Tensor, torch.Tensor] | None = None,
+               layer_offset: int = 0, tp_group=None):
     """Run x [B, S, D] through every layer, appending the S tokens to each
     layer's cache IN PLACE (the state's cache and importance are
     consumed).  Returns (x, new_layer_lengths, requants [L], max_probs
@@ -287,7 +326,9 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
 
     ``head_kept``: (kept_q [L, kq], kept_kv [L, kkv]) when
     ``layer_params`` are the compacted leaves of ``compact_head_params``
-    (decode only)."""
+    (decode only).  ``layer_offset``: the global index of local layer 0
+    (the per-layer attention scale reads it); ``tp_group``: the process
+    group that the o_proj and MLP partial sums are reduced over."""
     m, p, q, e = cfg.model, cfg.pruning, cfg.quant, cfg.engine
     b, s = x.shape[:2]
     hq, hkv, dh = m.num_heads, m.num_kv_heads, m.head_dim
@@ -341,7 +382,7 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
                 kh = (kh * c + rope_ops.rotate_half(kh) * sn).to(kh.dtype)
         sm_scale = base_scale
         if m.use_attn_scale_by_layer:
-            sm_scale = base_scale / (layer_idx + 1.0)
+            sm_scale = base_scale / (layer_idx + layer_offset + 1.0)
         return qh, kh, vh, pos_l, sm_scale
 
     def out_mlp(x, lp, attn_out, kept_q=None):
@@ -349,10 +390,11 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
             # head-compacted o_proj: the pruned heads' rows were zeros
             attn_out = attn_out[:, kept_q]
         o = attn_out.to(x.dtype).transpose(1, 2).reshape(b, s, -1)
-        x = x + _biased(_mm(o, lp["wo"]), lp, "bo")
+        x = x + _biased(all_reduce(_mm(o, lp["wo"]), tp_group), lp, "bo")
         h2 = _norm(x, lp["mlp_norm_w"], lp.get("mlp_norm_b"),
                    m.layernorm_kind, m.norm_eps)
-        return _biased(x + _mlp(h2, lp, m.activation), lp, "b_down")
+        return _biased(x + all_reduce(_mlp(h2, lp, m.activation), tp_group),
+                       lp, "b_down")
 
     # per-layer capacity rungs: K1 is sized to each group's rung
     rungs = [cap] * m.num_layers
@@ -439,21 +481,24 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
 def forward(params: Params, cfg: SpAttenConfig, state: DecodeState,
             tokens: torch.Tensor,
             rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
-            head_compact: dict | None = None,
-            ) -> tuple[torch.Tensor, DecodeState, StepAux]:
+            head_compact: dict | None = None, layer_offset: int = 0,
+            tp_group=None) -> tuple[torch.Tensor, DecodeState, StepAux]:
     """Run S tokens [B, S] through the model, appending them to the cache.
 
     Returns (logits [B, S, vocab] f32, new_state, aux).  The input state's
     cache planes and importance are updated in place (consumed); the
     returned state holds them with the new lengths.  ``head_compact``:
-    ``compact_head_params`` output (decode with compacted projections)."""
+    ``compact_head_params`` output (decode with compacted projections).
+    ``tp_group``: this rank's tensor-parallel group (``cfg`` and the
+    parameters then describe the rank's heads; see ``run_layers``)."""
     s = tokens.shape[1]
     x, _ = embed_tokens(params, cfg, state, tokens)
     x, new_lengths, requants, max_probs = run_layers(
         head_compact["layers"] if head_compact else params["layers"], cfg,
         state, x, rope_tables=rope_tables,
         head_kept=(None if head_compact is None else
-                   (head_compact["kept_q"], head_compact["kept_kv"])))
+                   (head_compact["kept_q"], head_compact["kept_kv"])),
+        layer_offset=layer_offset, tp_group=tp_group)
     logits = lm_head(params, cfg, x)
     total = requants.sum().to(torch.int32)
     new_state = state._replace(

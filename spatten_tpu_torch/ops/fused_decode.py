@@ -32,9 +32,10 @@ a group of 3 runs in the group-4 instance and 5-7 in the group-8 one
 a group past 8 in the group-8 instance with its score plane in device
 memory, as chunks of 8 rows (``plane_rows`` rows, the last chunk padded),
 and a head_dim d in the smallest instance dim D >= d (``instance_dim``),
-whose lanes past d it reads and never uses.  ``k1_plan`` says where a
-launch keeps its score plane and its per-V-block arrays; K1 refuses only
-a head_dim past 256 lanes (``k1_shape_error``).
+whose lanes past d it reads and never uses; a head past 256 lanes runs in
+the D = 256 instances as ``lane_pieces`` boxes of 256 bytes side by side.
+``k1_plan`` says where a launch keeps its score plane and its per-V-block
+arrays; K1 takes every head_dim (``k1_shape_error``).
 """
 
 from __future__ import annotations
@@ -350,17 +351,27 @@ def instance_dim(head_dim: int) -> int:
     """The ``<G, D>`` instance dim that runs a model's head_dim: 64 for 64,
     else the smallest of 128 and 256 that holds its lanes after the box's
     lead-in (K1 reads a head's rows in boxes that start on the 16-byte
-    address at or before its first lane: 100 runs in 128, 124 in 256).
-    A head_dim below the dim is read only in boxes, and a V piece of an
-    odd number of 64-byte rows would not land 128-byte aligned, so no
-    head_dim but 64 runs in 64.  ValueError past 256 lanes."""
-    need = head_dim + _lead_in(head_dim)
-    if head_dim < 1 or need > _HEAD_DIMS[-1]:
-        raise ValueError(f"head_dim {head_dim}: K1's instances hold head "
-                         f"dims up to {_HEAD_DIMS[-1]} lanes")
+    address at or before its first lane: 100 runs in 128, 124 in 256),
+    and 256 past 256 lanes, in ``lane_pieces``.  A head_dim below the dim
+    is read only in boxes, and a V piece of an odd number of 64-byte rows
+    would not land 128-byte aligned, so no head_dim but 64 runs in 64.
+    ValueError for a head_dim below 1."""
+    if head_dim < 1:
+        raise ValueError(f"head_dim {head_dim}")
     if head_dim == _HEAD_DIMS[0]:
         return head_dim
-    return next(x for x in _HEAD_DIMS[1:] if x >= need)
+    need = head_dim + _lead_in(head_dim)
+    return next((x for x in _HEAD_DIMS[1:] if x >= need), _HEAD_DIMS[-1])
+
+
+def lane_pieces(head_dim: int) -> int:
+    """How many boxes of ``instance_dim`` bytes side by side K1 reads a
+    head's rows in, at most (a head whose lanes start on a 16-byte
+    address may need one fewer): 1 up to 256 lanes after the lead-in,
+    else ceil((head_dim + lead-in) / 256).  A TMA box is at most 256
+    bytes wide, so a wider head's passes run once per piece."""
+    dim = instance_dim(head_dim)
+    return -(-(head_dim + _lead_in(head_dim)) // dim)
 
 
 def block_bytes(rows: int, nvb: int) -> int:
@@ -426,8 +437,9 @@ def k1_plan(group: int, head_dim: int, rung: int, v_block: int) -> K1Plan:
     """The plan of a K1 launch at a model's GQA group and head_dim over a
     window of ``rung`` tokens: everything in shared memory where it fits
     227 KB (and the group fits its instance); else the score plane in
-    device memory; else the per-V-block arrays there too.  ValueError for
-    a head_dim past 256 lanes."""
+    device memory; else the per-V-block arrays there too.  The plan does
+    not depend on ``lane_pieces``: the pieces of a head share the ring,
+    the score plane and the P·V partials."""
     inst, dim = instance_group(group), instance_dim(head_dim)
     rows = plane_rows(group)
     if rows == inst and scores_in_smem(inst, dim, rung, v_block):
@@ -455,17 +467,16 @@ def check_smem(group: int, head_dim: int, cap: int, v_block: int) -> int:
 def k1_shape_error(group: int, head_dim: int, cap_total: int, rung: int,
                    v_block: int) -> Optional[str]:
     """Why K1 on the card does not take a call of this shape, or None when
-    it does.  It takes every GQA group (past 8 in chunks of 8 rows) and
-    every window (the score plane and then the per-V-block arrays move to
-    device memory as the window grows, ``k1_plan``), and any stored
-    capacity and rung the wrapper's layout rules admit; it refuses only a
-    head_dim past its largest instance's 256 lanes.  The wrapper raises
+    it does.  It takes every GQA group (past 8 in chunks of 8 rows), every
+    head_dim (past 256 lanes in ``lane_pieces``) and every window (the
+    score plane and then the per-V-block arrays move to device memory as
+    the window grows, ``k1_plan``), and any stored capacity and rung the
+    wrapper's layout rules admit.  The wrapper raises
     ``NotImplementedError`` with this message."""
     if group < 1:
         return f"K1 on CUDA: GQA group {group}"
-    if head_dim < 1 or head_dim + _lead_in(head_dim) > _HEAD_DIMS[-1]:
-        return (f"K1 on CUDA: head_dim {head_dim} (the kernel's instances "
-                f"hold head dims up to {_HEAD_DIMS[-1]} lanes)")
+    if head_dim < 1:
+        return f"K1 on CUDA: head_dim {head_dim}"
     plan = k1_plan(group, head_dim, rung, v_block)
     if plan.smem > _SMEM_LIMIT:
         return (f"K1 on CUDA: window {rung} x GQA group {group} needs "

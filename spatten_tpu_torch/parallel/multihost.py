@@ -25,16 +25,19 @@ import torch.distributed as dist
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> None:
+               process_id: Optional[int] = None,
+               backend: Optional[str] = None) -> None:
     """Join the process group (nothing if one already exists).
 
     ``coordinator_address``: ``tcp://host:port`` (a bare ``host:port`` is
-    read as tcp), or None for ``env://``.  The backend is NCCL where CUDA
-    is available (each rank then uses card ``rank % device_count``), else
-    gloo."""
+    read as tcp), or None for ``env://``.  The backend is ``backend``, by
+    default NCCL where CUDA is available (each rank then uses card ``rank
+    % device_count``), else gloo; gloo on a card's machine lets several
+    ranks share one card (their collectives run through the host)."""
     if dist.is_initialized():
         return
-    cuda = torch.cuda.is_available()
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
     if coordinator_address is None:
         init_method = "env://"
     elif "://" in coordinator_address:
@@ -46,9 +49,8 @@ def initialize(coordinator_address: Optional[str] = None,
         kwargs["world_size"] = num_processes
     if process_id is not None:
         kwargs["rank"] = process_id
-    dist.init_process_group("nccl" if cuda else "gloo",
-                            init_method=init_method, **kwargs)
-    if cuda:
+    dist.init_process_group(backend, init_method=init_method, **kwargs)
+    if backend == "nccl":
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
 
 

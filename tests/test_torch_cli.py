@@ -10,7 +10,13 @@ equal JAX ``generate`` on the same weights and state sequence (JAX's
 loader, the CLI's configuration); the trace CSV's rows equal JAX
 ``collect_trace`` on the last turn; the summary's fields equal JAX
 ``collect_run_metrics`` (the wall-clock fields excepted).  Text prompts
-without ``transformers`` and a mesh above 1 raise clear errors.
+without ``transformers`` raise a clear error.
+
+The mesh flags: two gloo ranks under ``python -m torch.distributed.run``
+(``--device cpu``) against the JAX CLI's mesh path (its configuration,
+``ShardedEngine`` on the CPU mesh, each turn from a fresh state): at
+``--mesh_model 2`` rank 0's replies equal JAX's; at ``--mesh_data 2`` both
+refuse the CLI's batch of one ("batch must divide the data axis").
 """
 
 import contextlib
@@ -157,6 +163,60 @@ def test_cli_text_prompts_without_transformers(monkeypatch, checkpoint,
                   str(tmp_path / "p.jsonl"), "--device", "cpu"] + FLAGS)
 
 
-def test_cli_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        cli.main(["--model_path", "unused", "--mesh_data", "2"])
+def run_mesh_cli(checkpoint, *flags):
+    """The CLI on two gloo ranks started by PyTorch's launcher."""
+    d, _ = checkpoint
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", str(REPO / "run_spatten_gpu.py"),
+           "--model_path", str(d / "ckpt"), "--prompts",
+           str(d / "prompts.jsonl"), "--device", "cpu", *flags, *FLAGS]
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=240,
+                          env=dict(os.environ, PYTHONPATH=str(REPO),
+                                   OMP_NUM_THREADS="1"))
+
+
+def jax_mesh_cfg(mcfg, data, model):
+    """The JAX CLI's configuration (``run_spatten_tpu.py``) with a mesh."""
+    return jcfg.SpAttenConfig(
+        model=mcfg,
+        pruning=jcfg.PruningConfig(start_size=4, important_size=24,
+                                   recent_size=16, v_keep_ratio=0.35),
+        quant=jcfg.QuantConfig(requant_threshold=0.05),
+        engine=jcfg.EngineConfig(max_batch_size=1, cache_capacity=64,
+                                 prefill_chunk=20,
+                                 mesh=jcfg.MeshConfig(data=data,
+                                                      model=model)),
+    ).validate()
+
+
+def test_cli_mesh_model_2_replies_equal_jax_mesh_path(checkpoint):
+    from spatten_tpu.parallel import ShardedEngine, make_mesh
+    d, turns = checkpoint
+    out = run_mesh_cli(checkpoint, "--mesh_model", "2")
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "mesh 1 x 2" in out.stdout
+    got = [json.loads(line.split("reply ids: ", 1)[1])
+           for line in out.stdout.splitlines()
+           if line.startswith("reply ids: ")]
+    mcfg, params = jhf.load_pretrained(str(d / "ckpt"))
+    cfg = jax_mesh_cfg(mcfg, 1, 2)
+    eng = ShardedEngine(cfg, make_mesh(cfg.engine.mesh))
+    sp = eng.shard_params(params)
+    want = []
+    for t in turns:
+        toks = eng.generate(sp, jnp.asarray([t], jnp.int32), NEW,
+                            eos_token_id=EOS)
+        want.append([x for x in np.asarray(toks)[0].tolist() if x != EOS])
+    assert got == want and len(got) == 2     # rank 0 alone prints
+
+
+def test_cli_mesh_data_2_refuses_batch_one_as_jax_does(checkpoint):
+    from spatten_tpu.parallel import ShardedEngine, make_mesh
+    d, _ = checkpoint
+    out = run_mesh_cli(checkpoint, "--mesh_data", "2")
+    assert out.returncode != 0
+    assert "batch must divide the data axis" in out.stdout + out.stderr
+    mcfg, _ = jhf.load_pretrained(str(d / "ckpt"))
+    cfg = jax_mesh_cfg(mcfg, 2, 1)
+    with pytest.raises(ValueError, match="batch must divide the data axis"):
+        ShardedEngine(cfg, make_mesh(cfg.engine.mesh))

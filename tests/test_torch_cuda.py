@@ -22,7 +22,10 @@ P4 at its int8 wrap edges, P5 at negative and large scalars) and refuse
 misaligned views.  K1 with its score plane in device memory (GQA 8 at
 4096 tokens, GQA 4 at 16384) matches its plain version, and so does K1
 at head dims off its instances (100, 80, 96) and at stored capacities
-and rungs off a multiple of 8 (1020; 3000 at the rung 1500).  ``generate``
+and rungs off a multiple of 8 (1020; 3000 at the rung 1500), and at head
+dims past 256 lanes (384, 512, 1024), which it runs in <G, 256> as lane
+pieces.  A ShardedEngine on one NCCL rank gives ``generate``'s tokens.
+``generate``
 runs on the card for a configuration that the gate sends off K1
 (``chip_smoke.gate_configs()``), for one whose K1 score plane lies in
 device memory (``chip_smoke.device_scores_configs()``) and for a GQA-3
@@ -811,3 +814,75 @@ def test_checkpoint_round_trip_of_a_card_state(dev, tmp_path):
     t1, _, _ = gen.decode_step(params, cfg, a.clone(), tok)
     t2, _, _ = gen.decode_step(p2, cfg, s2, tok)
     assert torch.equal(t1, t2)
+
+
+# name -> (query heads, kv heads, head_dim, lengths): head dims past 256
+# lanes, which K1 runs in <G, 256> as lane pieces
+WIDE_HEAD_DIM_CASES = {
+    "384 (4 over 2, 6-bit)": (4, 2, 384, [256, 200, 33, 2]),
+    "512 (GQA 8, 8 over 1)": (8, 1, 512, [256, 129, 64, 1]),
+    "1024 (1 over 1)": (1, 1, 1024, [256, 255, 40, 3]),
+}
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("case", list(WIDE_HEAD_DIM_CASES))
+def test_k1_head_dims_past_256_lanes_match_plain(dev, case, bf16):
+    """K1 at head dims past 256 lanes under the serving flags (bf16
+    metadata) or f32 metadata (out within 1e-4); every plane byte equal
+    to the plain version's."""
+    hq, hkv, d, lengths = WIDE_HEAD_DIM_CASES[case]
+    assert fd.instance_dim(d) == 256 and fd.lane_pieces(d) > 1
+    cfg = serving_small(cap=256, hq=hq, hkv=hkv, d=d, bf16=bf16,
+                        layer_bits=(4, 6) if "6-bit" in case else None)
+    g = torch.Generator(device=dev).manual_seed(700 + d + hq)
+    flags = (dict(quantize_queries=True, pv_int8=True, probs_bf16=True)
+             if bf16 else {})
+    res = run_pair(dev, cfg, g, lengths, requant=True, v_keep=(64, 64),
+                   **flags)
+    if not bf16:
+        assert res["max_abs_err"] <= 1e-4
+
+
+def nccl_rank(rank, world, cfg, params, prompt, steps):
+    """A 1-rank NCCL ``ShardedEngine`` fed its own greedy tokens: the
+    tokens of its prefill and first ``steps - 1`` decode steps."""
+    from spatten_tpu_torch.parallel import ShardedEngine, make_mesh
+    mesh = make_mesh(cfg.engine.mesh)
+    eng = ShardedEngine(cfg, mesh)
+    p = eng.shard_params(params)
+    state = eng.init_sharded_state(prompt.shape[0])
+    x = prompt.to(mesh.device)
+    chunk = cfg.engine.prefill_chunk
+    for pos in range(0, x.shape[1], chunk):
+        lg, state = eng.prefill_step()(p, state, x[:, pos:pos + chunk])
+    tok = torch.argmax(lg, -1).to(torch.int32)
+    out = [tok]
+    for _ in range(steps - 1):
+        tok, state = eng.decode_step()(p, state, tok)
+        out.append(tok)
+    return torch.distributed.get_backend(), torch.stack(out, 1).cpu()
+
+
+def test_one_rank_nccl_sharded_engine_matches_generate(dev):
+    """A ShardedEngine on a 1 x 1 mesh under NCCL (one card, one rank)
+    gives ``generate``'s greedy tokens on the same f32 weights and
+    prompt over its first window (no prune falls in it: the engine
+    prunes step by step, ``generate`` at window boundaries)."""
+    from pathlib import Path
+    from spatten_tpu_torch.parallel import launch
+    cfg = chip_smoke.mesh_small_config()
+    steps = 8
+    params = tr.init_params(cfg.model, 3, dtype=torch.float32, device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.model.vocab_size, (4, 40)))
+    [(backend, got)] = launch.spawn(
+        "test_torch_cuda:nccl_rank", 1, cfg, params, prompt, steps,
+        backend="nccl", path=[str(Path(__file__).parent)], timeout=300)
+    assert backend == "nccl"
+    on_card = {k: (v.to(dev) if torch.is_tensor(v) else
+                   {n: t.to(dev) for n, t in v.items()})
+               for k, v in params.items()}
+    ref = gen.generate(on_card, cfg, prompt.to(dev), steps, device=dev)
+    assert not ref.pruned_layers
+    assert torch.equal(got, ref.tokens.cpu())

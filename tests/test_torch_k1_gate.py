@@ -14,8 +14,8 @@ parity and Llama-3.2-3B configurations of ``chip_smoke.py`` and its
 GQA-3 gate model (on K1, plane in shared memory).  A GQA group of 3, 5,
 6 or 7 runs in the kernel's <4, D> or <8, D> instance, whose
 shared-memory plan decides where the score plane lies; a head_dim runs in
-the smallest instance dim that holds it, and one past 256 (320) still
-raises.  The tiny model then runs
+the smallest instance dim that holds it, and one past 256 (300) in 256 as
+lane pieces.  The tiny model then runs
 the path the card's gate picks for it (``use_pallas=False``) against the
 JAX package's jnp path: greedy tokens, layer lengths and requant events
 exact.
@@ -177,9 +177,9 @@ def test_gate_limits_are_the_smem_plans():
     it in device memory, so K1 takes them; the main path's instance keeps
     it in shared memory at both serving rungs.  A plan that overflows
     even without the plane keeps its per-V-block arrays in device memory
-    too, and K1 takes it; K1 refuses the head dims it has no instance
-    for; head dims and capacities it runs (head_dim 8 in 64, 100 in 128;
-    1020 tokens at v_block 4) pass."""
+    too, and K1 takes it; head dims and capacities it runs (head_dim 8 in
+    64, 100 in 128, 300 in 256 as two lane pieces; 1020 tokens at v_block
+    4) pass."""
     assert fd.smem_bytes(8, 128, 4096, 64) == 241_804
     assert fd.smem_bytes(4, 128, 16384, 64) == 359_884
     assert fd.smem_bytes(8, 128, 4096, 64, in_smem=False) == 110_732
@@ -196,7 +196,7 @@ def test_gate_limits_are_the_smem_plans():
     assert fd.smem_bytes(8, 128, 262144, 64, in_smem=False) > 227 * 1024
     assert plan.smem == fd.smem_bytes(8, 128, 262144, 64, in_smem=False,
                                       blocks_in_smem=False) <= 227 * 1024
-    assert "head_dim 300" in fd.k1_shape_error(2, 300, 64, 64, 8)
+    assert fd.k1_shape_error(2, 300, 64, 64, 8) is None   # lane pieces
     assert fd.k1_shape_error(2, 8, 64, 64, 8) is None
     assert fd.k1_shape_error(1, 100, 2048, 2048, 64) is None
     assert fd.k1_shape_error(1, 128, 1020, 1020, 4) is None
@@ -296,16 +296,6 @@ def test_group_past_the_instances_raises():
         fd.smem_bytes(3, 128, 4096, 64)      # not an instance group
     with pytest.raises(ValueError):
         fd.smem_bytes(8, 128, 64, 8, rows=16)
-
-
-def test_admitted_head_dim_k1_lacks_raises(monkeypatch):
-    """A shape the gate admits (lane width 4 x 320 = 1280) but K1 has no
-    instance for (head_dim 320, past 256) raises NotImplementedError on
-    the card branch rather than leaving the kernel."""
-    cfg = one_layer(8, 4, 320, 64, 8)
-    assert tr.decode_uses_kernel(cfg, "cuda")
-    with pytest.raises(NotImplementedError, match="head_dim 320"):
-        card_branch(monkeypatch, cfg, 2)
 
 
 @pytest.mark.parametrize("head_dim,k2", [(8, False), (16, True)])

@@ -273,15 +273,19 @@ def test_instance_dim_is_the_smallest_that_holds_the_head(head_dim, dim):
 
 
 def test_k1_shape_error_boundaries():
-    """Refused: head dims past 256 lanes (250 with its lead-in).  Taken:
-    groups past 8 (in chunks of 8 rows), windows whose plan passes 227 KB
-    even with the score plane in device memory (their V-block arrays move
-    there too), OpenLLaMA-3B's head_dim 100 at its serving rungs, 80 and
-    96, capacities 1020 (v_block 4) and 3000 at the rung 1500."""
+    """Refused: a head_dim below 1.  Past 256 lanes (250 with its
+    lead-in) the head runs in <G, 256> as lane pieces.  Taken: groups past
+    8 (in chunks of 8 rows), windows whose plan passes 227 KB even with
+    the score plane in device memory (their V-block arrays move there
+    too), OpenLLaMA-3B's head_dim 100 at its serving rungs, 80 and 96,
+    capacities 1020 (v_block 4) and 3000 at the rung 1500."""
     for d in (250, 257, 320):
-        assert f"head_dim {d}" in tfd.k1_shape_error(1, d, 64, 64, 8)
-        with pytest.raises(ValueError):
-            tfd.instance_dim(d)
+        assert tfd.k1_shape_error(1, d, 64, 64, 8) is None
+        assert tfd.instance_dim(d) == 256 and tfd.lane_pieces(d) == 2
+    assert tfd.lane_pieces(256) == tfd.lane_pieces(248) == 1
+    assert "head_dim 0" in tfd.k1_shape_error(1, 0, 64, 64, 8)
+    with pytest.raises(ValueError):
+        tfd.instance_dim(0)
     assert tfd.k1_shape_error(9, 100, 64, 64, 8) is None
     assert tfd.k1_shape_error(8, 100, 262144, 262144, 64) is None
     assert not tfd.k1_plan(8, 100, 262144, 64).blocks_in_smem

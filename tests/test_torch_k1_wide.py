@@ -1,5 +1,5 @@
-"""K1 at GQA groups past 8 and at long windows, in the port vs the JAX
-package, on the CPU.
+"""K1 at GQA groups past 8, at head dims past 256 lanes and at long
+windows, in the port vs the JAX package, on the CPU.
 
 K1's plain version against JAX ``fused_decode_attention(interpret=True)``
 on the same numpy inputs under the serving flags (int8 queries, integer
@@ -14,15 +14,23 @@ importance one bf16 step, the per-row probability deltas of a second
 call in delta mode within 2e-5 / 1e-4 and the kept V blocks derived from
 them by the kernel's counting rule exact.
 
+The same comparison at head dims past 256 lanes, which the CUDA kernel
+runs in its ``<G, 256>`` instances as lane pieces (``lane_pieces``):
+head_dim 288 over 4 kv heads (group 4), 384 over 2 (group 2, a 6-bit
+layer), 512 over 1 (group 8) and 1024 over 1 (MHA), at the same
+tolerances (integer P·V where the row count tiles by 8, as the Pallas
+kernel in interpret mode applies it only there).
+
 Then the wrapper's limits against the JAX kernel's fit rule
-(``_heads_per_program``): every (kv heads, group, head_dim <= 256 lanes,
-capacity, v_block) the JAX kernel takes, K1 takes (``k1_shape_error`` is
-None); the wrapper's card branch (``is_cuda`` patched, the launch
-recorded) passes a group-16 launch the <8, 128> instance, the live group
-and a [B, Hkv, 16, C] score plane, and a long window (1 kv head of group
-8 at 65,536 tokens, v_block 16) a device block plane; head_dim 320 still
-raises.  Last, the device-plane instances' bit search for a row's k-th
-largest V-block mass keeps the blocks the counting rule keeps.
+(``_heads_per_program``): every (kv heads 1-32, group, head_dim up to
+4096 lanes, capacity 1024-131072, v_block) the JAX kernel takes, K1
+takes (``k1_shape_error`` is None); the wrapper's card branch
+(``is_cuda`` patched, the launch recorded) passes a group-16 launch the
+<8, 128> instance, the live group and a [B, Hkv, 16, C] score plane, a
+long window (1 kv head of group 8 at 65,536 tokens, v_block 16) a device
+block plane, and head dims 320 and 1024 the <G, 256> instance with the
+live head_dim.  Last, the device-plane instances' bit search for a row's
+k-th largest V-block mass keeps the blocks the counting rule keeps.
 """
 
 from pathlib import Path
@@ -53,6 +61,23 @@ SHAPES = {
     "G16 16/1 x 128": (16, 1, 128, False),
     "G12 24/2 x 64 6-bit": (24, 2, 64, True),
 }
+# head dims past 256 lanes, which K1 runs in <G, 256> as lane pieces
+WIDE_SHAPES = {
+    "288 G4 16/4": (16, 4, 288, False),
+    "384 G2 4/2 6-bit": (4, 2, 384, True),
+    "512 G8 8/1": (8, 1, 512, False),
+    "1024 MHA 1/1": (1, 1, 1024, False),
+}
+
+
+def shape_of(name):
+    return SHAPES[name] if name in SHAPES else WIDE_SHAPES[name]
+
+
+def seed_of(name):
+    if name in SHAPES:
+        return 90 + sorted(SHAPES).index(name)
+    return 190 + sorted(WIDE_SHAPES).index(name)
 
 
 def f32np(x):
@@ -62,15 +87,17 @@ def f32np(x):
 
 
 def head_mask(hq: int, hkv: int) -> np.ndarray:
-    """Every group alive but the last, whose first row is dead."""
+    """Every group alive but the last, whose first row is dead (a single
+    row stays alive)."""
     hm = np.ones((hkv, hq // hkv), bool)
-    hm[-1, 0] = False
+    if hm.size > 1:
+        hm[-1, 0] = False
     return hm.reshape(hq)
 
 
 def inputs(name):
-    hq, hkv, d, six = SHAPES[name]
-    rng = np.random.default_rng(90 + sorted(SHAPES).index(name))
+    hq, hkv, d, six = shape_of(name)
+    rng = np.random.default_rng(seed_of(name))
     b, L = len(LENGTHS), 2
     k = rng.standard_normal((L, b, hkv, CAP, d)).astype(np.float32)
     v = rng.standard_normal((L, b, hkv, CAP, d)).astype(np.float32)
@@ -97,15 +124,15 @@ def to_torch(q):
 
 
 def flags(name, threshold):
-    six = SHAPES[name][3]
+    hq, _, _, six = shape_of(name)
     return dict(sm_scale=0.25, v_block_size=VB, v_keep=V_KEEP,
                 requant_threshold=threshold, quantize_queries=True,
-                probs_bf16=True, pv_int8=True,
+                probs_bf16=True, pv_int8=hq % 8 == 0,
                 quant_bits=(4, 6) if six else None)
 
 
 def run_port(name, x, jk, jv, jimp, threshold, delta_mode=False):
-    hq, hkv, _, _ = SHAPES[name]
+    hq, hkv, _, _ = shape_of(name)
     kw = flags(name, threshold)
     qb = kw.pop("quant_bits")
     imp = None if delta_mode else T(f32np(jimp).copy()).bfloat16()
@@ -119,7 +146,7 @@ def run_port(name, x, jk, jv, jimp, threshold, delta_mode=False):
 
 
 def run_jax(name, x, jk, jv, jimp, threshold, delta_mode=False):
-    hq, hkv, _, _ = SHAPES[name]
+    hq, hkv, _, _ = shape_of(name)
     kw = flags(name, threshold)
     qb = kw.pop("quant_bits")
     return jfd.fused_decode_attention(
@@ -158,6 +185,24 @@ def test_k1_plain_matches_pallas_past_group_8(name):
     hq, hkv, d, six = SHAPES[name]
     group = hq // hkv
     assert tfd.instance_group(group) == 8 and tfd.plane_rows(group) == 16
+    check_against_pallas(name)
+
+
+@pytest.mark.parametrize("name", list(WIDE_SHAPES))
+def test_k1_plain_matches_pallas_past_256_lanes(name):
+    hq, hkv, d, six = WIDE_SHAPES[name]
+    assert tfd.instance_dim(d) == 256 and tfd.lane_pieces(d) > 1
+    assert tfd.k1_shape_error(hq // hkv, d, CAP, CAP, VB) is None
+    jfd._heads_per_program(hkv, CAP, d, hq // hkv)   # the JAX kernel's too
+    check_against_pallas(name)
+
+
+def check_against_pallas(name):
+    """K1's plain version vs interpret mode on ``name``'s inputs: planes
+    after the append exact, the requant split exact, out and max prob
+    within TOL, importance one bf16 step, and the kept V blocks from the
+    per-row deltas of a second call in delta mode exact."""
+    hq, hkv, d, six = shape_of(name)
     x, jk, jv, jimp = inputs(name)
     threshold = split_threshold(
         run_port(name, x, jk, jv, jimp, 0.0)[1].max_prob.numpy())
@@ -205,41 +250,47 @@ def test_k1_plain_matches_pallas_past_group_8(name):
     assert not tkeep[:, ~hm].any()
 
 
-HEAD_DIMS = (64, 80, 96, 100, 112, 128, 160, 192, 248, 252, 256, 320, 512)
+HEAD_DIMS = (64, 80, 96, 100, 112, 128, 160, 192, 248, 252, 256) + tuple(
+    range(272, 4097, 16))
 CAPACITIES = (1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
 V_BLOCKS = (4, 8, 16, 64)
 
 
 def test_k1_takes_every_shape_the_jax_kernel_takes():
-    """The sweep: kv heads 1-32, groups 1-32, ``HEAD_DIMS``,
-    ``CAPACITIES`` and ``V_BLOCKS``.  Where the JAX kernel's fit rule
-    finds a head grouping, K1 takes the shape when its head_dim fits 256
-    lanes after a box row's lead-in (252 needs 264), and names the
-    head_dim when it does not."""
+    """The sweep: kv heads 1-32, groups 1-16, ``HEAD_DIMS`` (up to 256,
+    then 272-4096 in steps of 16), ``CAPACITIES`` and ``V_BLOCKS``.
+    Where the JAX kernel's fit rule finds a head grouping, K1 takes the
+    shape; past 256 lanes after a box row's lead-in (252 needs 264) it
+    runs in <G, 256> as lane pieces.  The widest head the JAX kernel takes
+    is 3,712 lanes at capacity 1024 (1,792 at 4096 and 16384, 1,408 at
+    131072)."""
     taken = wide = 0
+    widest = {}
     for d in HEAD_DIMS:
-        fits = d + tfd._lead_in(d) <= 256
-        for group in range(1, 33):
+        pieces = tfd.lane_pieces(d)
+        assert (pieces > 1) == (d + tfd._lead_in(d) > 256)
+        for group in range(1, 17):
             for cap in CAPACITIES:
-                jax_takes = False
-                for hkv in range(1, 33):
-                    try:
-                        jfd._heads_per_program(hkv, cap, d, group)
-                    except ValueError:
-                        continue
-                    jax_takes = True
-                    break
-                if not jax_takes:
+                if not any(_jax_takes(hkv, cap, d, group)
+                           for hkv in range(1, 33)):
                     continue
+                widest[cap] = max(widest.get(cap, 0), d)
                 for vb in V_BLOCKS:
                     err = tfd.k1_shape_error(group, d, cap, cap, vb)
-                    if fits:
-                        assert err is None, (group, d, cap, vb, err)
-                        taken += 1
-                        wide += group > 8
-                    else:
-                        assert f"head_dim {d}" in err, (group, d, cap, vb)
-    assert taken > 1000 and wide > 500
+                    assert err is None, (group, d, cap, vb, err)
+                    taken += 1
+                    wide += pieces > 1
+    assert widest[1024] == 3712 and widest[4096] == 1792
+    assert widest[16384] == 1792 and widest[131072] == 1408
+    assert taken > 10000 and wide > 5000
+
+
+def _jax_takes(hkv, cap, d, group) -> bool:
+    try:
+        jfd._heads_per_program(hkv, cap, d, group)
+    except ValueError:
+        return False
+    return True
 
 
 def card_branch(monkeypatch, cfg, lengths, seed=0):
@@ -317,13 +368,23 @@ def test_long_window_launches_with_a_block_plane(monkeypatch):
     assert args[-1].dtype == torch.uint8
 
 
-def test_head_dim_past_256_lanes_still_raises(monkeypatch):
-    """The one shape K1 still refuses (ROADMAP §3): head_dim 320, which
-    the JAX kernel takes over one or two kv heads."""
-    assert "head_dim 320" in tfd.k1_shape_error(2, 320, 4096, 4096, 16)
-    jfd._heads_per_program(2, 4096, 320, 2)     # the JAX kernel takes it
-    with pytest.raises(NotImplementedError, match="head_dim 320"):
-        card_branch(monkeypatch, one_layer(4, 2, 320, 64, 8), [20])
+@pytest.mark.parametrize("hq,hkv,d,pieces", [(4, 2, 320, 2), (8, 1, 512, 2),
+                                               (1, 1, 1024, 4)])
+def test_head_dim_past_256_lanes_launches_in_pieces(monkeypatch, hq, hkv, d,
+                                                    pieces):
+    """Head dims the JAX kernel takes past 256 lanes (320 over two kv
+    heads, 512 and 1024 over one): the card branch launches the
+    <G, 256> instance with the live head_dim, which the kernel reads in
+    ``lane_pieces`` boxes; the shared-memory plan is the 256 instance's."""
+    jfd._heads_per_program(hkv, 4096, d, hq // hkv)   # the JAX kernel's
+    assert tfd.k1_shape_error(hq // hkv, d, 4096, 4096, 16) is None
+    assert tfd.lane_pieces(d) == pieces
+    args = card_branch(monkeypatch, one_layer(hq, hkv, d, 64, 8), [20])
+    b, nq, nkv, inst, dim, live = args[23:29]
+    assert (b, nq, nkv, dim, live) == (1, hq, hkv, 256, d)
+    assert inst == tfd.instance_group(hq // hkv)
+    assert tfd.k1_plan(hq // hkv, d, 64, 8) == tfd.k1_plan(hq // hkv, 256,
+                                                           64, 8)
 
 
 def kth_by_bits(m, k):
