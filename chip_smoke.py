@@ -3,8 +3,9 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and exits non-zero, printing no result, without
-one (or without the repository beside it).  Phases, none of whose
-failures is caught:
+one (or without the repository beside it).  ``--cards 4`` runs only the
+multi-card slice over NCCL on four cards (``main_cards``, below).
+Phases, none of whose failures is caught:
 
 1. the card's name and power limit; build every kernel source in
    ``csrc/`` (one ``nvcc`` per source, in parallel);
@@ -111,8 +112,12 @@ failures is caught:
    (x microbatches), K2 = the layer compactions of its prune schedule,
    and the run's logits against the same engine's 1-rank run fed the
    same tokens (``against_one_rank``: equal for pipeline stages without
-   TP; printed beside the window limits for TP and DP runs, whose
-   last-bit differences SpAtten's discrete decisions amplify);
+   TP; TP and DP runs, whose last-bit differences SpAtten's discrete
+   decisions amplify, within 1.5 times the departure JAX's engine shows
+   from its own 1-rank run, measured on the CPU by
+   ``tests/test_torch_sharded.py``), and every replicated tensor
+   (logits, tokens, lengths, head masks, requant counts) equal bit for
+   bit on the ranks that hold it (``utils.debug.replicated_mismatch``);
    before the paths, ``mesh_small_check``: an f32 DP 2 x TP 2 run at
    small width whose tokens equal the same ranks' run on the CPU and
    whose decode steps each match their CPU replay within 1e-3;
@@ -137,6 +142,22 @@ failures is caught:
    ride along in extra fields;
 8. the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
+
+``--cards N`` (four H100s joined by NVLink: ``python3 chip_smoke.py
+--cards 4``) prints ``nvidia-smi topo -m``, builds the kernels once, then
+runs rank r on cuda:r under NCCL, each rank checked as in phases k.-m.
+(its K1/K2 counts, its first window against the plain versions, the
+replicated tensors, finite logits), all-reduce and hand-off times from
+CUDA events around each collective and K1's time at the rank's shard
+shape from the profile: ``ShardedEngine`` at ``serving_config()`` 1 x 4
+and 2 x 2 against its 1-rank runs; Llama-2-70B's widths at all 80 layers
+over TP 4 (each card draws its shard), and at depth 8 against the 1-rank
+run; ``phase_pipeline`` over NCCL; ``run_spatten_gpu.py --mesh_model 4``
+under ``torch.distributed.run`` against ``ShardedEngine.generate``; and
+split-K over the four cards against unsharded K1.  A failing phase is
+printed and the others run on; any failure fails the run.  It ends with
+a ``{"cards": ...}`` JSON line, the cards' names and power limits on one
+line, and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -966,8 +987,26 @@ SPLIT_N, SPLIT_CL = 4, 2048
 SPLIT_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def phase_split_k(dev) -> dict:
-    """Split-K decode on one card: 4 shards of 2048 tokens on cuda:0, batch
+def wall_ms(fn, n: int, devices) -> float:
+    """Host-clock ms of one call of ``fn(i)`` over n calls, every card of
+    ``devices`` synchronised before and after (work spread over cards
+    from one controller, whose launches on one card a single card's
+    events cannot bracket)."""
+    def sync():
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+    fn(0)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    sync()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_split_k(dev, devices=None) -> dict:
+    """Split-K decode: 4 shards of 2048 tokens on ``devices`` (default:
+    all on ``dev``, one card), batch
     8, 32 query heads of 128 over 32 (MHA) or 8 (GQA) kv heads, 4-bit
     planes, no requant and no V pruning (the JAX split-K tests' flags:
     shard-local requant and V budgets differ from global ones by design).
@@ -982,7 +1021,8 @@ def phase_split_k(dev) -> dict:
     from spatten_tpu_torch.parallel import split_k as sk
     n, cl, b, hq, d = SPLIT_N, SPLIT_CL, SERVING_BATCH, 32, 128
     cap = n * cl
-    mesh = sk.make_kv_mesh([dev] * n)
+    mesh = sk.make_kv_mesh(devices or [dev] * n)
+    cards = len(set(mesh.devices))
     kw = dict(sm_scale=1.0 / math.sqrt(d), quant_enabled=True,
               v_block_size=64)
     own = torch.tensor([2048, 1900, 1500, 1025, 777, 300, 64, 1],
@@ -1049,7 +1089,9 @@ def phase_split_k(dev) -> dict:
                     b, dtype=torch.bool, device=dev), return_row_stats=True,
                 per_row_importance=hq > hkv, **kw)
 
-        ms_split, ms_full = device_ms(step, 8), device_ms(unsharded, 8)
+        ms_split = (device_ms(step, 8) if cards == 1
+                    else wall_ms(step, 8, mesh.devices))
+        ms_full = device_ms(unsharded, 8)
         ms_shard = device_ms(shard0, 16)
         # prune: 4 + 3000 + 1000 kept; shards 2 and 3 hold no live token
         ks, vs, imp_s, local = sk.split_k_prune(
@@ -1073,17 +1115,19 @@ def phase_split_k(dev) -> dict:
               "output over empty shards")
         check(bool(torch.allclose(got2, want2, **SPLIT_TOL)),
               f"split-K {name}: out after the prune differs ({err2:.3e})")
-        log(f"split-K {name} ({n} shards x {cl} tokens on one card, batch "
+        where = "one card" if cards == 1 else f"{cards} cards"
+        log(f"split-K {name} ({n} shards x {cl} tokens on {where}, batch "
             f"{b}): vs unsharded K1 max |out err| {err:.2e}, planes exact, "
             f"importance within 1e-5/1e-4; after split_k_prune (local "
             f"lengths with the new token {local[:, 0].tolist()}) max |out err| "
             f"{err2:.2e}; "
-            f"device {ms_split:.4f} ms per split-K step ({n} K1 launches + "
-            f"recombination) vs {ms_full:.4f} ms unsharded K1 (printed, no "
-            f"claim); one shard's K1 call {ms_shard:.4f} ms")
+            + ("device" if cards == 1 else "host clock, every card synced,")
+            + f" {ms_split:.4f} ms per split-K step ({n} K1 launches + "
+            f"recombination) vs device {ms_full:.4f} ms unsharded K1 (printed,"
+            f" no claim); one shard's K1 call {ms_shard:.4f} ms")
         out[name] = dict(max_abs_err=max(err, err2), step_ms=ms_split,
                          unsharded_ms=ms_full, shard_ms=ms_shard,
-                         launches=launches)
+                         launches=launches, cards=cards)
         del ks, vs, kg, vg, kg2, vg2, imp_s, imp_g
         free()
     return out
@@ -2603,10 +2647,12 @@ def profile_decode(name, params, cfg, state, tok, tables, step_s: float,
 
 
 # ---------------------------------------------------------------- meshes
-# The multi-card slice on one card: each phase spawns its ranks on cuda:0
+# The multi-card slice.  On one card each phase spawns its ranks on cuda:0
 # under gloo (NCCL refuses two ranks of one communicator on one card), so
 # every kernel and matmul runs on the card and only the collectives go
-# through the host.  These times say nothing of NVLink.
+# through the host; these times say nothing of NVLink.  With ``--cards N``
+# (``main_cards``) rank r runs on cuda:r under NCCL, its collectives and
+# hand-offs card to card.
 MESH_NEW_TOKENS, MESH_WINDOW = 32, 16
 MESH_TIMEOUT = 420
 
@@ -2662,8 +2708,33 @@ def mesh_small_config():
     ).validate()
 
 
+def toy_mesh_config(num_layers: int, num_kv_heads: int, group: int,
+                    batch: int, base: str = "serving"):
+    """The mesh phases' rehearsal model (on the CPU, in
+    ``tests/test_torch_four_cards.py``): ``base``'s settings (the serving
+    configuration, or ``pipeline_config``'s one budget for every layer)
+    at head_dim 16, ``num_kv_heads`` kv heads of ``group``, vocab 512,
+    capacity 128 (prompt prunes), 3/4 of the kv heads kept."""
+    base_cfg = (serving_config if base == "serving" else pipeline_config)(
+        num_layers)
+    hq = num_kv_heads * group
+    return dataclasses.replace(
+        base_cfg,
+        model=dataclasses.replace(
+            base_cfg.model, vocab_size=512, hidden_size=hq * 16,
+            num_heads=hq, num_kv_heads=num_kv_heads, head_dim=16,
+            intermediate_size=256),
+        pruning=dataclasses.replace(
+            base_cfg.pruning, important_size=48, recent_size=16,
+            v_block_size=16, head_keep=max(1, num_kv_heads * 3 // 4)),
+        engine=dataclasses.replace(base_cfg.engine, max_batch_size=batch,
+                                   cache_capacity=128, prefill_chunk=32),
+    ).validate()
+
+
 MESH_CONFIGS = {"serving": serving_config, "70b": llama2_70b_config,
-                "pipeline": pipeline_config, "small": mesh_small_config}
+                "pipeline": pipeline_config, "small": mesh_small_config,
+                "toy": toy_mesh_config}
 
 
 def mesh_engine(spec, mesh):
@@ -2715,10 +2786,10 @@ class _Recorder:
     host clock and the transport's seconds over the first ``MESH_WINDOW``
     decode steps, and a device-time profile of the next few."""
 
-    def __init__(self, eng, cuda: bool):
+    def __init__(self, eng, cuda: bool, events: bool = False):
         from torch.profiler import ProfilerActivity, profile
-        self.eng, self.cuda = eng, cuda
-        self.logits, self.snap, self.clock = [], None, {}
+        self.eng, self.cuda, self.events = eng, cuda, events
+        self.logits, self.snap, self.last, self.clock = [], None, None, {}
         self.steps = 0
         self.prof_steps = range(MESH_WINDOW, MESH_WINDOW + 4)
         self.prof = profile(activities=[ProfilerActivity.CPU,
@@ -2745,7 +2816,7 @@ class _Recorder:
                 if i == 0:
                     self.snap = state.clone()
                     self._sync()
-                    transport.reset_counts()
+                    transport.reset_counts(events=self.events)
                     self.clock["t0"] = time.perf_counter()
                     self.clock["prefill_s"] = (self.clock["t0"]
                                                - self.clock["start"])
@@ -2753,9 +2824,14 @@ class _Recorder:
                     self._sync()
                     self.clock["window_s"] = (time.perf_counter()
                                               - self.clock["t0"])
-                    self.clock["all_reduce_s"] = transport.all_reduce.seconds
-                    self.clock["handoff_s"] = (transport.send.seconds
-                                               + transport.recv.seconds)
+                    # NCCL: CUDA events around each collective; gloo: the
+                    # host clock around the transport
+                    sec = (transport.device_seconds if self.events
+                           else (lambda fn: fn.seconds))
+                    self.clock["all_reduce_s"] = sec(transport.all_reduce)
+                    self.clock["handoff_s"] = (sec(transport.send)
+                                               + sec(transport.recv))
+                    transport.reset_counts()
                 if self.prof is not None and i == self.prof_steps.start:
                     self.prof.__enter__()
                 if self.prof is not None and i == self.prof_steps.stop:
@@ -2763,6 +2839,7 @@ class _Recorder:
                     self.prof.__exit__(None, None, None)
                 self.steps += 1
             lg, state = fn(params, state, x)
+            self.last = state
             if decode or not self.logits:
                 self.logits.append(lg.float().cpu())
             else:                                  # a later prompt chunk
@@ -2770,13 +2847,62 @@ class _Recorder:
             return lg, state
         return call
 
-    def device_ms(self):
+    def device_ms(self, nccl: bool = False):
+        """Device ms per profiled step of the kernels other than NCCL's
+        (with ``nccl``: of NCCL's alone, which run on their own stream
+        beside the others and spin while they wait for a peer)."""
         if self.prof is None:
             return None
         busy = sum(ev.self_device_time_total
                    for ev in self.prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.key.startswith("nccl") == nccl)
         return busy / 1e3 / len(self.prof_steps) if busy else None
+
+    def kernel_ms(self, key: str):
+        """Device ms per call of the profiled kernels whose name holds
+        ``key`` (K1's time at this rank's shard shape)."""
+        if self.prof is None:
+            return None
+        evs = [ev for ev in self.prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and key in ev.key]
+        calls = sum(ev.count for ev in evs)
+        return (sum(ev.self_device_time_total for ev in evs) / 1e3 / calls
+                if calls else None)
+
+
+def mesh_device(spec, rank: int) -> torch.device:
+    """Where rank ``rank`` of a mesh phase runs: cuda:r (mod the cards)
+    under NCCL, one card per rank; cuda:0 under gloo, every rank on one
+    card; the CPU for ``device="cpu"``."""
+    if spec.get("device", "cuda") != "cuda":
+        return torch.device("cpu")
+    if spec.get("backend", "gloo") == "nccl":
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return torch.device("cuda", 0)
+
+
+def mesh_replicas(eng, state, logits, tokens) -> dict:
+    """What a rank holds that other ranks must hold bit for bit: {name:
+    (the key its replicas share, tensor)}.  ShardedEngine: the logits,
+    lengths and layer lengths over the "model" axis (one data shard's
+    ranks), the head-mask slice over "data", the tokens and the requant
+    count everywhere.  PipelineEngine: the logits (all-reduced over
+    "pipe"), tokens and requant count everywhere, a stage's lengths over
+    its "model" ranks (its head-mask slices are its ranks' own)."""
+    c = eng.mesh.coords
+    if hasattr(eng, "rows"):
+        shard, heads = ("data", c["data"]), ("model", c["model"])
+        lg = shard
+    else:
+        shard, heads = ("pipe", c["pipe"]), ("pipe", c["pipe"], c["model"])
+        lg = ()
+    return {"logits": (lg, logits), "tokens": ((), tokens),
+            "lengths": (shard, state.lengths.cpu()),
+            "layer_lengths": (shard, state.layer_lengths.cpu()),
+            "head_mask": (heads, state.head_mask.cpu()),
+            "requant_events": ((), state.requant_events.cpu())}
 
 
 def mesh_rank(rank, world, spec):
@@ -2804,7 +2930,8 @@ def mesh_rank(rank, world, spec):
     from spatten_tpu_torch.parallel import make_mesh
     from spatten_tpu_torch.pruning import compact
     cuda = spec.get("device", "cuda") == "cuda"
-    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    nccl = spec.get("backend", "gloo") == "nccl"
+    dev = mesh_device(spec, rank)
     if cuda:
         torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2814,7 +2941,7 @@ def mesh_rank(rank, world, spec):
         "pipe", "model")
     mesh = make_mesh(MeshConfig(data=a, model=b, axis_names=names),
                      device=dev)
-    out = dict(coords=mesh.coords)
+    out = dict(coords=mesh.coords, device=str(dev))
     if mesh.coords is None:
         return out
     dtype = torch.float32 if spec.get("f32") else torch.bfloat16
@@ -2848,8 +2975,6 @@ def mesh_rank(rank, world, spec):
         points += len(layers)
     out["k2_expected"] = points if (cuda and k2_takes(m.head_dim)) else 0
     out["local_layers"] = lcfg.model.num_layers
-    keep = mesh.coords.get("model", 0) == 0 and mesh.coords.get(
-        "pipe", 0) == 0       # one copy of the global logits is enough
     runs = []
     for micro in spec.get("micros", [1]):
         if hasattr(eng, "microbatches"):
@@ -2861,12 +2986,12 @@ def mesh_rank(rank, world, spec):
                                               spec["forced"])
             runs.append(dict(micro=micro, k1=fused_decode_attention.launches,
                              k2=gather_compact_rows.launches,
-                             logits=logits.numpy() if keep else None,
+                             logits=logits.numpy(),
                              prefill_s=pre_s, decode_ms=dec_s / new * 1e3,
                              device_ms=None, collective_ms=0.0,
                              handoff_ms=0.0, seconds=pre_s + dec_s))
             continue
-        rec = _Recorder(eng, cuda)
+        rec = _Recorder(eng, cuda, events=cuda and nccl)
         replay = kc._CpuReplay(host_params) if spec.get("replay") else None
         if replay is not None:
             replay.__enter__()
@@ -2889,13 +3014,19 @@ def mesh_rank(rank, world, spec):
                    k1=fused_decode_attention.launches,
                    k2=gather_compact_rows.launches,
                    tokens=tokens.cpu().numpy(),
-                   logits=logits.numpy() if keep else None,
+                   logits=logits.numpy(),
                    prefill_s=rec.clock["prefill_s"],
                    decode_ms=rec.clock["window_s"] / MESH_WINDOW * 1e3,
                    device_ms=rec.device_ms(),
+                   nccl_ms=rec.device_ms(nccl=True),
+                   k1_ms=rec.kernel_ms("fused_decode"),
                    collective_ms=rec.clock["all_reduce_s"] / MESH_WINDOW
                    * 1e3,
-                   handoff_ms=rec.clock["handoff_s"] / MESH_WINDOW * 1e3)
+                   handoff_ms=rec.clock["handoff_s"] / MESH_WINDOW * 1e3,
+                   timed_by="CUDA events" if rec.events else "host clock",
+                   replicas=mesh_replicas(eng, rec.last, logits,
+                                          tokens.cpu()))
+        rec.last = None
         if replay is not None:
             # kernel_checks.check_server_against_cpu's rule: the single-
             # token calls within CPU_REPLAY_LOGIT_TOL; a prompt chunk
@@ -2945,6 +3076,7 @@ def mesh_rank(rank, world, spec):
             run["window_mean_err"] = float((lk - lp).abs().mean())
             run["window_argmax"] = float(
                 (lk.argmax(-1) == lp.argmax(-1)).float().mean())
+            run["window_by_step"] = (lk - lp).abs().mean(dim=(1, 2)).tolist()
             del state
         del rec
         runs.append(run)
@@ -2953,19 +3085,99 @@ def mesh_rank(rank, world, spec):
     out["runs"] = runs
     if cuda:
         out["max_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    tp = getattr(eng, "tp_group", None)
+    if cuda and nccl and tp is not None and spec.get("forced") is None:
+        out["all_reduce_us"] = all_reduce_alone_us(
+            tp, (batch // mesh.shape.get("data", 1), 1, m.hidden_size),
+            dtype, dev)
     return out
 
 
-def run_mesh(name, spec, world, device="cuda") -> list:
-    """Spawn ``world`` gloo ranks of ``mesh_rank`` (on cuda:0, or the CPU)
-    and check each: K1 = local layers x tokens, K2 = the schedule's layer
-    compactions, the first window against the plain versions."""
+def all_reduce_alone_us(group, shape, dtype, dev, n: int = 50) -> float:
+    """Device µs of one NCCL all-reduce of a decode step's activation
+    ``shape`` over ``group`` with no compute around it: CUDA events
+    around ``n`` back-to-back calls after a barrier (the time a
+    collective costs when no peer is late)."""
+    import torch.distributed as dist
+    x = torch.zeros(shape, dtype=dtype, device=dev)
+    for _ in range(5):
+        dist.all_reduce(x, group=group)
+    dist.barrier(group=group)
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        dist.all_reduce(x, group=group)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n * 1e3
+
+
+def run_mesh(name, spec, world, device=None, backend=None) -> list:
+    """Spawn ``world`` ranks of ``mesh_rank`` (gloo: on cuda:0, or the
+    CPU; NCCL: rank r on cuda:r) and check each: K1 = local layers x
+    tokens, K2 = the schedule's layer compactions, the first window
+    against the plain versions, finite logits; and across the ranks,
+    ``utils.debug.replicated_mismatch`` of every replicated tensor
+    (``mesh_replicas``) exactly 0.0.  ``device`` and ``backend`` default
+    to the spec's, else the card and gloo."""
     from spatten_tpu_torch.parallel import launch
-    spec = dict(spec, device=device)
+    from spatten_tpu_torch.utils.debug import replicated_mismatch
+    device = device or spec.get("device", "cuda")
+    backend = backend or spec.get("backend", "gloo")
+    spec = dict(spec, device=device, backend=backend)
     t0 = time.perf_counter()
     ranks = launch.spawn("chip_smoke:mesh_rank", world, spec,
-                         timeout=MESH_TIMEOUT, threads=1)
+                         timeout=spec.get("timeout", MESH_TIMEOUT),
+                         backend=backend, threads=1)
     members = [r for r in ranks if r["coords"] is not None]
+    replicas = {}
+    for r in members:
+        for i, run in enumerate(r["runs"]):
+            for what, (key, t) in run.pop("replicas", {}).items():
+                replicas.setdefault((i, what, key), []).append(
+                    torch.as_tensor(t))
+    shared = {k: v for k, v in replicas.items() if len(v) > 1}
+    mismatch = max((replicated_mismatch(v) for v in shared.values()),
+                   default=0.0)
+    if shared:
+        log(f"{name}: replicated_mismatch over {len(shared)} replica sets "
+            f"({', '.join(sorted({k[1] for k in shared}))}) of "
+            f"{len(members)} ranks: {mismatch}")
+    check(mismatch == 0.0, f"{name}: replicated tensors differ between "
+          f"ranks by {mismatch}")
+    for r in members:
+        r["replicated_mismatch"] = mismatch
+    log(f"{name}: {len(members)} ranks ({backend}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in members:
+        for run in r["runs"]:
+            k1 = run.get("k1_ms")
+            log(f"  rank {r['coords']} on {r['device']} M={run['micro']}: "
+                + ("teacher-forced" if "forced" in spec else "generate")
+                + f" {run['seconds']:.2f} s: prefill {run['prefill_s']:.2f} "
+                f"s, decode {run['decode_ms']:.2f} ms/step (host), device "
+                + (f"{run['device_ms']:.3f}" if run["device_ms"] else
+                   "not measured")
+                + " ms/step"
+                + (f" (+ NCCL kernels {run['nccl_ms']:.3f})"
+                   if run.get("nccl_ms") else "")
+                + f", all-reduce {run['collective_ms']:.3f} ms/step, "
+                f"hand-off {run['handoff_ms']:.3f} ms/step ("
+                + run.get("timed_by", "host clock") + ")"
+                + (f"; one all-reduce alone {r['all_reduce_us']:.1f} us"
+                   if r.get("all_reduce_us") else "") + "; K1 "
+                + (f"{k1:.4f} ms a call, " if k1 else "")
+                + f"{run['k1']} launches, K2 {run['k2']}; first window vs "
+                "plain: mean "
+                f"|diff| {run.get('window_mean_err', float('nan')):.2e}, "
+                f"argmax {run.get('window_argmax', float('nan')):.3f}"
+                + (" (by step " + " ".join(
+                    f"{x:.4f}" for x in run["window_by_step"]) + ")"
+                   if "window_by_step" in run else "")
+                + f"; params {r['params_s']:.1f} s; peak memory "
+                f"{r.get('max_memory_gb', 0):.1f} GB")
     for r in members:
         for run in r["runs"]:
             # K1 runs once per layer, step and microbatch
@@ -2982,24 +3194,8 @@ def run_mesh(name, spec, world, device="cuda") -> list:
                       f"{name} rank {r['coords']}: first window vs plain "
                       f"mean {run['window_mean_err']}, argmax "
                       f"{run['window_argmax']}")
-            check(run["logits"] is None or np.isfinite(run["logits"]).all(),
+            check(np.isfinite(run["logits"]).all(),
                   f"{name}: non-finite logits")
-    log(f"{name}: {len(members)} ranks in {time.perf_counter() - t0:.1f} s")
-    for r in members:
-        for run in r["runs"]:
-            log(f"  rank {r['coords']} M={run['micro']}: "
-                + ("teacher-forced" if "forced" in spec else "generate")
-                + f" {run['seconds']:.2f} s: prefill {run['prefill_s']:.2f} "
-                f"s, decode {run['decode_ms']:.2f} ms/step (host), device "
-                + (f"{run['device_ms']:.3f}" if run["device_ms"] else
-                   "not measured")
-                + f" ms/step, all-reduce {run['collective_ms']:.3f} ms/step "
-                f"(host), hand-off {run['handoff_ms']:.3f} ms/step; K1 "
-                f"{run['k1']}, K2 {run['k2']}; first window vs plain: mean "
-                f"|diff| {run.get('window_mean_err', float('nan')):.2e}, "
-                f"argmax {run.get('window_argmax', float('nan')):.3f}; "
-                f"params {r['params_s']:.1f} s; peak memory "
-                f"{r.get('max_memory_gb', 0):.1f} GB")
     return members
 
 
@@ -3015,22 +3211,31 @@ def gathered_logits(members, run_idx=0) -> np.ndarray:
                           axis=1).astype(np.float32)
 
 
-# A run whose shards are wired wrong gives logits unrelated to its 1-rank
-# run's, whose argmax agrees about 1 in V times.
-FAULT_ARGMAX_MIN = 0.5
+# Tensor and data parallelism in bf16, against the 1-rank run fed the same
+# tokens: JAX's ShardedEngine departs from its own 1-rank run by a mean
+# |logit diff| of 0.0493 at most and an argmax agreement of 0.838 at least
+# over the last prompt position and the decode steps
+# (tests/test_torch_sharded.py::test_bf16_tp_gap_within_jax: 4 layers, 8
+# query heads over 4 kv heads, TP 4 and DP 2 x TP 2, on the CPU; the
+# port's own gap there is 1.00x and 0.96x JAX's).  A card run may depart
+# by TP_GAP_FACTOR times that: mean |diff| <= 0.0740, argmax >= 0.757.
+JAX_TP_GAP_MEAN, JAX_TP_GAP_ARGMAX, TP_GAP_FACTOR = 0.0493, 0.838, 1.5
+TP_MEAN_MAX = TP_GAP_FACTOR * JAX_TP_GAP_MEAN
+TP_ARGMAX_MIN = 1.0 - TP_GAP_FACTOR * (1.0 - JAX_TP_GAP_ARGMAX)
 
 
 def against_one_rank(name, members, spec, run_idx=0) -> dict:
     """The mesh run's logits against the same engine's 1-rank run on the
-    same weights, fed the same tokens, with the same microbatches.  A mesh
-    whose ranks run the 1-rank run's arithmetic (pipeline stages without
-    TP or DP: the same GEMM shapes, bf16 activations handed over as they
-    are) must give its logits exactly.  Tensor and data parallelism change
-    the GEMMs' shapes and the order of the o_proj / down_proj sums, and
-    SpAtten's discrete decisions (prompt prunes, requants, V-block keeps)
-    amplify those last-bit differences: the mean |diff| and argmax
-    agreement are printed beside the window limits (WINDOW_MEAN_TOL,
-    WINDOW_ARGMAX_MIN), and only agreement below FAULT_ARGMAX_MIN fails."""
+    same weights, fed the same tokens, with the same microbatches (on
+    cuda:0, under the mesh run's backend).  A mesh whose ranks run the
+    1-rank run's arithmetic (pipeline stages without TP or DP: the same
+    GEMM shapes, bf16 activations handed over as they are) must give its
+    logits exactly.  Tensor and data parallelism change the GEMMs' shapes
+    and the order of the o_proj / down_proj sums, and SpAtten's discrete
+    decisions (prompt prunes, requants, V-block keeps) amplify those
+    last-bit differences, as they do in JAX's engine: such a run is held
+    to JAX's measured departure times TP_GAP_FACTOR (TP_MEAN_MAX,
+    TP_ARGMAX_MIN)."""
     run = members[0]["runs"][run_idx]
     micro = run["micro"]
     one = run_mesh(f"{name}, 1 rank", dict(spec, mesh=(1, 1),
@@ -3044,15 +3249,20 @@ def against_one_rank(name, members, spec, run_idx=0) -> dict:
     exact = spec["engine"] == "pipeline" and spec["mesh"][1] == 1
     log(f"{name} M={micro}: logits vs the 1-rank run (same weights, same "
         f"tokens, {got.shape[0]} steps): mean |diff| {mean:.2e}, argmax "
-        f"agreement {agree:.4f} (window limits {WINDOW_MEAN_TOL} / "
-        f"{WINDOW_ARGMAX_MIN}); mean by step "
+        f"agreement {agree:.4f} ("
+        + ("exact required" if exact else
+           f"bound {TP_MEAN_MAX:.4f} / {TP_ARGMAX_MIN:.4f}")
+        + f"); mean |logit| {float(np.abs(want).mean()):.4f}; mean by step "
         f"{' '.join(f'{x:.4f}' for x in by_step)}; identical: "
         f"{bool(mean == 0.0)}")
     if exact:
         check(mean == 0.0, f"{name} M={micro}: stages differ from the 1-rank"
               f" run (mean {mean})")
-    check(agree >= FAULT_ARGMAX_MIN, f"{name} M={micro}: argmax agreement "
-          f"{agree} with the 1-rank run")
+    else:
+        check(mean <= TP_MEAN_MAX and agree >= TP_ARGMAX_MIN,
+              f"{name} M={micro}: mean |diff| {mean:.4f}, argmax {agree:.4f} "
+              f"against the 1-rank run, past the bound {TP_MEAN_MAX:.4f} / "
+              f"{TP_ARGMAX_MIN:.4f}")
     return dict(mean_err=mean, argmax=agree, exact=exact,
                 one_rank=mesh_summary(one))
 
@@ -3063,9 +3273,12 @@ def mesh_summary(members) -> dict:
         ranks=len(members),
         decode_ms=max(run["decode_ms"] for run in runs),
         device_ms=max((run["device_ms"] or 0.0) for run in runs),
+        k1_ms=max((run.get("k1_ms") or 0.0) for run in runs),
         collective_ms=max(run["collective_ms"] for run in runs),
         handoff_ms=max(run["handoff_ms"] for run in runs),
         max_memory_gb=max(r.get("max_memory_gb", 0.0) for r in members),
+        replicated_mismatch=max(r.get("replicated_mismatch", 0.0)
+                                for r in members),
         k1=sum(run["k1"] for run in runs), k2=sum(run["k2"] for run in runs))
 
 
@@ -3094,25 +3307,261 @@ def phase_sharded_70b(dev) -> dict:
         "sharded Llama-2-70B widths 1x8", members, spec))
 
 
-def phase_pipeline(dev) -> dict:
+def phase_pipeline(dev, backend="gloo", device="cuda", shrink=None) -> dict:
     """``PipelineEngine`` on Llama-2-7B (``pipeline_config()``), 4 stages
     of 8 layers, batch 8, M = 1 then M = 2, each against the 1-rank run
     with the same microbatches (equal logits); then pipe 2 x model 2 at
-    depth 16, batch 4, M = 2, against its 1-rank run."""
-    spec = dict(engine="pipeline", config="pipeline", mesh=(4, 1),
-                batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
-                new=MESH_NEW_TOKENS, micros=[1, 2])
-    members = run_mesh("pipeline Llama-2-7B 4 stages", spec, 4)
-    pp4 = dict(mesh_summary(members), vs_one_rank=[
-        against_one_rank("pipeline 4 stages", members, spec, i)
-        for i in range(2)])
-    spec = dict(engine="pipeline", config="pipeline", config_args=(16, 4),
-                mesh=(2, 2), batch=4, prompt_len=SERVING_PROMPT,
-                new=MESH_NEW_TOKENS, micros=[2])
-    members = run_mesh("pipeline Llama-2-7B depth 16, 2 stages x TP 2",
-                       spec, 4)
-    return dict(pp4=pp4, pp2_tp2=dict(mesh_summary(members), vs_one_rank=(
-        against_one_rank("pipeline 2 stages x TP 2", members, spec))))
+    depth 16, batch 4, M = 2, against its 1-rank run.  ``backend``: gloo
+    (every rank on cuda:0) or NCCL (rank r on cuda:r, the hand-offs card
+    to card).  ``shrink``: a rehearsal's spec -> spec at a toy size."""
+    where = " on 4 cards" if backend == "nccl" else ""
+    shrink = shrink or (lambda spec: spec)
+    spec = shrink(dict(engine="pipeline", config="pipeline", mesh=(4, 1),
+                       batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                       new=MESH_NEW_TOKENS, micros=[1, 2], backend=backend,
+                       device=device))
+    members = run_mesh("pipeline Llama-2-7B 4 stages" + where, spec, 4)
+    pp4 = dict(mesh_summary(members), per_rank=rank_rows(members),
+               vs_one_rank=[against_one_rank("pipeline 4 stages" + where,
+                                             members, spec, i)
+                            for i in range(2)])
+    spec = shrink(dict(engine="pipeline", config="pipeline",
+                       config_args=(16, 4), mesh=(2, 2), batch=4,
+                       prompt_len=SERVING_PROMPT, new=MESH_NEW_TOKENS,
+                       micros=[2], backend=backend, device=device))
+    members = run_mesh("pipeline Llama-2-7B depth 16, 2 stages x TP 2"
+                       + where, spec, 4)
+    return dict(pp4=pp4, pp2_tp2=dict(
+        mesh_summary(members), per_rank=rank_rows(members),
+        vs_one_rank=against_one_rank("pipeline 2 stages x TP 2" + where,
+                                     members, spec)))
+
+
+def rank_rows(members) -> list:
+    """Each rank's numbers of a mesh run, for the record."""
+    keys = ("decode_ms", "device_ms", "nccl_ms", "k1_ms", "collective_ms",
+            "handoff_ms", "prefill_s", "timed_by", "k1", "k2",
+            "window_mean_err", "window_argmax")
+    return [dict(coords=r["coords"], device=r["device"],
+                 max_memory_gb=r.get("max_memory_gb"),
+                 all_reduce_us=r.get("all_reduce_us"),
+                 runs=[{k: run.get(k) for k in keys} for run in r["runs"]])
+            for r in members]
+
+
+# ------------------------------------------------------------ four cards
+# ``python3 chip_smoke.py --cards 4``: the multi-card slice over NCCL, one
+# card per rank (``main_cards``).
+CARDS_70B_LAYERS = 80
+
+
+def phase_cards_sharded(dev, cards: int, backend="nccl", device="cuda",
+                        shrink=None) -> dict:
+    """``ShardedEngine`` at ``serving_config()`` (Llama-2-7B, 32 layers,
+    batch 8, prompt 3072, 32 new tokens) over NCCL at data 1 x model 4
+    (8 kv heads a card) and 2 x 2 (16 kv heads and 4 rows a card), each
+    against its 1-rank run on cuda:0 at the TP bound.  ``shrink``: a
+    rehearsal's spec -> spec at a toy size."""
+    shrink = shrink or (lambda spec: spec)
+    out = {}
+    for mesh in ((1, cards), (2, cards // 2)):
+        name = f"sharded Llama-2-7B {mesh[0]}x{mesh[1]} on {cards} cards"
+        spec = shrink(dict(engine="sharded", config="serving", mesh=mesh,
+                           batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
+                           new=MESH_NEW_TOKENS, backend=backend,
+                           device=device))
+        members = run_mesh(name, spec, cards)
+        out[f"{mesh[0]}x{mesh[1]}"] = dict(
+            mesh_summary(members), per_rank=rank_rows(members),
+            vs_one_rank=against_one_rank(name, members, spec))
+        free()
+    return out
+
+
+def phase_cards_70b(dev, cards: int, backend="nccl", device="cuda",
+                    shrink=None) -> dict:
+    """``ShardedEngine`` at Llama-2-70B's widths and all 80 layers over
+    TP 4 (``llama2_70b_config(80, batch=4)``, capacity 4096, prompt 3072,
+    32 new tokens): each card holds 2 kv heads of group 8 (K1's <8, 128,
+    false> on 8 CTAs) and draws its shard of the weights on itself
+    (``init_params(keep=...)``, ~35 GB).  No card holds the 1-rank run,
+    so the link to a reference, run first, is the same mesh at depth 8
+    against its 1-rank run on cuda:0."""
+    shrink = shrink or (lambda spec: spec)
+    spec = dict(engine="sharded", config="70b", config_args=(8, 4),
+                mesh=(1, cards), batch=4, prompt_len=SERVING_PROMPT,
+                new=MESH_NEW_TOKENS, backend=backend, device=device)
+    name = f"sharded Llama-2-70B depth 8 1x{cards}"
+    members = run_mesh(name, shrink(spec), cards)
+    link = dict(mesh_summary(members), per_rank=rank_rows(members),
+                vs_one_rank=against_one_rank(name, members, shrink(spec)))
+    free()
+    spec = dict(spec, config_args=(CARDS_70B_LAYERS, 4), timeout=900)
+    name = f"sharded Llama-2-70B {CARDS_70B_LAYERS} layers 1x{cards}"
+    members = run_mesh(name, shrink(spec), cards)
+    return {"depth 8": link, "80 layers": dict(
+        mesh_summary(members), per_rank=rank_rows(members),
+        local_layers=members[0]["local_layers"])}
+
+
+def cli_mesh_rank(rank, world, ckpt, turns, argv):
+    """The CLI's mesh path through the library, for ``phase_cards_cli``:
+    the checkpoint through ``hf_loader``, the CLI's configuration on a
+    1 x ``world`` mesh, ``ShardedEngine.generate`` per turn from a fresh
+    state (greedy); the replies and K1/K2 launches."""
+    import run_spatten_gpu as cli
+    from spatten_tpu_torch.config import MeshConfig
+    from spatten_tpu_torch.models import hf_loader
+    from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    from spatten_tpu_torch.parallel import ShardedEngine, make_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mcfg, params = hf_loader.load_pretrained(ckpt, device="cpu")
+    with open(f"{ckpt}/config.json") as fh:
+        eos = json.load(fh)["eos_token_id"]
+    cfg = cli.build_config(cli.parse_args(argv), mcfg)
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+        cfg.engine, mesh=MeshConfig(data=1, model=world)))
+    eng = ShardedEngine(cfg, make_mesh(cfg.engine.mesh, device=dev))
+    params = eng.shard_params(params)
+    fused_decode_attention.launches = gather_compact_rows.launches = 0
+    replies = []
+    for t in turns:
+        toks = eng.generate(params, torch.tensor([t]), CLI_NEW,
+                            eos_token_id=eos).cpu()
+        replies.append([x for x in toks[0].tolist() if x != eos])
+    return dict(device=str(dev), replies=replies,
+                k1=fused_decode_attention.launches,
+                k2=gather_compact_rows.launches,
+                local_layers=eng.lcfg.model.num_layers)
+
+
+def phase_cards_cli(dev, cards: int) -> dict:
+    """``run_spatten_gpu.py --mesh_model 4`` under ``python -m
+    torch.distributed.run --nproc_per_node 4`` (NCCL, one card a rank) on
+    the random ``CLI_LAYERS``-layer Llama-2-7B-width checkpoint of
+    ``phase_cli`` with its two turns of ids: exit 0, and its replies equal
+    ``ShardedEngine.generate`` on the same checkpoint and mesh called in
+    process on each rank (``cli_mesh_rank``), whose K1 launches are
+    local layers x tokens a turn."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+    import run_spatten_gpu as cli
+    from spatten_tpu_torch.parallel import launch
+    root = Path(tempfile.mkdtemp(prefix="spatten-cli-cards-"))
+    try:
+        hf = write_random_llama(root / "ckpt", CLI_LAYERS)
+        rng = np.random.default_rng(SEED)
+        turns = [rng.integers(3, hf["vocab_size"], n).tolist()
+                 for n in CLI_TURNS]
+        (root / "prompts.jsonl").write_text(json.dumps({"ids": turns}))
+        argv = ["--model_path", str(root / "ckpt"), "--prompts",
+                str(root / "prompts.jsonl"), "--max_new_tokens",
+                str(CLI_NEW), "--mesh_model", str(cards)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(cards),
+             str(Path(cli.__file__).resolve()), *argv],
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"run_spatten_gpu.py --mesh_model "
+              f"{cards} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+              f"{proc.stderr[-4000:]}")
+        got = [json.loads(line.split("reply ids: ", 1)[1])
+               for line in proc.stdout.splitlines()
+               if line.startswith("reply ids: ")]
+        ranks = launch.spawn("chip_smoke:cli_mesh_rank", cards,
+                             str(root / "ckpt"), turns, argv,
+                             backend="nccl", timeout=600)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = ranks[0]["replies"]
+    check(all(r["replies"] == want for r in ranks),
+          "cli: the ranks' in-process replies differ")
+    check(got == want and len(got) == len(turns),
+          "cli: replies of the CLI on 4 cards differ from "
+          "ShardedEngine.generate's")
+    for r in ranks:
+        check(r["k1"] == r["local_layers"] * CLI_NEW * len(turns),
+              f"cli on {r['device']}: K1 launched {r['k1']} times")
+    log(f"cli on {cards} cards: run_spatten_gpu.py --mesh_model {cards} "
+        f"under torch.distributed.run (NCCL) exit 0 in {cli_s:.1f} s; "
+        f"replies ({sum(map(len, got))} ids over {len(got)} turns) equal "
+        f"ShardedEngine.generate on cards "
+        f"{', '.join(r['device'] for r in ranks)}; K1 "
+        f"{[r['k1'] for r in ranks]}, K2 {[r['k2'] for r in ranks]}")
+    return dict(seconds=cli_s, k1=sum(r["k1"] for r in ranks),
+                k2=sum(r["k2"] for r in ranks))
+
+
+CARDS_PHASES = ("sharded", "70b", "pipeline", "cli", "split-k")
+
+
+def main_cards(cards: int, only=None) -> int:
+    """``--cards N``: only the multi-card phases, rank r on cuda:r under
+    NCCL: ``phase_cards_sharded``, ``phase_cards_70b``, ``phase_pipeline``
+    (NCCL), ``phase_cards_cli`` and ``phase_split_k`` over the N cards
+    (``only``: those of CARDS_PHASES named).  Each phase's failure is
+    printed and the others still run; any failure fails the run, which
+    then prints no result."""
+    import traceback
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    if torch.cuda.device_count() < cards:
+        print(f"chip_smoke --cards {cards}: {torch.cuda.device_count()} "
+              f"card(s) visible", file=sys.stderr)
+        return 1
+    import spatten_tpu_torch  # noqa: F401  (fails outside the repository)
+    from spatten_tpu_torch import kernels
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[:cards]
+    log(f"cards: {'; '.join(smi)}")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True).stdout.rstrip()
+    log("nvidia-smi topo -m:\n" + topo)
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, NCCL {torch.cuda.nccl.version()}")
+    t_start = time.perf_counter()
+    secs, _ = kernels.build_all(force=True)
+    log(f"built in {secs:.1f} s (once, before the ranks start)")
+    devices = [torch.device("cuda", i) for i in range(cards)]
+    phases = dict(zip(CARDS_PHASES, (
+        lambda: phase_cards_sharded(dev, cards),
+        lambda: phase_cards_70b(dev, cards),
+        lambda: phase_pipeline(dev, backend="nccl"),
+        lambda: phase_cards_cli(dev, cards),
+        lambda: phase_split_k(dev, devices=devices))))
+    results, failed = {}, []
+    for name, fn in phases.items():
+        if only and name not in only:
+            continue
+        t0 = time.perf_counter()
+        try:
+            results[name] = fn()
+        except Exception:                      # printed; the run fails
+            log(f"PHASE FAILED: {name}\n{traceback.format_exc()}")
+            failed.append(name)
+        log(f"[{name}: {time.perf_counter() - t0:.1f} s]")
+        free()
+    log(f"total {time.perf_counter() - t_start:.0f} s")
+    if failed:
+        log(f"failed phases: {failed}")
+        return 1
+    print(json.dumps({"cards": results}, default=str), flush=True)
+    print("; ".join(smi), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def mesh_small_check(dev) -> dict:
@@ -3147,7 +3596,18 @@ def mesh_small_check(dev) -> dict:
                 replay_prefill_err=pre, free_run_err=free)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on the card.")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="1 (default): every one-card phase; N > 1: only "
+                         "the multi-card phases, one card per rank (NCCL)")
+    ap.add_argument("--phases", nargs="+", choices=CARDS_PHASES,
+                    help="with --cards: only these multi-card phases (a "
+                         "four-card call costs four times its minutes)")
+    args = ap.parse_args(argv)
+    if args.cards > 1:
+        return main_cards(args.cards, args.phases)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1

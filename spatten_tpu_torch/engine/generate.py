@@ -141,6 +141,32 @@ def prefill_chunk(params, cfg: SpAttenConfig, state: DecodeState,
     return logits[:, -1], state, aux
 
 
+def prefill_scan(params, cfg: SpAttenConfig, state: DecodeState,
+                 tokens: torch.Tensor, *, nchunks: int):
+    """``nchunks`` equal prompt chunks of ``tokens`` [B, nchunks * chunk]
+    in a row, with no prune between them (JAX's one-dispatch scan over a
+    segment; the caller segments at the schedule's prune points).
+    Raises ValueError, before running any, where the schedule would prune
+    at a chunk.  Consumes ``state``.  Returns (last-token logits, state)."""
+    b, total = tokens.shape
+    if total % nchunks:
+        raise ValueError(f"{total} tokens do not split into {nchunks} "
+                         f"chunks")
+    chunk = total // nchunks
+    lens = state.layer_lengths.amax(dim=1).tolist()
+    for i in range(nchunks):
+        layers, lens = prune_schedule_step(cfg, lens, chunk)
+        if layers:
+            raise ValueError(f"layers {layers} prune at chunk {i} of the "
+                             f"scan; segment the prompt there")
+    last = None
+    for i in range(nchunks):
+        logits, state, _ = transformer.forward(
+            params, cfg, state, tokens[:, i * chunk:(i + 1) * chunk])
+        last = logits[:, -1]
+    return last, state
+
+
 def _prefill_step(params, cfg: SpAttenConfig, state: DecodeState,
                   tokens: torch.Tensor, layers, first: bool):
     """``prefill_chunk``; under ``SPATTEN_DEBUG=1`` a prompt's first chunk

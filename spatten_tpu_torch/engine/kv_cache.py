@@ -37,6 +37,19 @@ class LayerKVCache(NamedTuple):
         return LayerKVCache(k=self.k.layer(l), v=self.v.layer(l))
 
 
+def init_layer_cache(batch: int, kv_heads: int, capacity: int,
+                     head_dim: int, with_msb: bool = True,
+                     with_lsb2: bool = False,
+                     scale_dtype: torch.dtype = torch.float32,
+                     device: str | torch.device = "cpu") -> LayerKVCache:
+    """One layer's empty cache (planes [B, C(/2,/4), Hkv*D], scales 1): K
+    with the progressive-quantization planes, V with the int8 plane
+    alone (P·V reads full precision)."""
+    return init_stacked_cache(1, batch, kv_heads, capacity, head_dim,
+                              with_msb, with_lsb2, scale_dtype,
+                              device).layer(0)
+
+
 def init_stacked_cache(num_layers: int, batch: int, kv_heads: int,
                        capacity: int, head_dim: int, with_msb: bool = True,
                        with_lsb2: bool = False,
@@ -99,3 +112,16 @@ def append_tokens(cache: LayerKVCache, k_new: torch.Tensor,
         _append_rows(cache.k, k_new, lengths)
         _append_rows(cache.v, v_new, lengths)
     return cache
+
+
+def prune_layer(cache: LayerKVCache, keep_indices: torch.Tensor
+                ) -> LayerKVCache:
+    """Compact one layer's cache to ``keep_indices`` ([B, Hkv, T_keep],
+    sorted): the kept tokens move to the front; the slots past T_keep
+    gather slot 0 (stale, masked by the length).  Returns new planes."""
+    pad = torch.zeros(keep_indices.shape[:-1]
+                      + (cache.capacity - keep_indices.shape[-1],),
+                      dtype=keep_indices.dtype, device=keep_indices.device)
+    idx = torch.cat([keep_indices, pad], dim=-1)
+    return LayerKVCache(k=qz.gather_tokens(cache.k, idx),
+                        v=qz.gather_tokens(cache.v, idx))

@@ -9,9 +9,9 @@ time of the slowest file.  Several processes may reach first use at
 once (the ranks of a mesh): a build holds a file lock in the build
 directory, each library is written under a temporary name and renamed
 into place, and a process that waited on the lock finds the library
-fresh and builds nothing.  Libraries load with ``ctypes``; the wrappers
-pass pointers (``tensor.data_ptr()``) and PyTorch's current stream, and
-raise when the C function returns a CUDA error code.
+fresh and builds nothing.  Libraries load with ``ctypes``; ``launch``
+passes the wrappers' tensors as pointers and the current stream of their
+card, and raises when the C function returns a CUDA error code.
 
 Nothing here runs at import time: a CPU-only host imports every module.
 """
@@ -145,11 +145,26 @@ def entry(name: str):
 
 
 def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry point with ``args`` followed by the
-    current CUDA stream; raise on a non-zero CUDA error code."""
+    """Call kernel ``name``'s C entry point with ``args`` followed by a
+    CUDA stream; raise on a non-zero CUDA error code.  A tensor argument
+    passes as its device pointer (None as NULL), and the kernel launches
+    on the card its tensors lie on, under that card and on its current
+    stream, whatever the process's current device is (one controller may
+    drive shards on several cards); tensors on more than one device
+    raise.  A call without tensors launches on the current device."""
+    devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devices) > 1:
+        raise ValueError(f"kernel {name}: tensors on "
+                         f"{sorted(map(str, devices))}, one device expected")
+    dev = devices.pop() if devices else torch.device(
+        "cuda", torch.cuda.current_device())
+    if dev.type != "cuda":
+        raise ValueError(f"kernel {name}: tensors on {dev}, not a card")
     fn = entry(name)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(ptr(a) if isinstance(a, torch.Tensor) else a
+                   for a in args), stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed with error {err}")
 

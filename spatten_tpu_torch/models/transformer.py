@@ -154,6 +154,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
     return params
 
 
+def num_params(params: Params) -> int:
+    """The number of parameters in a tree (nested dicts of tensors)."""
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    return sum(num_params(v) for v in params.values())
+
+
 def compact_head_params(params: Params, cfg: SpAttenConfig,
                         head_mask: torch.Tensor) -> dict:
     """Physically compact the attention projections to the KEPT heads.

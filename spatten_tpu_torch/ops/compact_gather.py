@@ -105,8 +105,7 @@ def gather_compact_rows(
     kc = (torch.full((b,), p, dtype=torch.int32, device=dev)
           if keep_count is None else keep_count.to(torch.int32).contiguous())
     trig = triggered.to(torch.int32).contiguous()
-    kernels.launch("compact_gather", k_plane.data_ptr(), v_plane.data_ptr(),
-                   idx.data_ptr(), kc.data_ptr(), trig.data_ptr(),
+    kernels.launch("compact_gather", k_plane, v_plane, idx, kc, trig,
                    b, c, h, d, p)
     gather_compact_rows.launches += 1
     return k_plane, v_plane

@@ -658,17 +658,12 @@ def fused_decode_attention(
         raise ValueError(f"keep_out must be uint8 {(b, hq, nvb)}")
     do_requant = quant_enabled and requant_threshold > 0.0
     kernels.launch(
-        "fused_decode", qf.data_ptr(), knf.data_ptr(), vnf.data_ptr(),
-        lens.data_ptr(), kq.full.data_ptr(),
-        kernels.ptr(kq.msb if quant_enabled else None),
-        kernels.ptr(kq.lsb2 if has_lsb2 else None),
-        kq.scale.data_ptr(), vq.full.data_ptr(),
-        kernels.ptr(vq.msb if quant_enabled else None), vq.scale.data_ptr(),
-        kernels.ptr(imp if accumulate else None), kernels.ptr(hmask),
-        kernels.ptr(qbits), kernels.ptr(appm), out.data_ptr(),
-        max_prob.data_ptr(), need.data_ptr(), kernels.ptr(keep_out),
-        kernels.ptr(delta), kernels.ptr(m_rows), kernels.ptr(den_rows),
-        kernels.ptr(splane), b, hq, hkv, plan.inst, plan.dim, d, cap,
+        "fused_decode", qf, knf, vnf, lens, kq.full,
+        kq.msb if quant_enabled else None, kq.lsb2 if has_lsb2 else None,
+        kq.scale, vq.full, vq.msb if quant_enabled else None, vq.scale,
+        imp if accumulate else None, hmask, qbits, appm, out, max_prob, need,
+        keep_out, delta, m_rows, den_rows, splane,
+        b, hq, hkv, plan.inst, plan.dim, d, cap,
         cap_total,
         qz.pack_unit(cap_total),
         0 if layer is None else int(layer),
@@ -677,8 +672,7 @@ def fused_decode_attention(
         int(kq.scale.dtype == torch.bfloat16),
         int(accumulate and imp.dtype == torch.bfloat16),
         int(quantize_queries), int(pv_int8), int(probs_bf16),
-        int(importance_kind == "presoftmax"), int(per_row),
-        kernels.ptr(bplane))
+        int(importance_kind == "presoftmax"), int(per_row), bplane)
     fused_decode_attention.launches += 1
     if accumulate:
         delta = importance_in

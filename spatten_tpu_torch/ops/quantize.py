@@ -200,6 +200,20 @@ def dequantize_6bit(q: QuantizedKV, dtype=torch.float32) -> torch.Tensor:
             * q.scale.to(torch.float32)[..., None]).to(dtype)
 
 
+def msb_reference_values(q8: torch.Tensor) -> torch.Tensor:
+    """int8 -> the float the 4-bit MSB pass sees (no packing)."""
+    return (q8.to(torch.int32) >> 4).to(torch.float32) * 16.0 + MSB_MIDPOINT
+
+
+def pass1_reference_values(q8: torch.Tensor, bits: int) -> torch.Tensor:
+    """int8 -> the float a ``bits``-wide pass 1 sees (no packing)."""
+    if bits >= 8:
+        return q8.to(torch.float32)
+    if bits == 6:
+        return (q8.to(torch.int32) >> 2).to(torch.float32) * 4.0 + MIDPOINT6
+    return msb_reference_values(q8)
+
+
 def update_token(q: QuantizedKV, x_new: torch.Tensor, index: torch.Tensor,
                  rows: Optional[torch.Tensor] = None) -> QuantizedKV:
     """Write one new token row per sequence into slot ``index[b]``, IN
@@ -267,3 +281,18 @@ def gather_tokens(q: QuantizedKV, indices: torch.Tensor) -> QuantizedKV:
         msb=pack_msb(fused) if q.msb is not None else None,
         scale=scale,
         lsb2=pack_lsb2(fused) if q.lsb2 is not None else None)
+
+
+def rotate_rows_by_delta(q: QuantizedKV, delta: torch.Tensor,
+                         cos: torch.Tensor, sin: torch.Tensor) -> QuantizedKV:
+    """Re-rotate each token row by its (non-positive) slot delta and
+    requantize (the cached-rotated-K mode after a prune moved a row from
+    p to p' <= p: R(p') = R(p' - p) R(p)).  delta: int [..., H, T];
+    cos / sin: [P, D] rope tables (cos even, sin odd in the delta)."""
+    x = dequantize_full(q, torch.float32)                 # [..., H, T, D]
+    mag = torch.clamp(-delta.to(torch.int64), 0, cos.shape[0] - 1)
+    c, s = cos[mag], -sin[mag]
+    half = x.shape[-1] // 2
+    rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return quantize(x * c + rot * s, with_msb=q.msb is not None,
+                    with_lsb2=q.lsb2 is not None)

@@ -22,12 +22,17 @@ bits, as the replicated activations of tensor parallelism need.
 Each transport function counts its calls (``.calls``) and, on the host
 path, the host seconds they take (``.seconds``: from after the device
 work queued before the call, which the copy to the host waits for, to the
-copy back), so that a run can say what its collectives cost; under NCCL
-the call only enqueues, and ``.seconds`` stays 0.
+copy back), so that a run can say what its collectives cost.  Under NCCL
+the call only enqueues, and ``.seconds`` stays 0; after
+``reset_counts(events=True)`` each device-path call records a pair of
+CUDA events on the current stream around the collective, and
+``device_seconds(fn)`` sums them (the collective's time on the device,
+waiting for its peers included).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, Optional, Tuple
@@ -36,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from spatten_tpu_torch.config import MeshConfig
+from spatten_tpu_torch.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -97,9 +103,10 @@ def make_mesh(cfg: MeshConfig, device: str | torch.device | None = None
     data x model; ranks past the mesh get ``coords`` None.
 
     ``device``: where this rank's tensors live (default: the current CUDA
-    device under NCCL, else the CPU).  Under gloo the ranks may share one
-    card: their kernels and matmuls run there, their collectives through
-    the host."""
+    device, which under NCCL is card ``rank % device_count``; it raises
+    without CUDA, so a run on the CPU asks for ``device="cpu"``).  Under
+    gloo the ranks may share one card: their kernels and matmuls run
+    there, their collectives through the host."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group "
                            "(parallel.multihost.initialize)")
@@ -111,6 +118,10 @@ def make_mesh(cfg: MeshConfig, device: str | torch.device | None = None
         raise ValueError(f"mesh {cfg.data}x{cfg.model} needs {n} devices, "
                          f"have {world}")
     rank = dist.get_rank()
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device()) \
+            if torch.cuda.is_available() else "cuda"
+    device = resolve_device(device)
 
     def rank_of(c):
         return c[0] * dims[1] + c[1]
@@ -123,17 +134,30 @@ def make_mesh(cfg: MeshConfig, device: str | torch.device | None = None
         if coords is not None and all(
                 coords[names[i]] == v for i, v in base.items()):
             groups[axes] = g
-    if device is None:
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if dist.get_backend() == "nccl" else torch.device("cpu"))
     return Mesh(axis_names=names, shape=dict(zip(names, dims)),
-                coords=coords, device=torch.device(device), groups=groups)
+                coords=coords, device=device, groups=groups)
 
 
 def _via_host(t: torch.Tensor, group) -> bool:
     """Whether ``t`` travels through host memory in ``group``: a CUDA
     tensor under gloo."""
     return t.is_cuda and dist.get_backend(group) != "nccl"
+
+
+@contextlib.contextmanager
+def _on_device(fn, t: torch.Tensor):
+    """Around a device-path collective on ``t``: a pair of CUDA events on
+    the current stream when ``fn`` records them (``reset_counts(events=
+    True)``)."""
+    if fn.events is None or not t.is_cuda:
+        yield
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    fn.events.append((start, end))
 
 
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
@@ -150,7 +174,8 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
         t.copy_(host)
         all_reduce.seconds += time.perf_counter() - t0
     else:
-        dist.all_reduce(t, group=group)
+        with _on_device(all_reduce, t):
+            dist.all_reduce(t, group=group)
     return t
 
 
@@ -164,7 +189,8 @@ def send(t: torch.Tensor, dst: int, group) -> None:
         dist.send(t.cpu(), peer, group=group)
         send.seconds += time.perf_counter() - t0
     else:
-        dist.send(t.contiguous(), peer, group=group)
+        with _on_device(send, t):
+            dist.send(t.contiguous(), peer, group=group)
 
 
 def recv(t: torch.Tensor, src: int, group) -> torch.Tensor:
@@ -179,14 +205,29 @@ def recv(t: torch.Tensor, src: int, group) -> torch.Tensor:
         t.copy_(host)
         recv.seconds += time.perf_counter() - t0
     else:
-        dist.recv(t, peer, group=group)
+        with _on_device(recv, t):
+            dist.recv(t, peer, group=group)
     return t
 
 
-def reset_counts() -> None:
-    """Set the transport's call counts and seconds to 0."""
+def reset_counts(events: bool = False) -> None:
+    """Set the transport's call counts and seconds to 0; with ``events``,
+    record CUDA events around each device-path call from now on (else
+    none)."""
     for fn in (all_reduce, send, recv):
         fn.calls, fn.seconds = 0, 0.0
+        fn.events = [] if events else None
+
+
+def device_seconds(fn) -> float:
+    """The device seconds of ``fn``'s (``all_reduce``, ``send`` or
+    ``recv``) recorded calls since ``reset_counts(events=True)``; waits
+    for their end events."""
+    total = 0.0
+    for start, end in fn.events or ():
+        end.synchronize()
+        total += start.elapsed_time(end) / 1e3
+    return total
 
 
 reset_counts()

@@ -182,3 +182,22 @@ def select_keep_indices_budgeted(
                                       min=0))                  # [L, B, 1]
     keep_count = (start_size + n_imp[..., 0] + recent_keep).to(torch.int32)
     return keep_idx, keep_count
+
+
+def prune_arrays(keep_indices: torch.Tensor, *arrays: torch.Tensor
+                 ) -> tuple[torch.Tensor, ...]:
+    """Gather the token rows of each array by ``keep_indices`` [...,
+    T_keep]: an array [..., C] or [..., C, D] with matching leading dims
+    comes back with its token axis compacted to T_keep."""
+    idx = keep_indices.to(torch.int64)
+    out = []
+    for a in arrays:
+        if a.ndim == idx.ndim:                     # [..., C]
+            out.append(torch.gather(a, -1, idx))
+        elif a.ndim == idx.ndim + 1:               # [..., C, D]
+            out.append(torch.gather(
+                a, -2, idx[..., None].expand(idx.shape + a.shape[-1:])))
+        else:
+            raise ValueError(f"array rank {a.ndim} incompatible with "
+                             f"indices rank {idx.ndim}")
+    return tuple(out)

@@ -77,7 +77,8 @@ def pipeline_rank(rank, world, params_np, prompt):
     out = {}
     for name, (pp, tp, micro) in MESHES.items():
         mesh = make_mesh(MeshConfig(data=pp, model=tp,
-                                    axis_names=("pipe", "model")))
+                                    axis_names=("pipe", "model")),
+                         device="cpu")
         if mesh.coords is None:
             continue
         eng = PipelineEngine(cfg, mesh, microbatches=micro)
@@ -107,7 +108,7 @@ def pipeline_rank(rank, world, params_np, prompt):
                          generate=eng.generate(params, prompt, NEW).numpy(),
                          state=state_np(st),
                          drawn_is_shard=same_tree(drawn, whole))
-    mesh = make_mesh(MeshConfig(data=2, model=2))
+    mesh = make_mesh(MeshConfig(data=2, model=2), device="cpu")
     eng = ShardedEngine(cfg, mesh)
     out["sharded draw"] = same_tree(
         eng.init_params(5, dtype=torch.float32),
