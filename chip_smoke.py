@@ -162,8 +162,10 @@ line, and the ``{"ok": true, ...}`` line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import re
@@ -590,7 +592,8 @@ def k1_case_logged(errs, lines, name, cfg, st, q, kn, vn, layer, rung,
     errs.append(r["max_abs_err"])
     lines.append(f"{name} (layer {layer}, rung {rung}): fires {r['fired']}, "
                  f"dead groups {r['dead_groups']}, near rows "
-                 f"{r['near_rows']}, max |out err| {r['max_abs_err']:.2e}")
+                 f"{r['near_rows']}, max |out err| {r['max_abs_err']:.2e}, "
+                 f"out bit-equal {r['out_exact']}/{r['out_total']}")
     return r
 
 
@@ -1688,6 +1691,54 @@ def phase_k1_shard_shapes(dev) -> dict:
     return dict(max_abs_err=max(errs), cases=out)
 
 
+# Llama-2-70B's TP-4 shard (16 query heads over 2 kv heads of 128 a card,
+# K1's <8, 128, false>), batch 4: rung -> lengths
+ROUNDING_CASES = {4096: [4096, 3100, 2049, 977], 2048: [2048, 1601, 977, 33]}
+
+
+def phase_k1_rounding(dev) -> dict:
+    """K1 against its plain version stage by stage, bit for bit
+    (``kernel_checks.k1_stages``), at Llama-2-70B's TP-4 shard instance
+    under the serving flags, one layer at each rung: every stage must be
+    exact."""
+    from spatten_tpu_torch import kernel_checks as kc
+    from spatten_tpu_torch.ops import fused_decode as fd
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    cfg = k1_shape_config(serving_config(2), hq=16, hkv=2, d=128,
+                          cap=SERVING_CAP)
+    vb = cfg.pruning.v_block_size
+    out, lines = {}, []
+    for rung, lengths in ROUNDING_CASES.items():
+        st, q, kn, vn = k1_inputs(cfg, dev, gen, len(lengths))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kw = k1_flags(cfg, 0, rung)
+        probe = st.clone()
+        mp = fd.fused_decode_attention_plain(
+            q, probe.cache.k, probe.cache.v, kn, vn, lens, layer=0,
+            v_block_size=vb, importance_in=probe.importance, **kw)[1].max_prob
+        del probe
+        rep = kc.k1_stages(st, q, kn, vn, lens, layer=0,
+                           threshold=kc.split_threshold(mp), v_block=vb,
+                           keep_blocks=fd._v_keep_blocks(kw["v_keep"], vb,
+                                                         rung, 0), **kw)
+        out[rung] = rep
+        inexact = [k for k, v in rep.items()
+                   if (v["flips"] if "flips" in v
+                       else v["exact"] != v["total"])]
+        check(not inexact, f"K1 vs plain at rung {rung}: stages {inexact} "
+              "are not bit-equal")
+        lines.append(f"rung {rung}: " + "; ".join(
+            f"{k} {v['flips']} of {v['total']} flipped" if k == "keep"
+            else f"{k} {v['exact']}/{v['total']} exact (max {v['max_ulp']}"
+                 f" ulp, {v['max_abs']:.2e})"
+            for k, v in rep.items()))
+        del st
+        free()
+    log("K1 vs plain stage by stage, Llama-2-70B TP-4 shard <8, 128, "
+        "false>, serving flags:\n  " + "\n  ".join(lines))
+    return out
+
+
 # K1 at stored capacities and rungs off a multiple of 8, Llama-2-7B's
 # attention (32 kv heads of 128), batch 8: name -> (capacity, rung,
 # v_block, bf16 metadata, layer bits, lengths)
@@ -1772,8 +1823,8 @@ def phase_server(dev) -> dict:
     decode tick and K2 at least once (the admissions' prefills prune the
     rung-2048 layers).  The first decode tick after each wave of requests
     joins the arena is rerun from a copy of its state through the plain
-    versions (K1's plain version, the gather compaction), fed the same
-    tokens, and the active slots' logits held to ``window_vs_plain``'s
+    versions (``plain_versions``), fed the same tokens, and the active
+    slots' logits held to ``window_vs_plain``'s
     bf16 rule.  Ticks ``SERVER_PROFILE_TICKS`` are profiled for their
     device time; the host clock of the other ticks gives ms per tick."""
     from torch.profiler import ProfilerActivity, profile
@@ -1781,9 +1832,7 @@ def phase_server(dev) -> dict:
     from spatten_tpu_torch.engine.server import SpAttenServer
     from spatten_tpu_torch.models import transformer as tr
     from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
-    from spatten_tpu_torch.ops.fused_decode import (
-        fused_decode_attention, fused_decode_attention_plain,
-    )
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
     cfg = serving_config()
     m = cfg.model
     t0 = time.perf_counter()
@@ -1796,18 +1845,15 @@ def phase_server(dev) -> dict:
                               SERVER_PROMPTS[i % len(SERVER_PROMPTS)]),
                  SERVER_BUDGETS[i % len(SERVER_BUDGETS)])
                 for i in range(SERVER_REQUESTS)]
-    cfg_gather = dataclasses.replace(
-        cfg, engine=dataclasses.replace(cfg.engine, use_pallas=False))
     srv = SpAttenServer(params, cfg, device=dev)
     budget = {srv.submit(p, n): n for p, n in requests}
     run_decode_step = gen.decode_step
     seen, checks, tick_ms, prof_ms = set(), [], [], []
     check_s = 0.0
 
-    def tick(state, token, prune_cfg=cfg):
-        # gen.decode_step's body, returning the logits; ``prune_cfg``
-        # picks the compaction (K2, or the gather with use_pallas off)
-        state, _ = gen.maybe_prune(prune_cfg, state, 1)
+    def tick(state, token):
+        # gen.decode_step's body, returning the logits
+        state, _ = gen.maybe_prune(cfg, state, 1)
         state = gen.maybe_update_head_mask(cfg, state)
         logits, state, aux = tr.forward(params, cfg, state, token[:, None])
         return logits[:, -1], state, aux
@@ -1823,11 +1869,8 @@ def phase_server(dev) -> dict:
         if joined:
             t = time.perf_counter()
             snap = state.clone()
-            tr.fused_decode_attention = fused_decode_attention_plain
-            try:
-                plain = tick(snap, token, cfg_gather)[0][slots].float()
-            finally:
-                tr.fused_decode_attention = fused_decode_attention
+            with plain_versions():
+                plain = tick(snap, token)[0][slots].float()
             del snap
             torch.cuda.synchronize()
             check_s += time.perf_counter() - t
@@ -2015,7 +2058,222 @@ def phase_trace(dev) -> dict:
     del params
     free()
     return dict(rows=len(rows), k1=k1, cost=dataclasses.asdict(cost),
-                dense_bytes=dense)
+                dense_bytes=dense, csv=str(path), weight_bytes=weights)
+
+
+def phase_replay(dev, trace: dict) -> dict:
+    """``phase_trace``'s CSV through ``tools/replay_trace.py`` at the card
+    preset with the trace's weight bytes per step: its JSON, whose
+    modeled seconds must equal ``estimate_cost``'s in ``phase_trace``."""
+    from spatten_tpu_torch.tools import replay_trace
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        replay_trace.main([trace["csv"], "--weight-bytes-per-step",
+                           repr(float(trace["weight_bytes"]))])
+    res = json.loads(out.getvalue())
+    check(res["modeled_seconds"] == trace["cost"]["total_seconds"],
+          f"replay: modeled {res['modeled_seconds']} s, estimate_cost "
+          f"{trace['cost']['total_seconds']} s")
+    check(res["rows"] == trace["rows"], "replay: rows")
+    log("replay_trace: " + json.dumps(res))
+    return res
+
+
+def phase_hbm(dev) -> dict:
+    """``tools/hbm_calibrate.py`` on the card: read, int8-weight product
+    and copy bandwidth through torch ops, beside the 3.35 TB/s data
+    sheet."""
+    from spatten_tpu_torch.tools import hbm_calibrate
+    res = hbm_calibrate.calibrate(dev)
+    check(all(math.isfinite(r["gbps"]) and r["gbps"] > 0 for r in res),
+          "hbm: a bandwidth is not a positive number")
+    log("hbm_calibrate:\n  " + "\n  ".join(hbm_calibrate.lines(res)))
+    free()
+    return {r["name"]: r for r in res}
+
+
+PPL_STEPS = 300          # the phase's training steps (the tool's: 1200)
+# Kernels vs plain over the one-token run, teacher-forced, f32 weights.
+# Under the tool's flags (f32 queries, f32 P·V) K1 forms its dot products
+# and P·V sums in another order than the plain version: on an H100 12 of
+# the 6,132 calls' outputs are bit-equal, the rest within 3.7e-5, and
+# the differences reach the next layer's queries and the keep decisions
+# downstream.  tools/plain_gap.py read the NLL gap over 2 models x 3
+# texts at 2.1e-5 .. 5.3e-4 (this run's text: 1.9e-4), and with the
+# probabilities rounded to bf16 in the plain version (a planted fault) at
+# 1.4e-3 .. 2.7e-3: PPL_NLL_RTOL sits between.  With int8 queries and
+# integer P·V (PPL_EXACT_FLAGS) every sum K1 takes is the plain
+# version's, and the NLLs are equal.
+PPL_NLL_RTOL = 8e-4
+PPL_EXACT_FLAGS = dict(quantize_queries=True, pv_int8=True)
+PPL_EXACT_TOKENS = 128   # its text: the first 128 predictions (run time)
+PPL_RUNS = ("dense", "keep 0.5", "keep 0.25", "keep 0.5, one-token chunks",
+            "keep 0.5, one-token chunks, int8 queries")
+
+
+def ppl_prune_points(cfg, tokens: int) -> int:
+    """The cascade prunes ``evaluate_perplexity`` makes over ``tokens``
+    tokens (K2 launches on the card: one per triggered layer)."""
+    from spatten_tpu_torch.engine import generate as gen
+    lens, points, pos = [0] * cfg.model.num_layers, 0, 0
+    while pos < tokens - 1:
+        n = min(cfg.engine.prefill_chunk, tokens - 1 - pos)
+        layers, lens = gen.prune_schedule_step(cfg, lens, n)
+        points, pos = points + len(layers), pos + n
+    return points
+
+
+def ppl_runs(sc) -> dict:
+    """``PPL_RUNS``' configurations, from ``tools/ppl_curve.py``'s rows at
+    scale ``sc``."""
+    from spatten_tpu_torch.tools import ppl_curve as pc
+    rows = dict(pc.configs(sc))
+    keep50 = rows["spatten keep~0.50 (4b+requant+vprune)"]
+    ones = dataclasses.replace(keep50, engine=dataclasses.replace(
+        keep50.engine, prefill_chunk=1))
+    return dict(zip(PPL_RUNS, (
+        rows["dense fp (full context)"], keep50,
+        rows["spatten keep~0.25 (4b+requant+vprune)"], ones,
+        dataclasses.replace(ones, quant=dataclasses.replace(
+            ones.quant, **PPL_EXACT_FLAGS)))))
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """While active, the model's decode steps call K1's plain version and
+    the prune compaction K2's, on the card's tensors."""
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops.compact_gather import gather_compact_rows_plain
+    from spatten_tpu_torch.ops.fused_decode import (
+        fused_decode_attention_plain,
+    )
+    from spatten_tpu_torch.pruning import compact
+    saved = tr.fused_decode_attention, compact.gather_compact_rows
+    tr.fused_decode_attention = fused_decode_attention_plain
+    compact.gather_compact_rows = gather_compact_rows_plain
+    try:
+        yield
+    finally:
+        tr.fused_decode_attention, compact.gather_compact_rows = saved
+
+
+def extract_corpus_in_background(path=None):
+    """Start ``tools/extract_doc_corpus.py`` in a process of its own, its
+    report going to ``<corpus>.log`` (the ppl phase waits for it; mining
+    the card machine's packages takes about two minutes, which the kernel
+    build hides).  Returns (the process, the log's path)."""
+    from pathlib import Path
+    from spatten_tpu_torch.tools import extract_doc_corpus
+    path = Path(path or extract_doc_corpus.DEFAULT_OUT)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    log_path = path.with_suffix(".log")
+    with open(log_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-W", "ignore::SyntaxWarning", "-m",
+             "spatten_tpu_torch.tools.extract_doc_corpus", str(path)],
+            stdout=subprocess.DEVNULL, stderr=err)
+    return proc, log_path
+
+
+def phase_ppl(dev, steps: int = PPL_STEPS, sc=None, corpus_path=None,
+              roots=None, corpus_proc=None) -> dict:
+    """The accuracy path (``tools/ppl_curve.py``) at GPT-2 small's
+    geometry (12 layers x 12 heads x 64, vocab 256, context 512): the
+    docstring corpus extracted into ``build/``, ``steps`` training steps
+    (f32 weights, TF32 matmuls), then the held-out text's perplexity
+    through the kernels: dense, keep 0.5 and keep 0.25 (16-token chunks:
+    K2 for every prune, no one-token chunk), and keep 0.5 again with
+    ``prefill_chunk`` = 1, teacher-forced decode through K1 at every
+    token (511 x 12 launches), rerun through K1's and K2's plain versions
+    (``plain_versions``) with its NLL within
+    ``PPL_NLL_RTOL``; then once more with ``PPL_EXACT_FLAGS`` over the
+    first ``PPL_EXACT_TOKENS`` predictions, where the
+    NLLs must be equal.  K1 and K2 launches equal the schedule's.
+    ``corpus_proc``: (process, log) of the extraction started by
+    ``extract_corpus_in_background`` (else it runs here).  ``sc``,
+    ``corpus_path``, ``roots``: a rehearsal's scale, corpus file and
+    package roots."""
+    from spatten_tpu_torch.eval import evaluate_perplexity
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops.compact_gather import (
+        gather_compact_rows, k2_takes,
+    )
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    from spatten_tpu_torch.tools import extract_doc_corpus, ppl_curve as pc
+    sc = sc or pc.SCALES["gpt2s"]
+    corpus_path = corpus_path or extract_doc_corpus.DEFAULT_OUT
+    roots = roots or extract_doc_corpus.default_roots()
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    if corpus_proc is not None:
+        proc, log_path = corpus_proc
+        rc = proc.wait()
+        err = log_path.read_text().strip()
+        check(rc == 0, f"ppl: corpus extraction failed:\n{err}")
+        log(f"ppl: corpus from {roots} (in the background, waited "
+            f"{time.perf_counter() - t0:.1f} s): {err.splitlines()[-1]}")
+    else:
+        n_docs, chars = extract_doc_corpus.extract(roots, corpus_path)
+        log(f"ppl: corpus of {n_docs} docstrings, {chars / 1e6:.1f} MB, "
+            f"extracted from {roots} in {time.perf_counter() - t0:.1f} s")
+    corpus = pc.Corpus.load(corpus_path)
+    t0 = time.perf_counter()
+    params = pc.train(steps, sc, corpus, dev, log=log)
+    sync()
+    train_s = time.perf_counter() - t0
+    log(f"ppl: {sc.name} trained {steps} steps at batch {sc.batch} x "
+        f"{sc.seq} in {train_s:.1f} s")
+    text, _ = pc.eval_texts(sc, corpus)
+    runs = ppl_runs(sc)
+    texts = dict.fromkeys(PPL_RUNS, text)
+    texts[PPL_RUNS[4]] = text[:PPL_EXACT_TOKENS + 1]
+    out = {}
+    for name, cfg in runs.items():
+        L, t = cfg.model.num_layers, texts[name]
+        fused_decode_attention.launches = 0
+        gather_compact_rows.launches = 0
+        t0 = time.perf_counter()
+        r = evaluate_perplexity(params, cfg, t, device=dev)
+        sync()
+        secs = time.perf_counter() - t0
+        k1, k2 = fused_decode_attention.launches, gather_compact_rows.launches
+        chunk = cfg.engine.prefill_chunk
+        ones = sum(min(chunk, len(t) - 1 - p) == 1
+                   for p in range(0, len(t) - 1, chunk))
+        k1_want = (L * ones if on_card and tr.decode_uses_kernel(cfg, "cuda")
+                   else 0)
+        k2_want = (ppl_prune_points(cfg, len(t))
+                   if on_card and k2_takes(cfg.model.head_dim) else 0)
+        check(math.isfinite(r.nll), f"ppl {name}: NLL {r.nll}")
+        check(k1 == k1_want, f"ppl {name}: K1 launched {k1}, not {k1_want}")
+        check(k2 == k2_want, f"ppl {name}: K2 launched {k2}, not {k2_want}")
+        out[name] = dict(ppl=r.perplexity, nll=r.nll, tokens=r.num_tokens,
+                         requant_events=r.requant_events, k1=k1, k2=k2,
+                         seconds=secs)
+        log(f"ppl {name}: {r.perplexity:.4f} (NLL {r.nll:.6f} over "
+            f"{r.num_tokens} tokens; cache {cfg.engine.cache_capacity}, "
+            f"chunk {chunk}; requant events {r.requant_events}) in "
+            f"{secs:.1f} s; K1 launches {k1}, K2 launches {k2}")
+    check(out["dense"]["ppl"] < sc.vocab / 4, f"ppl: dense perplexity "
+          f"{out['dense']['ppl']} is not far below chance ({sc.vocab})")
+    # the one-token runs again through the plain versions
+    vs_plain = {}
+    for name, rtol in ((PPL_RUNS[3], PPL_NLL_RTOL), (PPL_RUNS[4], 0.0)):
+        with plain_versions():
+            r = evaluate_perplexity(params, runs[name], texts[name],
+                                    device=dev)
+        got = out[name]["nll"]
+        rel = abs(got - r.nll) / abs(r.nll)
+        vs_plain[name] = dict(plain_nll=r.nll, rel=rel)
+        log(f"ppl {name}, kernels vs plain: NLL {got!r} vs {r.nll!r}, "
+            f"relative {rel:.2e} (tolerance {rtol})")
+        check(rel <= rtol, f"ppl {name}: kernels vs plain NLL relative "
+              f"{rel}")
+    del params
+    free()
+    return dict(out, steps=steps, train_s=train_s, corpus_mb=len(
+        corpus.data) / 1e6, vs_plain=vs_plain)
 
 
 SUPERVISED_BATCH, SUPERVISED_NEW, SUPERVISED_WINDOW = 2, 64, 16
@@ -2540,19 +2798,19 @@ def run_path(name, cfg, dev, *, batch, prompt_len, new_tokens,
     return out
 
 
-def window_vs_plain(name, cfg, dev, params, prompt, tokens, steps=None):
+def window_vs_plain(name, cfg, dev, params, prompt, tokens, steps=None,
+                    report=None):
     """The first decode window (``steps`` tokens, by default the
     configuration's window) again from a fresh prefill: kernels, then the
-    plain versions (K1's plain version, the gather compaction) on the card
-    from the same post-prefill state, fed the same tokens."""
+    plain versions (``plain_versions``) on the card from the same
+    post-prefill state, fed the same tokens.  ``tokens``:
+    generate's tokens, which the kernels' rerun should reproduce (None:
+    not checked); ``report``: a dict that receives the window's numbers."""
     from spatten_tpu_torch.engine import generate as gen
     from spatten_tpu_torch.engine.policy import update_head_mask
     from spatten_tpu_torch.engine.state import init_state
     from spatten_tpu_torch.models import transformer as tr
     from spatten_tpu_torch.ops import rope as rope_ops
-    from spatten_tpu_torch.ops.fused_decode import (
-        fused_decode_attention, fused_decode_attention_plain,
-    )
     m = cfg.model
     batch = prompt.shape[0]
     state = init_state(cfg, batch, device=dev)
@@ -2572,35 +2830,34 @@ def window_vs_plain(name, cfg, dev, params, prompt, tokens, steps=None):
         fed.append(tok)
         logits_k.append(logits[:, -1])
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
-    cfg_gather = dataclasses.replace(
-        cfg, engine=dataclasses.replace(cfg.engine, use_pallas=False))
     del state
     free()
-    state, _, _, _ = gen.window_start(cfg_gather, snap, steps, list(host))
     logits_p = []
-    # K1's plain version stands in for the kernel during the rerun only
-    tr.fused_decode_attention = fused_decode_attention_plain
-    try:
+    with plain_versions():
+        state, _, _, _ = gen.window_start(cfg, snap, steps, list(host))
         for t in fed:
             logits, state, _ = tr.forward(params, cfg, state, t[:, None],
                                           tables)
             logits_p.append(logits[:, -1])
-    finally:
-        tr.fused_decode_attention = fused_decode_attention
     lk, lp = torch.stack(logits_k), torch.stack(logits_p)   # [steps, B, V]
     check(bool(torch.isfinite(lk).all()), "non-finite logits")
     step_err = (lk - lp).abs().amax(dim=(1, 2)).tolist()
     mean_err = float((lk - lp).abs().mean())
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    same = bool(torch.equal(torch.stack(fed, 1), tokens[:, :steps]))
+    same = (None if tokens is None else
+            bool(torch.equal(torch.stack(fed, 1), tokens[:, :steps])))
+    exact = float((lk == lp).float().mean())
     pick = sorted({0, 1, 2, 4, 8, 16, 32, steps - 1} & set(range(steps)))
     log(f"{name}: first decode window, kernels vs plain on the card ({steps}"
         f" steps, same tokens fed): mean |logit diff| {mean_err:.2e} "
         f"(tolerance {WINDOW_MEAN_TOL}); argmax agreement {agree:.4f} (min "
         f"{WINDOW_ARGMAX_MIN}); max |diff| by step "
         f"{[round(step_err[i], 4) for i in pick]} (largest logit "
-        f"{float(lk.abs().max()):.2f}); the rerun reproduces generate's "
-        f"tokens: {same}")
+        f"{float(lk.abs().max()):.2f}); logits bit-equal {exact:.4f}; the "
+        f"rerun reproduces generate's tokens: {same}")
+    if report is not None:
+        report.update(mean_err=mean_err, argmax=agree, exact=exact,
+                      step_err=step_err)
     check(mean_err <= WINDOW_MEAN_TOL, f"window mean error {mean_err}")
     check(agree >= WINDOW_ARGMAX_MIN, f"argmax agreement {agree}")
     return state, tok, tables, host_k
@@ -2654,6 +2911,10 @@ def profile_decode(name, params, cfg, state, tok, tables, step_s: float,
 # (``main_cards``) rank r runs on cuda:r under NCCL, its collectives and
 # hand-offs card to card.
 MESH_NEW_TOKENS, MESH_WINDOW = 32, 16
+# phase_sharded's depth (Llama-2-7B's 32 layers); the one-card pipeline
+# runs MESH_DEPTH of them and phase_sharded_70b 4 of 80 (the one-card
+# run's time limit; the four-card run's pipeline keeps 32)
+SHARDED_DEPTH, MESH_DEPTH = 32, 8
 MESH_TIMEOUT = 420
 
 
@@ -2672,6 +2933,60 @@ def llama2_70b_config(num_layers: int = 8, batch: int = 4):
         pruning=dataclasses.replace(base.pruning, head_keep=6),
         engine=dataclasses.replace(base.engine, max_batch_size=batch),
     ).validate()
+
+
+def llama2_70b_rank_config(num_layers: int = 80, batch: int = 4):
+    """One TP-4 rank's layer widths of Llama-2-70B as a one-card model
+    (``sharded.local_config`` of ``llama2_70b_config`` over 4 model
+    shards: hidden 8192, 16 query heads over 2 kv heads of 128,
+    intermediate 7168, K1's <8, 128, false>), all 80 layers, ~34 GB of
+    bf16 weights; head pruning off, as ``ShardedEngine`` drives no head
+    mask clock."""
+    base = llama2_70b_config(num_layers, batch)
+    return dataclasses.replace(
+        base, model=dataclasses.replace(base.model, num_heads=16,
+                                        num_kv_heads=2,
+                                        intermediate_size=7168),
+        pruning=dataclasses.replace(base.pruning, enable_head_pruning=False,
+                                    head_keep=0),
+    ).validate()
+
+
+def phase_70b_depth(dev) -> dict:
+    """The four-card 70B run's depth on one card: ``llama2_70b_rank_config``
+    (80 layers, batch 4, prompt 3072, capacity 4096, random bf16 weights
+    from seed 0), its first decode window held against the plain versions
+    by ``window_vs_plain`` at ``WINDOW_MEAN_TOL`` over the 16 steps the
+    four-card run holds (``MESH_WINDOW``); K1 = 80 x 16."""
+    from spatten_tpu_torch.engine import generate as gen
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    cfg = llama2_70b_rank_config()
+    m = cfg.model
+    name = f"Llama-2-70B TP-4 rank widths, {m.num_layers} layers, one card"
+    t0 = time.perf_counter()
+    params = tr.init_params(m, SEED, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    log(f"{name}: params {gb:.1f} GB bf16 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompt = np.random.default_rng(SEED).integers(
+        0, m.vocab_size, (cfg.engine.max_batch_size, SERVING_PROMPT))
+    steps = min(MESH_WINDOW, gen.decode_window_steps(cfg))
+    report = {}
+    fused_decode_attention.launches = 0
+    gather_compact_rows.launches = 0
+    window_vs_plain(name, cfg, dev, params, prompt, None, steps,
+                    report=report)
+    k1, k2 = fused_decode_attention.launches, gather_compact_rows.launches
+    check(k1 == m.num_layers * steps, f"{name}: K1 launched {k1} times, "
+          f"expected {m.num_layers * steps}")
+    log(f"{name}: K1 launches {k1}, K2 launches {k2}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del params
+    free()
+    return dict(report, k1=k1, k2=k2, weights_gb=gb)
 
 
 def pipeline_config(num_layers: int = 32, batch: int = SERVING_BATCH):
@@ -2912,9 +3227,8 @@ def mesh_rank(rank, world, spec):
     counts set to 0 just before it and read just after, its logits, host
     clock, collective seconds and a device-time profile recorded around
     the engine's step functions (``_Recorder``); then the first decode
-    window again through the plain versions (K1's plain version, the
-    gather compaction) from the state at its first decode step, fed the
-    same tokens.  ``spec['replay']``: every forward call of ``generate``
+    window again through the plain versions (``plain_versions``) from the
+    state at its first decode step, fed the same tokens.  ``spec['replay']``: every forward call of ``generate``
     is first replayed on the CPU from a copy of its state
     (``kernel_checks``' rule: logits within ``CPU_REPLAY_LOGIT_TOL``)."""
     from spatten_tpu_torch import kernel_checks as kc
@@ -2924,11 +3238,8 @@ def mesh_rank(rank, world, spec):
     from spatten_tpu_torch.ops.compact_gather import (
         gather_compact_rows, k2_takes,
     )
-    from spatten_tpu_torch.ops.fused_decode import (
-        fused_decode_attention, fused_decode_attention_plain,
-    )
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
     from spatten_tpu_torch.parallel import make_mesh
-    from spatten_tpu_torch.pruning import compact
     cuda = spec.get("device", "cuda") == "cuda"
     nccl = spec.get("backend", "gloo") == "nccl"
     dev = mesh_device(spec, rank)
@@ -3058,19 +3369,14 @@ def mesh_rank(rank, world, spec):
             rows = eng.rows(batch) if sharded else slice(0, batch)
             toks = torch.as_tensor(run["tokens"], device=dev)[rows].to(
                 torch.int32)
-            tr.fused_decode_attention = fused_decode_attention_plain
-            compact.k2_takes = lambda d: False
-            try:
-                plain = []
+            plain = []
+            with plain_versions():
                 for i in range(MESH_WINDOW):
                     tok = toks[:, i]
                     lg, state = (eng.decode_logits(params, state, tok)
                                  if sharded else
                                  eng.step_fn(1)(params, state, tok[:, None]))
                     plain.append(lg.float().cpu())
-            finally:
-                tr.fused_decode_attention = fused_decode_attention
-                compact.k2_takes = k2_takes
             lk = logits[1:MESH_WINDOW + 1]
             lp = torch.stack(plain)
             run["window_mean_err"] = float((lk - lp).abs().mean())
@@ -3283,40 +3589,45 @@ def mesh_summary(members) -> dict:
 
 
 def phase_sharded(dev) -> dict:
-    """``ShardedEngine`` on ``serving_config()`` (Llama-2-7B width and all
-    32 layers, random bf16 weights from seed 0), mesh data 2 x model 4: 8
-    ranks, each [32, 4, 4096, 1024] planes in K1's <1, 128>; batch 8,
+    """``ShardedEngine`` on ``serving_config(SHARDED_DEPTH)`` (Llama-2-7B
+    width, random bf16 weights from seed 0), mesh data 2 x model 4: 8
+    ranks, each [8, 4, 4096, 1024] planes in K1's <1, 128>; batch 8,
     prompt 3072, 32 new tokens; then its logits against the 1-rank run."""
     spec = dict(engine="sharded", config="serving", mesh=(2, 4),
-                batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
-                new=MESH_NEW_TOKENS)
+                config_args=(SHARDED_DEPTH,), batch=SERVING_BATCH,
+                prompt_len=SERVING_PROMPT, new=MESH_NEW_TOKENS)
     members = run_mesh("sharded Llama-2-7B 2x4", spec, 8)
     return dict(mesh_summary(members), vs_one_rank=against_one_rank(
         "sharded Llama-2-7B 2x4", members, spec))
 
 
 def phase_sharded_70b(dev) -> dict:
-    """``ShardedEngine`` at Llama-2-70B's widths, depth 8 of 80 (one card),
-    mesh 1 x 8: each rank 1 kv head of group 8, K1's <8, 128> in 4 CTAs
-    at batch 4; capacity 4096, prompt 3072, 32 new tokens -- the shard
-    shape of Llama-2-70B served over TP 8; then against the 1-rank run."""
-    spec = dict(engine="sharded", config="70b", mesh=(1, 8), batch=4,
-                prompt_len=SERVING_PROMPT, new=MESH_NEW_TOKENS)
+    """``ShardedEngine`` at Llama-2-70B's widths, depth 4 of 80 (the
+    one-card run's time), mesh 1 x 8: each rank 1 kv head of group 8, K1's
+    <8, 128> in 4 CTAs at batch 4; capacity 4096, prompt 3072, 32 new
+    tokens -- the shard shape of Llama-2-70B served over TP 8; then
+    against the 1-rank run."""
+    spec = dict(engine="sharded", config="70b", config_args=(4, 4),
+                mesh=(1, 8), batch=4, prompt_len=SERVING_PROMPT,
+                new=MESH_NEW_TOKENS)
     members = run_mesh("sharded Llama-2-70B widths 1x8", spec, 8)
     return dict(mesh_summary(members), vs_one_rank=against_one_rank(
         "sharded Llama-2-70B widths 1x8", members, spec))
 
 
-def phase_pipeline(dev, backend="gloo", device="cuda", shrink=None) -> dict:
-    """``PipelineEngine`` on Llama-2-7B (``pipeline_config()``), 4 stages
-    of 8 layers, batch 8, M = 1 then M = 2, each against the 1-rank run
+def phase_pipeline(dev, backend="gloo", device="cuda", shrink=None,
+                   num_layers: int = 32) -> dict:
+    """``PipelineEngine`` on Llama-2-7B (``pipeline_config(num_layers)``),
+    4 stages of num_layers / 4 layers, batch 8, M = 1 then M = 2, each
+    against the 1-rank run
     with the same microbatches (equal logits); then pipe 2 x model 2 at
-    depth 16, batch 4, M = 2, against its 1-rank run.  ``backend``: gloo
+    half that depth, batch 4, M = 2, against its 1-rank run.  ``backend``: gloo
     (every rank on cuda:0) or NCCL (rank r on cuda:r, the hand-offs card
     to card).  ``shrink``: a rehearsal's spec -> spec at a toy size."""
     where = " on 4 cards" if backend == "nccl" else ""
     shrink = shrink or (lambda spec: spec)
     spec = shrink(dict(engine="pipeline", config="pipeline", mesh=(4, 1),
+                       config_args=(num_layers, SERVING_BATCH),
                        batch=SERVING_BATCH, prompt_len=SERVING_PROMPT,
                        new=MESH_NEW_TOKENS, micros=[1, 2], backend=backend,
                        device=device))
@@ -3326,11 +3637,11 @@ def phase_pipeline(dev, backend="gloo", device="cuda", shrink=None) -> dict:
                                              members, spec, i)
                             for i in range(2)])
     spec = shrink(dict(engine="pipeline", config="pipeline",
-                       config_args=(16, 4), mesh=(2, 2), batch=4,
+                       config_args=(num_layers // 2, 4), mesh=(2, 2), batch=4,
                        prompt_len=SERVING_PROMPT, new=MESH_NEW_TOKENS,
                        micros=[2], backend=backend, device=device))
-    members = run_mesh("pipeline Llama-2-7B depth 16, 2 stages x TP 2"
-                       + where, spec, 4)
+    members = run_mesh(f"pipeline Llama-2-7B depth {num_layers // 2}, "
+                       "2 stages x TP 2" + where, spec, 4)
     return dict(pp4=pp4, pp2_tp2=dict(
         mesh_summary(members), per_rank=rank_rows(members),
         vs_one_rank=against_one_rank("pipeline 2 stages x TP 2" + where,
@@ -3612,8 +3923,6 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import spatten_tpu_torch  # noqa: F401  (fails outside the repository)
-    from spatten_tpu_torch import kernels
-    from spatten_tpu_torch.perf import H100_SXM
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3626,7 +3935,19 @@ def main(argv=None) -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
+    corpus_proc = extract_corpus_in_background()
+    try:
+        return run_one_card(dev, smi, t_start, corpus_proc)
+    finally:
+        if corpus_proc[0].poll() is None:
+            corpus_proc[0].kill()
+            corpus_proc[0].wait()
 
+
+def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
+    """Every one-card phase, in order (``main`` without ``--cards``)."""
+    from spatten_tpu_torch import kernels
+    from spatten_tpu_torch.perf import H100_SXM
     secs, reports = kernels.build_all(force=True)
     log(f"built {sorted(reports)} in {secs:.1f} s")
     spills = {}
@@ -3677,6 +3998,7 @@ def main(argv=None) -> int:
     k1_long = timed(phase_k1_long_windows, dev)
     k1_wide_dims = timed(phase_k1_wide_head_dims, dev)
     k1_shards = timed(phase_k1_shard_shapes, dev)
+    k1_round = timed(phase_k1_rounding, dev)
     k2_pr1 = timed(phase_k2, dev, b=4, cap=1024, hkv=32, d=128,
                    keep_max=772, window=1024,
                    lengths=[1024, 1024, 900, 1000], triggered=[1, 0, 1, 1],
@@ -3743,14 +4065,18 @@ def main(argv=None) -> int:
                       new_tokens=OPENLLAMA_NEW_TOKENS, window_check=True)
     del openllama["params"], openllama["res"]
     free()
+    depth70 = timed(phase_70b_depth, dev)
     server = timed(phase_server, dev)
     trace = timed(phase_trace, dev)
+    replay = timed(phase_replay, dev, trace)
     supervised = timed(phase_supervised, dev)
     cli = timed(phase_cli, dev)
     debug_hook = timed(phase_debug_hook, dev)
+    ppl = timed(phase_ppl, dev, corpus_proc=corpus_proc)
+    hbm = timed(phase_hbm, dev)
     sharded = timed(phase_sharded, dev)
     sharded_70b = timed(phase_sharded_70b, dev)
-    pipeline = timed(phase_pipeline, dev)
+    pipeline = timed(phase_pipeline, dev, num_layers=MESH_DEPTH)
     # the cost model's per-step overhead: the serving path's host time per
     # decode step beyond its device time
     log(f"cost model step overhead, serving path: "
@@ -3766,6 +4092,8 @@ def main(argv=None) -> int:
     k1_by_path.update({"server, small f32": small_server["k1"],
                        "trace": trace["k1"], "supervised": supervised["k1"],
                        "cli": cli["k1"], "debug hook": debug_hook["k1"],
+                       "70B TP-4 rank widths, 80 layers": depth70["k1"],
+                       "ppl gpt2s": sum(ppl[k]["k1"] for k in PPL_RUNS),
                        "sharded 2x4": sharded["k1"],
                        "sharded 70B widths 1x8": sharded_70b["k1"],
                        "pipeline 4 stages (M=1, M=2)": pipeline["pp4"]["k1"],
@@ -3775,6 +4103,8 @@ def main(argv=None) -> int:
     k2_by_path.update({"server, small f32": small_server["k2"],
                        "supervised": supervised["k2"], "cli": cli["k2"],
                        "debug hook": debug_hook["k2"],
+                       "70B TP-4 rank widths, 80 layers": depth70["k2"],
+                       "ppl gpt2s": sum(ppl[k]["k2"] for k in PPL_RUNS),
                        "sharded 2x4": sharded["k2"],
                        "sharded 70B widths 1x8": sharded_70b["k2"],
                        "pipeline 4 stages (M=1, M=2)": pipeline["pp4"]["k2"],
@@ -3804,6 +4134,9 @@ def main(argv=None) -> int:
              long_windows=k1_long["cases"],
              wide_head_dims=k1_wide_dims["cases"],
              shard_shapes=k1_shards["cases"],
+             stages_exact={rung: {k: f"{v['exact']}/{v['total']}"
+                                  for k, v in rep.items() if "exact" in v}
+                           for rung, rep in k1_round.items()},
              meshes={"sharded 2x4": sharded, "sharded 70B widths 1x8":
                      sharded_70b, "pipeline": pipeline}),
         dict(name="gather_compact_rows", route="cuda",

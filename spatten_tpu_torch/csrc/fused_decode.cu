@@ -158,6 +158,24 @@
 
 #include <unordered_map>
 
+// The build compiles this file as two translation units at once and links
+// them into one library (kernels.PARTS), since one nvcc of all 24
+// instances took a fifth of chip_smoke.py's run: K1_PART 1 holds the
+// shared-plane instances (kSmemScores) and the C entry, K1_PART 2 the
+// device-plane instances, which part 1 reaches through
+// spatten_fused_decode_device_plane.  K1_PART 0 (the default) is the
+// whole file in one unit, as tools/k1_passes.py builds its variants.
+#ifndef K1_PART
+#define K1_PART 0
+#endif
+
+// the device-plane launch of part 2, which part 1 calls: `params` is a
+// Params (the same definition in both units); declared in every part, so
+// that launch<G, D> parses where its branch to it is discarded
+extern "C" int spatten_fused_decode_device_plane(const void* params, int B,
+                                                 int G, int D, int rows,
+                                                 void* stream);
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -1743,8 +1761,17 @@ cudaError_t launch(const Params& p, int B, int rows, cudaStream_t stream) {
   const bool in_smem = p.splane == nullptr;
   const size_t smem = smem_bytes(G, D, p.C, p.v_block, in_smem, rows,
                                  p.bplane == nullptr);
-  void (*kernel)(Params) = in_smem ? fused_decode_kernel<G, D, true>
-                                   : fused_decode_kernel<G, D, false>;
+  void (*kernel)(Params) = nullptr;
+  if (in_smem) {
+    if constexpr (K1_PART != 2) kernel = fused_decode_kernel<G, D, true>;
+  } else {
+    if constexpr (K1_PART == 1)
+      return static_cast<cudaError_t>(spatten_fused_decode_device_plane(
+          &p, B, G, D, rows, stream));
+    else
+      kernel = fused_decode_kernel<G, D, false>;
+  }
+  if (kernel == nullptr) return cudaErrorInvalidDeviceFunction;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1872,6 +1899,20 @@ cudaError_t plan_ring(Params& p, int B, int D) {
 
 }  // namespace
 
+#if K1_PART == 2
+extern "C" int spatten_fused_decode_device_plane(const void* params, int B,
+                                                 int G, int D, int rows,
+                                                 void* stream) {
+  const Params& p = *static_cast<const Params*>(params);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return static_cast<int>(launch_g<64>(p, B, G, rows, s));
+    case 128: return static_cast<int>(launch_g<128>(p, B, G, rows, s));
+    case 256: return static_cast<int>(launch_g<256>(p, B, G, rows, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+#else
 // Returns cudaGetLastError() after the launch (0 = success); the wrapper
 // (spatten_tpu_torch/ops/fused_decode.py) validates shapes and flags.
 // The bulk copies and tensor maps need 16-byte-aligned plane bases and a
@@ -1933,3 +1974,4 @@ extern "C" int spatten_fused_decode(
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+#endif  // K1_PART == 2

@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from spatten_tpu_torch.device import resolve_device
 from spatten_tpu_torch.ops import quantize as qz
 
 
@@ -41,10 +42,11 @@ def init_layer_cache(batch: int, kv_heads: int, capacity: int,
                      head_dim: int, with_msb: bool = True,
                      with_lsb2: bool = False,
                      scale_dtype: torch.dtype = torch.float32,
-                     device: str | torch.device = "cpu") -> LayerKVCache:
+                     device: str | torch.device = "cuda") -> LayerKVCache:
     """One layer's empty cache (planes [B, C(/2,/4), Hkv*D], scales 1): K
     with the progressive-quantization planes, V with the int8 plane
-    alone (P·V reads full precision)."""
+    alone (P·V reads full precision); on ``device`` (default CUDA; the
+    CPU only when asked)."""
     return init_stacked_cache(1, batch, kv_heads, capacity, head_dim,
                               with_msb, with_lsb2, scale_dtype,
                               device).layer(0)
@@ -54,8 +56,10 @@ def init_stacked_cache(num_layers: int, batch: int, kv_heads: int,
                        capacity: int, head_dim: int, with_msb: bool = True,
                        with_lsb2: bool = False,
                        scale_dtype: torch.dtype = torch.float32,
-                       device: str | torch.device = "cpu") -> LayerKVCache:
-    """Layer-stacked cache with leading [L, B]; scales start at 1."""
+                       device: str | torch.device = "cuda") -> LayerKVCache:
+    """Layer-stacked cache with leading [L, B]; scales start at 1; on
+    ``device`` (default CUDA; the CPU only when asked)."""
+    device = resolve_device(device)
     f = kv_heads * head_dim
     lead = (num_layers, batch)
 

@@ -207,7 +207,8 @@ def check_k1(kernel, plain, *, layer: int, lengths, threshold: float,
               "plain dead head rows are not zero")
     return dict(max_abs_err=float(err[ok].max()), fired=int(
         st_k.need_requant.sum()), near_threshold=int(near_t.sum()),
-        near_rows=int(row_near.sum()), dead_groups=dead_groups)
+        near_rows=int(row_near.sum()), dead_groups=dead_groups,
+        out_exact=int((out_k == out_p).sum()), out_total=out_k.numel())
 
 
 def random_state(cfg, batch: int, generator: torch.Generator,
@@ -277,6 +278,106 @@ def k1_pair(state, q, k_new, v_new, lengths, *, layer: int, threshold: float,
                                if flags.get("return_row_stats") else None),
                     append_mask=None if am is None else torch.as_tensor(am),
                     planes_before=state if am is not None else None)
+
+
+def _ordered_bits(x: torch.Tensor) -> torch.Tensor:
+    """f32 values as int64 keys that order as the values do, one apart
+    per representable step (units in the last place)."""
+    i = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def _agreement(got: torch.Tensor, want: torch.Tensor,
+               where: Optional[torch.Tensor] = None) -> dict:
+    """How many elements of ``got`` equal ``want`` bit for bit (within
+    ``where``), the largest distance in f32 ulps and the largest |diff|."""
+    if where is None:
+        where = torch.ones_like(got, dtype=torch.bool)
+    g, w = got[where].to(torch.float32), want[where].to(torch.float32)
+    ulp = (_ordered_bits(g) - _ordered_bits(w)).abs()
+    return dict(exact=int((g == w).sum()), total=int(g.numel()),
+                max_ulp=int(ulp.max()) if ulp.numel() else 0,
+                max_abs=float((g - w).abs().max()) if g.numel() else 0.0)
+
+
+def _kept_blocks(mass: torch.Tensor, kb: int) -> torch.Tensor:
+    from spatten_tpu_torch.ops.fused_decode import _kth_largest
+    return (mass >= _kth_largest(mass, kb)) & (mass > 0.0)
+
+
+def k1_stages(state, q, k_new, v_new, lengths, *, layer: int,
+              threshold: float, v_block: int, keep_blocks: int,
+              **flags) -> dict:
+    """K1 and its plain version, stage by stage, bit for bit, from clones
+    of ``state`` on the same inputs under ``flags`` (each stage read from
+    the kernel's own outputs, by calling it again with other output
+    flags):
+
+    - ``scores``: the masked scaled scores (per-row presoftmax delta mode);
+    - ``m``, ``den``: each row's softmax max and denominator (row stats);
+    - ``probs``: the normalized probabilities per row (per-row prob delta
+      mode), ``max_prob``, ``importance`` (the accumulator after the
+      call, its live columns) and ``out``: exact / total elements, the
+      largest ulp distance and |diff|;
+    - ``keep`` (on the card): V blocks the kernel keeps against those the
+      plain version's masses keep, flips / total."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    b, hq = q.shape[:2]
+    rung = flags.get("cap_override") or state.capacity
+    nvb = rung // v_block
+    live = (torch.arange(rung, device=q.device)[None, None, :]
+            < lengths[:, None, None]).expand(b, hq, rung)
+    kw = dict(requant_threshold=threshold, layer=layer, v_block_size=v_block,
+              **flags)
+
+    def run(fn, keep=None, accumulate=False, **extra):
+        st = state.clone()
+        res = fn(q, st.cache.k, st.cache.v, k_new, v_new, lengths,
+                 importance_in=st.importance if accumulate else None,
+                 **dict(kw, **extra), **({} if keep is None
+                                         else dict(keep_out=keep)))
+        return res, st
+
+    def side(fn, keep=None):
+        (out, stats, _, _, (m, den)), st = run(
+            fn, keep=keep, accumulate=True, return_row_stats=True)
+        probs, scores = (run(fn, per_row_importance=True, **extra)[0][1]
+                         .importance_delta for extra in
+                         ({}, dict(importance_kind="presoftmax")))
+        return dict(out=out, max_prob=stats.max_prob, m=m, den=den,
+                    probs=probs, scores=scores,
+                    importance=st.importance[layer][..., :rung])
+
+    def plain_keep(p):
+        """The V blocks the plain version keeps: its masses of the
+        (bf16-rounded) numerators exp(s - m), by the kernel's rule."""
+        e = torch.where(live, torch.exp(p["scores"] - p["m"][..., None]),
+                        0.0)
+        if flags.get("probs_bf16"):
+            e = e.to(torch.bfloat16).to(torch.float32)
+        mass = fd._ordered_sum(e.reshape(b, hq, nvb, v_block), -1)
+        return _kept_blocks(mass, keep_blocks)
+
+    # the kernel's keep masks exist only on the card (on the CPU the
+    # wrapper runs the plain version, and the stage is left out)
+    keep_k = (torch.zeros((b, hq, nvb), dtype=torch.uint8, device=q.device)
+              if q.is_cuda and keep_blocks else None)
+    kernel = side(fd.fused_decode_attention, keep_k)
+    if q.is_cuda:
+        torch.cuda.synchronize()
+    imp_live = (torch.arange(rung, device=q.device)[None, None, :]
+                < lengths[:, None, None]).expand_as(kernel["importance"])
+    where = dict(scores=live, probs=live, importance=imp_live)
+
+    plain = side(fd.fused_decode_attention_plain)
+    rep = {k: _agreement(kernel[k], plain[k], where.get(k))
+           for k in ("scores", "m", "den", "probs", "max_prob",
+                     "importance", "out")}
+    if keep_k is not None:
+        got, want = keep_k.bool(), plain_keep(plain)
+        rep["keep"] = dict(flips=int((got != want).sum()),
+                           total=int(got.numel()))
+    return rep
 
 
 def split_threshold(max_prob: torch.Tensor) -> float:

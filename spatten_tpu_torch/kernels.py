@@ -4,8 +4,9 @@ Each ``csrc/<source>.cu`` exposes plain C functions and compiles on its
 own with ``nvcc`` for ``sm_90a`` into ``build/cuda/lib<source>.so`` at the
 repo root (listed in ``.gitignore``), the first time one of its kernels
 is needed or when the source is newer than the library.  ``build_all``
-starts one ``nvcc`` per source at once, so a fresh checkout builds in the
-time of the slowest file.  Several processes may reach first use at
+starts one ``nvcc`` per source at once (K1's source as two translation
+units, ``PARTS``, linked after), so a fresh checkout builds in the time
+of the slowest unit.  Several processes may reach first use at
 once (the ranks of a mesh): a build holds a file lock in the build
 directory, each library is written under a temporary name and renamed
 into place, and a process that waited on the lock finds the library
@@ -49,6 +50,12 @@ SIGNATURES = {
     "probe_empty": ("launch_probe", "spatten_probe_empty", [_P]),
 }
 SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
+# sources built as several translation units at once (one nvcc each, with
+# its -D flag) and linked into their one library: K1's shared-plane and
+# device-plane instances (csrc/fused_decode.cu, K1_PART)
+PARTS = {"fused_decode": ("-DK1_PART=1", "-DK1_PART=2")}
+_NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -101,18 +108,37 @@ def build_all(names=None, force: bool = False) -> tuple[float, dict]:
         for n in todo:
             tmp = library_path(n).with_name(
                 f"lib{n}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                   "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                   "-o", str(tmp), str(CSRC / f"{n}.cu")]
-            procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                              stderr=subprocess.STDOUT,
-                                              text=True))
+            src = str(CSRC / f"{n}.cu")
+            if n in PARTS:
+                # one object per part, all compiled at once, then linked
+                jobs = [(tmp.with_suffix(f".{i}.o"),
+                         [*_NVCC_FLAGS, flag, "-c", "-o",
+                          str(tmp.with_suffix(f".{i}.o")), src])
+                        for i, flag in enumerate(PARTS[n])]
+            else:
+                jobs = [(tmp, [*_NVCC_FLAGS, "-shared", "-o", str(tmp), src])]
+            procs[n] = (tmp, [(out, subprocess.Popen(
+                [_nvcc(), *cmd], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)) for out, cmd in jobs])
         reports, failed = {}, []
-        for n, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            reports[n] = out
-            if proc.returncode != 0:
-                failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+        for n, (tmp, jobs) in procs.items():
+            outs = [(out, *proc.communicate(), proc.returncode)
+                    for out, proc in jobs]
+            reports[n] = "".join(text for _, text, _, _ in outs)
+            bad = [(text, rc) for _, text, _, rc in outs if rc != 0]
+            if not bad and n in PARTS:
+                link = subprocess.run(
+                    [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                     *(str(out) for out, _, _, _ in outs)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                if link.returncode != 0:
+                    bad.append((link.stdout, link.returncode))
+            if n in PARTS:
+                for out, _, _, _ in outs:
+                    out.unlink(missing_ok=True)
+            if bad:
+                failed += [f"{n}.cu (exit {rc}):\n{text}" for text, rc in bad]
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, library_path(n))

@@ -58,6 +58,7 @@ _BARRIER = 8                # one mbarrier each
 _GROUPS = (1, 2, 4, 8)      # the CUDA kernel's <G, D> instance groups
 _HEAD_DIMS = (64, 128, 256)  # the CUDA kernel's instance head dims
 _META_DTYPES = (torch.float32, torch.bfloat16)
+_SUM_COLS = 8               # columns a thread adds at a time (softmax_rows)
 
 
 def _layer_views(k_quant, v_quant, importance_in, layer):
@@ -127,6 +128,40 @@ def _kth_largest(x: torch.Tensor, k: int) -> torch.Tensor:
     return srt[..., i:i + 1]
 
 
+def _ordered_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` summed along ``dim`` one element at a time in index order,
+    from 0.0: the order of K1's V-block masses (a block's tokens) and of
+    its importance delta (a group's query rows)."""
+    acc = torch.zeros_like(x.select(dim, 0))
+    for i in range(x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., n], n a power of two, summed as a warp's xor-shuffle
+    butterfly sums it: the upper half added to the lower until one value
+    is left (every lane ends with lane 0's bits, since a + b == b + a)."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _k1_row_sum(e: torch.Tensor) -> torch.Tensor:
+    """e [..., C] summed over its last axis as K1's ``softmax_rows`` sums a
+    softmax denominator, so that both sides divide by the same bits:
+    thread x of the CTA's 256 adds columns 8x + 2048k + j (k, then j,
+    ascending) from 0.0, each warp reduces its 32 threads' sums by the
+    butterfly, and the 8 warps' sums meet in one more (lanes past 8 add
+    0.0).  Columns past a row's length hold 0.0, which adds nothing."""
+    span = _THREADS * _SUM_COLS
+    x = torch.nn.functional.pad(e, (0, -e.shape[-1] % span))
+    x = x.reshape(*e.shape[:-1], -1, _THREADS, _SUM_COLS)
+    part = _ordered_sum(x.transpose(-2, -1).flatten(-3, -2), -2)
+    return _tree_sum(_tree_sum(part.reshape(*e.shape[:-1], _WARPS, 32)))
+
+
 def fused_decode_attention_plain(
     q, k_quant, v_quant, k_new, v_new, lengths, *, sm_scale=1.0,
     requant_threshold=0.0, quant_enabled=True, v_keep=0, v_block_size=16,
@@ -140,7 +175,17 @@ def fused_decode_attention_plain(
     contract).  Returns (out, stats, k_quant, v_quant), and ``(m, den)``
     after them under ``return_row_stats``; ``stats.probs`` carries the
     normalized probabilities the kernel ranks and weights with,
-    head-masked, [B, Hq, 1, rung]."""
+    head-masked, [B, Hq, 1, rung].
+
+    Its float sums run in the CUDA kernel's order (the softmax
+    denominator, ``_k1_row_sum``; the V-block masses and the importance
+    delta, ``_ordered_sum``) and its score constants in f32 as the kernel
+    forms them: with int8 queries and integer P·V the kernel's result
+    equals this one bit for bit (a last-bit difference in a denominator
+    would move an 8-bit P·V weight near .5 by a whole step, or flip a
+    V-block near-tie, and such differences add up over a deep model's
+    layers).  Its f32 dot products and f32 P·V sums still run in torch's
+    order."""
     kq, vq, imp = _layer_views(k_quant, v_quant, importance_in, layer)
     cap = _rung(kq.tokens, cap_override, v_block_size)
     kq, vq = _prefix(kq, cap), _prefix(vq, cap)
@@ -203,10 +248,14 @@ def fused_decode_attention_plain(
             raw, mult, mid = raw_scores(nib * 4.0 + l2), 4.0, qz.MIDPOINT6
         else:
             raw, mult, mid = raw_scores(nib), 16.0, qz.MSB_MIDPOINT
-    x = raw * (rowscale * (mult * sm_scale))
+    # the row constants in f32, as the kernel forms them (the midpoint
+    # offset rounded once in f32, not once in double and again in f32)
+    sm = torch.tensor(sm_scale, dtype=f32, device=dev)
+    x = raw * (rowscale * (mult * sm))
     if quant_enabled:
-        x = x + (rowscale * qsum) * ((mid - 128.0 if bits < 8 else 0.0)
-                                     * sm_scale)
+        x = x + (rowscale * qsum) * (
+            torch.tensor(mid - 128.0 if bits < 8 else 0.0, dtype=f32,
+                         device=dev) * sm)
     ksc = rows(kq.scale.to(f32))                               # [B, Hq, C]
     vsc = rows(vq.scale.to(f32))
     cols = torch.arange(cap, device=dev)
@@ -219,7 +268,7 @@ def fused_decode_attention_plain(
         s = torch.where(live, s * ksc, MASK_VALUE)
         m = s.amax(-1, keepdim=True)
         e = torch.where(live, torch.exp(s - m), 0.0)
-        return s, m, e, e.sum(-1, keepdim=True)
+        return s, m, e, _k1_row_sum(e)[..., None]
 
     s, m, e, den = softmax(x)
     col_idx = torch.clamp(idx, min=0).reshape(b, 1, 1).expand(b, hq, 1)
@@ -243,7 +292,7 @@ def fused_decode_attention_plain(
     if quant_enabled and requant_threshold > 0.0 and bits < 8:
         need = alive & (mp < requant_threshold)
     if bool(need.any()):
-        x2 = raw_scores(full8) * (rowscale * sm_scale)
+        x2 = raw_scores(full8) * (rowscale * sm)
         s2, m2, e2, den2 = softmax(x2)
         fire = rows(need)[..., None]
         s, m, e, den = (torch.where(fire, a, c) for a, c in
@@ -259,7 +308,8 @@ def fused_decode_attention_plain(
     kb = _v_keep_blocks(v_keep, v_block_size, cap, layer)
     nvb = cap // v_block_size
     if kb:
-        mass = e_st.reshape(b, hq, nvb, v_block_size).sum(-1) * hmf
+        mass = _ordered_sum(e_st.reshape(b, hq, nvb, v_block_size),
+                            -1) * hmf
         keep = (mass >= _kth_largest(mass, kb)) & (mass > 0.0)
         keep_cols = keep.repeat_interleave(v_block_size, dim=-1)
         kept_new = at_col(keep_cols).to(f32)
@@ -300,7 +350,7 @@ def fused_decode_attention_plain(
     if per_row_importance and imp is None and group > 1:
         delta = dsrc                                           # [B, Hq, C]
     else:
-        delta = dsrc.reshape(b, hkv, group, cap).sum(2)        # [B, Hkv, C]
+        delta = _ordered_sum(dsrc.reshape(b, hkv, group, cap), 2)
     if not track_importance:
         delta = torch.zeros_like(delta)
     elif imp is not None:

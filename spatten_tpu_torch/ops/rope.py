@@ -10,11 +10,15 @@ from __future__ import annotations
 
 import torch
 
+from spatten_tpu_torch.device import resolve_device
+
 
 def rope_table(max_positions: int, head_dim: int, theta: float = 10000.0,
-               device: str | torch.device = "cpu"
+               device: str | torch.device = "cuda"
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) tables of shape [max_positions, head_dim], f32."""
+    """(cos, sin) tables of shape [max_positions, head_dim], f32, on
+    ``device`` (default CUDA; the CPU only when asked)."""
+    device = resolve_device(device)
     inv_freq = 1.0 / (theta ** (
         torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
         / head_dim))

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from spatten_tpu_torch.config import PruningConfig
+from spatten_tpu_torch.device import resolve_device
 
 _NEG_INF = float("-inf")
 
@@ -88,10 +89,11 @@ def layer_budgets_static(cfg: PruningConfig, num_layers: int
 
 
 def layer_budgets(cfg: PruningConfig, num_layers: int,
-                  device: str | torch.device = "cpu") -> torch.Tensor:
-    """Per-layer important-region budgets as an int32 tensor [L]."""
+                  device: str | torch.device = "cuda") -> torch.Tensor:
+    """Per-layer important-region budgets as an int32 tensor [L] on
+    ``device`` (default CUDA; the CPU only when asked)."""
     return torch.tensor(layer_budgets_static(cfg, num_layers),
-                        dtype=torch.int32, device=device)
+                        dtype=torch.int32, device=resolve_device(device))
 
 
 def layer_keep_max_static(cfg: PruningConfig, num_layers: int

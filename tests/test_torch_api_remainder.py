@@ -76,7 +76,7 @@ def test_init_layer_cache(msb, lsb2, dtype):
     j = jkv.init_layer_cache(2, 3, 64, 16, with_msb=msb, with_lsb2=lsb2,
                              scale_dtype=jnp.dtype(dtype))
     t = tkv.init_layer_cache(2, 3, 64, 16, with_msb=msb, with_lsb2=lsb2,
-                             scale_dtype=getattr(torch, dtype))
+                             scale_dtype=getattr(torch, dtype), device="cpu")
     assert t.capacity == j.capacity == 64
     assert_qkv_equal(t.k, j.k)
     assert_qkv_equal(t.v, j.v)

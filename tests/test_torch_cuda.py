@@ -886,3 +886,51 @@ def test_one_rank_nccl_sharded_engine_matches_generate(dev):
     ref = gen.generate(on_card, cfg, prompt.to(dev), steps, device=dev)
     assert not ref.pruned_layers
     assert torch.equal(got, ref.tokens.cpu())
+
+
+@pytest.mark.parametrize("rung", list(chip_smoke.ROUNDING_CASES))
+def test_k1_70b_shard_stages_bit_equal_plain(dev, rung):
+    """One layer at Llama-2-70B's TP-4 shard instance (16 query heads over
+    2 kv heads of 128, <8, 128, false>, batch 4) under the serving flags:
+    scores, row max and denominator, probabilities, max prob, V-block keep
+    masks, importance and out equal the plain version's bit for bit,
+    since the plain version sums in the kernel's order."""
+    cfg = chip_smoke.k1_shape_config(chip_smoke.serving_config(2), hq=16,
+                                     hkv=2, d=128, cap=4096)
+    gen_ = torch.Generator(device=dev).manual_seed(rung)
+    lengths = chip_smoke.ROUNDING_CASES[rung]
+    st, q, kn, vn = chip_smoke.k1_inputs(cfg, dev, gen_, len(lengths))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = chip_smoke.k1_flags(cfg, 0, rung)
+    vb = cfg.pruning.v_block_size
+    rep = kc.k1_stages(st, q, kn, vn, lens, layer=0, threshold=0.0,
+                       v_block=vb, keep_blocks=fd._v_keep_blocks(
+                           kw["v_keep"], vb, rung, 0), **kw)
+    for name in ("scores", "m", "den", "probs", "max_prob", "importance",
+                 "out"):
+        assert rep[name]["exact"] == rep[name]["total"] > 0, (name, rep)
+    assert rep["keep"]["flips"] == 0
+
+
+def test_ppl_curve_at_gpt2s_widths_on_the_card(dev):
+    """The perplexity tool at GPT-2 small's widths cut to 2 layers on a
+    tiny corpus: a few training steps, then the rows evaluated through
+    the kernels (K1 at a one-token chunk: 2 x 511 launches), finite."""
+    from spatten_tpu_torch.tools import ppl_curve as pc
+    sc = pc.SCALES["gpt2s"]
+    sc = dataclasses.replace(sc, model=dataclasses.replace(sc.model,
+                                                          num_layers=2))
+    rng = np.random.default_rng(0)
+    text = " ".join(rng.choice(["the", "row", "of", "a", "cache", "keeps",
+                                "its", "scale"], 20000))
+    corpus = pc.Corpus(np.frombuffer(text.encode(), dtype=np.uint8))
+    params = pc.train(5, sc, corpus, dev, log=lambda s: None)
+    text_ids, _ = pc.eval_texts(sc, corpus)
+    base = dict(pc.configs(sc))["spatten keep~0.50 (4b+requant+vprune)"]
+    cfg = dataclasses.replace(base, engine=dataclasses.replace(
+        base.engine, prefill_chunk=1))
+    fd.fused_decode_attention.launches = 0
+    from spatten_tpu_torch.eval import evaluate_perplexity
+    r = evaluate_perplexity(params, cfg, text_ids, device=dev)
+    assert math.isfinite(r.perplexity) and r.num_tokens == 511
+    assert fd.fused_decode_attention.launches == 2 * 511

@@ -146,23 +146,26 @@ ONE_CARD_PHASES = [
     "phase_k1_flags", "phase_k1_groups", "phase_k1_head_dims",
     "phase_k1_capacity", "phase_k1_device_scores", "phase_k1_wide_groups",
     "phase_k1_long_windows", "phase_k1_wide_head_dims",
-    "phase_k1_shard_shapes", "phase_k2", "phase_k2", "phase_split_k",
+    "phase_k1_shard_shapes", "phase_k1_rounding", "phase_k2", "phase_k2",
+    "phase_split_k",
     "phase_launch_probe", "small_reference_check", "phase_gate",
     "server_small_check", "mesh_small_check",
     "run_path:first slice (depth 8)", "run_path:serving",
     "run_path:dense (depth 8)", "run_path:profile 4,4,6,6,8 (depth 8)",
     "run_path:parity (depth 8)", "run_path:Llama-3.2-3B",
-    "run_path:OpenLLaMA-3B", "phase_server", "phase_trace",
-    "phase_supervised", "phase_cli", "phase_debug_hook", "phase_sharded",
+    "run_path:OpenLLaMA-3B", "phase_70b_depth", "phase_server",
+    "phase_trace", "phase_replay", "phase_supervised", "phase_cli",
+    "phase_debug_hook", "phase_ppl", "phase_hbm", "phase_sharded",
     "phase_sharded_70b", "phase_pipeline"]
 
 
 def test_one_card_run_keeps_its_phases():
-    """``main`` (no ``--cards``) times the same phases in the same order,
-    each on one card as before (no backend or device list passed)."""
+    """``main`` (no ``--cards``, through ``run_one_card``) times the same
+    phases in the same order, each on one card as before (no backend or
+    device list passed)."""
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     main = next(n for n in tree.body
-                if isinstance(n, ast.FunctionDef) and n.name == "main")
+                if isinstance(n, ast.FunctionDef) and n.name == "run_one_card")
     phases = []
     for node in ast.walk(main):
         if (isinstance(node, ast.Call) and getattr(node.func, "id", None)

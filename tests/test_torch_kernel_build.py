@@ -80,3 +80,22 @@ def test_failed_build_raises_and_leaves_no_library(fake_build):
         kernels.build_all(["broken"])
     assert not (build / "libbroken.so").exists()
     assert not list(build.glob("*.tmp.so"))
+
+
+def test_parts_compile_at_once_and_link(fake_build, monkeypatch):
+    """A source in ``PARTS`` compiles as one object per part, each with its
+    flag, then links into its one library; the objects are removed.  A
+    part that fails fails the build."""
+    build, log = fake_build
+    monkeypatch.setattr(kernels, "PARTS", {"demo": ("-DPART=1", "-DPART=2"),
+                                           "broken": ("-DPART=1",)})
+    kernels.build_all(["demo"])
+    lines = log.read_text().split()
+    assert lines.count(str(kernels.CSRC / "demo.cu")) == 2
+    assert lines[-1].endswith(".1.o")                # the link, last
+    assert (build / "libdemo.so").read_text() == "library"
+    assert not list(build.glob("*.o")) and not list(build.glob("*.tmp.so"))
+    with pytest.raises(RuntimeError, match="broken source"):
+        kernels.build_all(["broken"])
+    assert not (build / "libbroken.so").exists()
+    assert not list(build.glob("*.o"))

@@ -47,7 +47,7 @@ def normal(shape, seed):
 
 
 def test_rope_table_and_apply():
-    tc, ts = trope.rope_table(64, 16)
+    tc, ts = trope.rope_table(64, 16, device="cpu")
     jc, js = jrope.rope_table(64, 16)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=2e-6)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=2e-6)
@@ -120,7 +120,7 @@ def test_reference_attention(kw):
     jk, jv = jqz.quantize(jnp.asarray(k)), jqz.quantize(jnp.asarray(v))
     tk, tv = tqz.quantize(T(k)), tqz.quantize(T(v))
     jc, js = jrope.rope_table(64, 16)
-    tc, ts = trope.rope_table(64, 16)
+    tc, ts = trope.rope_table(64, 16, device="cpu")
     tkw = dict(kw)
     if "head_mask" in kw:
         tkw["head_mask"] = T(kw["head_mask"])

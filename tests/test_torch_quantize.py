@@ -98,7 +98,7 @@ def test_append_tokens_exact(s):
     kn = rand((b, hkv, s, d), seed=6)
     vn = rand((b, hkv, s, d), seed=7)
     jc = jkv.init_layer_cache(b, hkv, cap, d)
-    tc = tkv.init_stacked_cache(1, b, hkv, cap, d).layer(0)
+    tc = tkv.init_stacked_cache(1, b, hkv, cap, d, device="cpu").layer(0)
     jc = jkv.append_tokens(jc, jnp.asarray(kn), jnp.asarray(vn),
                            jnp.asarray(lengths))
     tkv.append_tokens(tc, torch.from_numpy(kn), torch.from_numpy(vn),
