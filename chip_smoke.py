@@ -34,7 +34,11 @@ Phases, none of whose failures is caught:
    as boxes of 256 bytes side by side (``phase_k1_wide_head_dims``: 288,
    384, 512 and 1024 at capacity 4096, batch 4) and at the shard shapes
    of the mesh phases (``phase_k1_shard_shapes``: Llama-2-7B's TP-4 shard
-   in <1, 128>, Llama-2-70B's TP-8 shard in <8, 128> on 4 CTAs);
+   in <1, 128>, Llama-2-70B's TP-8 shard in <8, 128> on 4 CTAs); K1's
+   ``_skip_append`` at the serving shapes (``phase_k1_skip_append``: every
+   stage bit-equal to its plain version, no plane byte written, the
+   scales and outputs of the appending step, timed with and without the
+   append);
    rules and tolerances in ``spatten_tpu_torch/kernel_checks.py``.  K1's times (``time_k1``)
    are device times per call from CUDA events over back-to-back calls
    that walk the stacked layers, so each call finds its planes cold in
@@ -104,6 +108,18 @@ Phases, none of whose failures is caught:
    j. ``phase_debug_hook``: ``generate`` under ``SPATTEN_DEBUG=1`` (the
       first prefill chunk under the float checks; launches counted)
       equal to the run without it;
+   the accuracy path (``phase_ppl``), ``phase_hbm``, then the bench:
+   ``phase_bench``: ``spatten_tpu_torch.tools.bench.run_point`` at its
+   third point (Llama-2-7B's TP-8 shard, 8 layers, capacity 4096, batch
+   16, int8 weights), 16 steps, one timed window, no extras: K1 launches
+   = layers x steps x 2 in each engine's windows, K2's in
+   ``measure_prune`` = its layer compactions, a requant rate in (0, 1),
+   the spatten engine's first window against the plain versions, the
+   point's JSON on a line of its own; ``phase_bench_tools``: one short
+   run of each bench tool (``profile_fused``, ``bisect_bench``,
+   ``vprune_sweep``, ``prefill_diag``, ``profile_decode`` with its
+   profiler trace and its K1 ladder, ``microbench`` bw and floor) at 4096
+   x 16, 8 steps a window, each decode tool launching K1;
    the multi-card slice, each rank a process on cuda:0 under gloo (NCCL
    refuses two ranks of one communicator on one card; the collectives go
    through the host, so these times say nothing of NVLink), each rank's
@@ -121,9 +137,9 @@ Phases, none of whose failures is caught:
    before the paths, ``mesh_small_check``: an f32 DP 2 x TP 2 run at
    small width whose tokens equal the same ranks' run on the CPU and
    whose decode steps each match their CPU replay within 1e-3;
-   k. ``phase_sharded``: ``ShardedEngine`` on ``serving_config()`` at
-      Llama-2-7B width and depth, mesh data 2 x model 4 (8 ranks, each
-      [32, 4, 4096, 1024] planes in K1's <1, 128>), batch 8, prompt 3072,
+   k. ``phase_sharded``: ``ShardedEngine`` on ``serving_config(16)`` at
+      Llama-2-7B width, depth 16, mesh data 2 x model 4 (8 ranks, each
+      [16, 4, 4096, 1024] planes in K1's <1, 128>), batch 8, prompt 3072,
       32 new tokens;
    l. ``phase_sharded_70b``: Llama-2-70B's widths, depth 8, mesh 1 x 8
       (each rank one kv head of group 8: K1's <8, 128> on 4 CTAs), batch
@@ -1739,6 +1755,91 @@ def phase_k1_rounding(dev) -> dict:
     return out
 
 
+SKIP_APPEND_CASES = {2048: [2048, 1900, 1601, 1200, 977, 800, 729, 33],
+                     4096: [4096, 3200, 3100, 2665, 2800, 2049, 1000, 1]}
+
+
+def phase_k1_skip_append(dev) -> dict:
+    """K1's ``_skip_append`` at the serving shapes (Llama-2-7B's 32 kv
+    heads of 128 in ``<1, 128>``, batch 8, the serving flags; one layer
+    at each rung): every stage bit-equal to its plain version
+    (``kernel_checks.k1_stages``, whose V-block keep stage reads every
+    row, so without a head mask); then under a 24-of-32 head mask no byte
+    of the int8 or nibble planes written (each byte-identical before and
+    after a call), the scales, importance and output as the appending
+    step gives them; K1's time with and without the append."""
+    from spatten_tpu_torch import kernel_checks as kc
+    from spatten_tpu_torch.ops import fused_decode as fd
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    cfg = serving_config(2)
+    vb = cfg.pruning.v_block_size
+    hm = serving_head_mask(cfg, gen, dev)
+    out, lines = {}, []
+    for rung, lengths in SKIP_APPEND_CASES.items():
+        st, q, kn, vn = k1_inputs(cfg, dev, gen, len(lengths))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        flags = k1_flags(cfg, 0, rung)
+        probe = st.clone()
+        mp = fd.fused_decode_attention_plain(
+            q, probe.cache.k, probe.cache.v, kn, vn, lens, layer=0,
+            v_block_size=vb, importance_in=probe.importance,
+            **flags)[1].max_prob
+        del probe
+        thr = kc.split_threshold(mp)
+        rep = kc.k1_stages(st, q, kn, vn, lens, layer=0, threshold=thr,
+                           v_block=vb, keep_blocks=fd._v_keep_blocks(
+                               flags["v_keep"], vb, rung, 0),
+                           _skip_append=True, **flags)
+        inexact = [k for k, v in rep.items()
+                   if (v["flips"] if "flips" in v
+                       else v["exact"] != v["total"])]
+        check(not inexact, f"K1 _skip_append vs plain at rung {rung}: "
+              f"stages {inexact} are not bit-equal")
+
+        def call(state, skip, layer=0):
+            return fd.fused_decode_attention(
+                q, state.cache.k, state.cache.v, kn, vn, lens,
+                requant_threshold=thr, importance_in=state.importance,
+                layer=layer, v_block_size=vb, head_mask=hm,
+                _skip_append=skip, **flags)
+
+        skipped, appended = st.clone(), st.clone()
+        res_s, res_a = call(skipped, True), call(appended, False)
+        torch.cuda.synchronize()
+        for name in ("full", "msb"):
+            check(torch.equal(getattr(skipped.cache.k, name),
+                              getattr(st.cache.k, name)),
+                  f"K1 _skip_append wrote the K {name} plane")
+        check(torch.equal(skipped.cache.v.full, st.cache.v.full),
+              "K1 _skip_append wrote the V plane")
+        for kv in ("k", "v"):
+            check(torch.equal(getattr(skipped.cache, kv).scale,
+                              getattr(appended.cache, kv).scale),
+                  f"K1 _skip_append's {kv} scales differ from the "
+                  "appending step's")
+        check(torch.equal(res_s[0], res_a[0])
+              and torch.equal(skipped.importance, appended.importance),
+              "K1 _skip_append's outputs differ from the appending step's")
+        del skipped, appended, res_s, res_a
+        ms_app = device_ms(lambda i: call(st, False, i % 2), 16)
+        ms_skip = device_ms(lambda i: call(st, True, i % 2), 16)
+        out[rung] = dict(ms=ms_skip, ms_append=ms_app, stages={
+            k: f"{v['exact']}/{v['total']}" for k, v in rep.items()
+            if "exact" in v})
+        lines.append(f"rung {rung}: every stage bit-equal ("
+                     + "; ".join(f"{k} {v}" for k, v in
+                                 out[rung]["stages"].items())
+                     + f"); head-masked: planes untouched, scales, "
+                     f"importance and output as appended; K1 "
+                     f"{ms_app:.4f} ms with the append, {ms_skip:.4f} ms "
+                     "with _skip_append")
+        del st
+        free()
+    log("K1 _skip_append vs plain, serving shapes [2, 8, 4096, 4096], "
+        "<1, 128>:\n  " + "\n  ".join(lines))
+    return out
+
+
 # K1 at stored capacities and rungs off a multiple of 8, Llama-2-7B's
 # attention (32 kv heads of 128), batch 8: name -> (capacity, rung,
 # v_block, bf16 metadata, layer bits, lengths)
@@ -2090,6 +2191,198 @@ def phase_hbm(dev) -> dict:
     log("hbm_calibrate:\n  " + "\n  ".join(hbm_calibrate.lines(res)))
     free()
     return {r["name"]: r for r in res}
+
+
+# phase_bench: tools.bench's third point, short (the full bench: PERF.md)
+BENCH_POINT, BENCH_STEPS, BENCH_REPEATS = (4096, 16), 16, 1
+
+
+@contextlib.contextmanager
+def counted(into: dict, name: str, reset: bool = True):
+    """K1's and K2's launches over the block into ``into[name]`` (added to
+    what it holds): the counts set to 0 just before it (``reset``; a block
+    inside a counted one reads its own launches as a difference) and read
+    just after."""
+    from spatten_tpu_torch.ops.compact_gather import gather_compact_rows
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    if reset:
+        fused_decode_attention.launches = gather_compact_rows.launches = 0
+    start = fused_decode_attention.launches, gather_compact_rows.launches
+    yield
+    k1, k2 = into.get(name, (0, 0))
+    into[name] = (k1 + fused_decode_attention.launches - start[0],
+                  k2 + gather_compact_rows.launches - start[1])
+
+
+def bench_window_vs_plain(cfg, params, dev, steps: int) -> dict:
+    """The bench's first decode window (``tools.bench.time_decode``'s: the
+    warmed cache, the prune check and head-mask clock, ``steps`` greedy
+    steps) with the kernels, then again through the plain versions from
+    the same warmed state, fed the same tokens."""
+    from spatten_tpu_torch.engine import generate as gen
+    from spatten_tpu_torch.engine.state import init_state
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops import rope as rope_ops
+    from spatten_tpu_torch.tools import bench as tb
+    b = cfg.engine.max_batch_size
+    snap = tb.warm_cache_content(cfg, tb.warm_state(
+        cfg, init_state(cfg, batch=b, device=dev)))
+    tables = rope_ops.rope_table(cfg.engine.cache_capacity,
+                                 cfg.model.head_dim, cfg.model.rope_theta,
+                                 dev)
+
+    def window(state, fed=None):
+        state, _ = gen.maybe_prune(cfg, state, steps, static_layers=())
+        state = gen.maybe_update_head_mask(cfg, state, window=steps)
+        tok = torch.zeros((b,), dtype=torch.int32, device=dev)
+        toks, logits_all = [], []
+        for i in range(steps):
+            if fed is not None:
+                tok = fed[i]
+            logits, state, _ = tr.forward(params, cfg, state, tok[:, None],
+                                          rope_tables=tables)
+            toks.append(tok)
+            logits_all.append(logits[:, -1])
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        return toks, torch.stack(logits_all)
+
+    fed, lk = window(snap.clone())
+    with plain_versions():
+        _, lp = window(snap, fed)
+    check(bool(torch.isfinite(lk).all()), "bench window: non-finite logits")
+    mean_err = float((lk - lp).abs().mean())
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    exact = float((lk == lp).float().mean())
+    check(mean_err <= WINDOW_MEAN_TOL, f"bench window mean error {mean_err}")
+    check(agree >= WINDOW_ARGMAX_MIN, f"bench window argmax {agree}")
+    return dict(mean_err=mean_err, argmax=agree, exact=exact)
+
+
+def phase_bench(dev) -> dict:
+    """``tools.bench.run_point`` at its third point (4096 x 16), 16 steps,
+    one timed window, no extras, int8 weights from seed 0: K1 launches =
+    layers x steps x (1 + repeats) in each engine's ``time_decode``, K2's
+    in ``measure_prune`` = the layer compactions of the events it ran, a
+    requant rate in (0, 1); the spatten engine's first window against the
+    plain versions; the point's JSON on a line of its own."""
+    from spatten_tpu_torch.tools import bench as tb
+    counts, runs = {}, []
+    real_decode, real_prune = tb.time_decode, tb.measure_prune
+
+    def time_decode(cfg, *a, **kw):
+        name = "spatten" if cfg.quant.enabled else "dense"
+        with counted(counts, name, reset=False):
+            return real_decode(cfg, *a, **kw)
+
+    def measure_prune(cfg, params, *a, **kw):
+        runs.extend(tb.prune_runs(cfg))
+        with counted(counts, "prune", reset=False):
+            return real_prune(cfg, params, *a, **kw)
+
+    cache, batch = BENCH_POINT
+    params = tb.bench_params(dev)
+    tb.time_decode, tb.measure_prune = time_decode, measure_prune
+    try:
+        with counted(counts, "point"):
+            point = tb.run_point(cache, batch, BENCH_STEPS, params,
+                                 device=dev, repeats=BENCH_REPEATS)
+    finally:
+        tb.time_decode, tb.measure_prune = real_decode, real_prune
+    layers = tb.shard_model_cfg().num_layers
+    want = layers * BENCH_STEPS * (1 + BENCH_REPEATS)
+    for name in ("spatten", "dense"):
+        check(counts[name][0] == want, f"bench {name}: K1 launched "
+              f"{counts[name][0]} times, not {want}")
+    events = sum(len(layers_) * 2 * n for layers_, n in runs)
+    check(counts["prune"][1] == events and events > 0,
+          f"bench measure_prune: K2 launched {counts['prune'][1]} times for "
+          f"{events} layer compactions")
+    check(0.0 < point["requant_rate"] < 1.0,
+          f"bench requant rate {point['requant_rate']}")
+    check(all(x > 0 for x in (point["spatten_tok_s"],
+                              point["dense_int8_tok_s"],
+                              point["prune_ms_per_event"])),
+          "bench: a rate or time is not positive")
+    cfg_sp = tb.build_cfg(True, cache, batch)
+    cfg_sp = dataclasses.replace(cfg_sp, quant=dataclasses.replace(
+        cfg_sp.quant, requant_threshold=point["requant_threshold"]))
+    with counted(counts, "window check"):
+        win = bench_window_vs_plain(cfg_sp, params, dev, BENCH_STEPS)
+    del params
+    free()
+    log(json.dumps({"bench_point": point}))
+    log(f"bench {cache}x{batch}: K1 {counts['spatten'][0]} + "
+        f"{counts['dense'][0]} launches in the two engines' windows "
+        f"({want} each), K2 {counts['prune'][1]} in measure_prune "
+        f"({len(runs)} runs); first window vs plain: mean |logit diff| "
+        f"{win['mean_err']:.2e}, argmax {win['argmax']:.4f}, bit-equal "
+        f"{win['exact']:.4f}")
+    return dict(point=point, window=win, k1=counts["point"][0],
+                k2=counts["point"][1])
+
+
+def phase_bench_tools(dev) -> dict:
+    """One short run of each bench tool, in-process, at 4096 x 16 and 8
+    steps a window: ``profile_fused``, ``bisect_bench``, ``vprune_sweep``,
+    ``prefill_diag`` (prompt 1024), ``profile_decode`` (the spatten
+    ladder with its profiler trace, and the kernel ladder with
+    ``_skip_append``), ``microbench`` (bw at small sizes, floor); every
+    time finite and positive, and each tool but the prefill and bandwidth
+    ones launching K1."""
+    import os
+    from spatten_tpu_torch.tools import (
+        bisect_bench, microbench, prefill_diag, profile_decode,
+        profile_fused, vprune_sweep,
+    )
+    cache, batch = BENCH_POINT
+    env = {"SPATTEN_BENCH_CACHE": str(cache), "SPATTEN_BENCH_BATCH":
+           str(batch), "SPATTEN_BENCH_STEPS": "8", "CACHE": str(cache),
+           "BATCH": str(batch), "STEPS": "8", "SPATTEN_PROFILE_TRACE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    counts, out = {}, {}
+    args = [str(cache), str(batch)]
+    runs = {
+        "profile_fused": lambda: profile_fused.main(dev),
+        "bisect_bench": lambda: bisect_bench.main(dev),
+        "vprune_sweep": lambda: vprune_sweep.main(args, dev),
+        "prefill_diag": lambda: prefill_diag.main(["1024"] + args, dev),
+        "profile_decode spatten": lambda: profile_decode.main(
+            ["spatten"] + args, dev),
+        "profile_decode kernel-ladder": lambda: profile_decode.main(
+            ["kernel-ladder"] + args, dev),
+        "microbench bw": lambda: microbench.bench_bw(
+            dev, sizes=((16, 64), (1, 8)), dot_shape=(2, 4096, 8192, 16)),
+        "microbench floor": lambda: microbench.main(["floor"], dev),
+    }
+    try:
+        for name, fn in runs.items():
+            t0 = time.perf_counter()
+            with counted(counts, name):
+                res = fn()
+            out[name] = res
+            # the tools' times: a dict's values, a table's last column
+            vals = (list(res.values()) if isinstance(res, dict)
+                    else [row[-1] for row in res])
+            check(all(isinstance(v, float) and math.isfinite(v) and v > 0
+                      for v in vals), f"{name}: a time is not positive")
+            # prefill runs no K1 (its attention is torch code), and bw
+            # times torch ops
+            if name not in ("prefill_diag", "microbench bw"):
+                check(counts[name][0] > 0, f"{name}: K1 did not launch")
+            log(f"[tool {name}: {time.perf_counter() - t0:.1f} s, K1 "
+                f"{counts[name][0]} launches]")
+            free()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    trace_dir = profile_decode.TRACE_DIR
+    check(trace_dir.is_dir() and any(trace_dir.iterdir()),
+          "profile_decode wrote no profiler trace")
+    return dict(k1=sum(c[0] for c in counts.values()), counts=counts)
 
 
 PPL_STEPS = 300          # the phase's training steps (the tool's: 1200)
@@ -2911,10 +3204,11 @@ def profile_decode(name, params, cfg, state, tok, tables, step_s: float,
 # (``main_cards``) rank r runs on cuda:r under NCCL, its collectives and
 # hand-offs card to card.
 MESH_NEW_TOKENS, MESH_WINDOW = 32, 16
-# phase_sharded's depth (Llama-2-7B's 32 layers); the one-card pipeline
-# runs MESH_DEPTH of them and phase_sharded_70b 4 of 80 (the one-card
-# run's time limit; the four-card run's pipeline keeps 32)
-SHARDED_DEPTH, MESH_DEPTH = 32, 8
+# phase_sharded's depth (16 of Llama-2-7B's 32 layers, cut from 32 when
+# the one-card run reached 1,065 s); the one-card pipeline runs MESH_DEPTH
+# of them and phase_sharded_70b 4 of 80 (the one-card run's time limit;
+# the four-card run's pipeline keeps 32)
+SHARDED_DEPTH, MESH_DEPTH = 16, 8
 MESH_TIMEOUT = 420
 
 
@@ -3591,7 +3885,7 @@ def mesh_summary(members) -> dict:
 def phase_sharded(dev) -> dict:
     """``ShardedEngine`` on ``serving_config(SHARDED_DEPTH)`` (Llama-2-7B
     width, random bf16 weights from seed 0), mesh data 2 x model 4: 8
-    ranks, each [8, 4, 4096, 1024] planes in K1's <1, 128>; batch 8,
+    ranks, each [16, 4, 4096, 1024] planes in K1's <1, 128>; batch 8,
     prompt 3072, 32 new tokens; then its logits against the 1-rank run."""
     spec = dict(engine="sharded", config="serving", mesh=(2, 4),
                 config_args=(SHARDED_DEPTH,), batch=SERVING_BATCH,
@@ -3999,6 +4293,7 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
     k1_wide_dims = timed(phase_k1_wide_head_dims, dev)
     k1_shards = timed(phase_k1_shard_shapes, dev)
     k1_round = timed(phase_k1_rounding, dev)
+    k1_skip = timed(phase_k1_skip_append, dev)
     k2_pr1 = timed(phase_k2, dev, b=4, cap=1024, hkv=32, d=128,
                    keep_max=772, window=1024,
                    lengths=[1024, 1024, 900, 1000], triggered=[1, 0, 1, 1],
@@ -4074,6 +4369,8 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
     debug_hook = timed(phase_debug_hook, dev)
     ppl = timed(phase_ppl, dev, corpus_proc=corpus_proc)
     hbm = timed(phase_hbm, dev)
+    bench = timed(phase_bench, dev)
+    bench_tools = timed(phase_bench_tools, dev)
     sharded = timed(phase_sharded, dev)
     sharded_70b = timed(phase_sharded_70b, dev)
     pipeline = timed(phase_pipeline, dev, num_layers=MESH_DEPTH)
@@ -4098,7 +4395,9 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
                        "sharded 70B widths 1x8": sharded_70b["k1"],
                        "pipeline 4 stages (M=1, M=2)": pipeline["pp4"]["k1"],
                        "pipeline 2x2": pipeline["pp2_tp2"]["k1"],
-                       "sharded small f32 2x2": small_mesh["k1"]})
+                       "sharded small f32 2x2": small_mesh["k1"],
+                       "bench 4096x16": bench["k1"],
+                       "bench tools": bench_tools["k1"]})
     k2_by_path = {k: v["k2"] for k, v in paths.items()}
     k2_by_path.update({"server, small f32": small_server["k2"],
                        "supervised": supervised["k2"], "cli": cli["k2"],
@@ -4109,7 +4408,8 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
                        "sharded 70B widths 1x8": sharded_70b["k2"],
                        "pipeline 4 stages (M=1, M=2)": pipeline["pp4"]["k2"],
                        "pipeline 2x2": pipeline["pp2_tp2"]["k2"],
-                       "sharded small f32 2x2": small_mesh["k2"]})
+                       "sharded small f32 2x2": small_mesh["k2"],
+                       "bench 4096x16": bench["k2"]})
     k1_srv["max_abs_err"] = max(
         [k1_srv["max_abs_err"], k1_flags_res["max_abs_err"],
          k1_llama["max_abs_err"], k1_groups["max_abs_err"],
@@ -4137,6 +4437,9 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
              stages_exact={rung: {k: f"{v['exact']}/{v['total']}"
                                   for k, v in rep.items() if "exact" in v}
                            for rung, rep in k1_round.items()},
+             skip_append=k1_skip,
+             bench=dict(point=bench["point"], window=bench["window"],
+                        tools=bench_tools["counts"]),
              meshes={"sharded 2x4": sharded, "sharded 70B widths 1x8":
                      sharded_70b, "pipeline": pipeline}),
         dict(name="gather_compact_rows", route="cuda",

@@ -31,6 +31,17 @@
 // exp(m - m_g) * den is exactly 0); row stats (the per-row softmax max m and
 // denominator den, written for every row of a live or dead group).
 //
+// skip_append (perf triage, the Pallas kernel's _skip_append; a runtime
+// flag of the C entry, the stash pointer): the step returns what the
+// appending step returns and writes the new row's scales (the Pallas body
+// writes its scale windows back either way), but leaves every byte of the
+// int8, nibble and 2-bit planes as it found them.  K1's passes read the
+// appended row back from the planes, so the entry brackets the unchanged
+// K1 launch with stash_kernel: before it, the bytes each CTA's append will
+// overwrite go to a stash in device memory; after it, they go back.  The
+// flag prices nothing of the append on this card (the Pallas kernel's
+// skips its row DMAs).
+//
 // Serving flags: head_mask (a kv-head group with no live query row
 // appends, then exits: zero output, zero max prob, importance untouched);
 // f32 or bf16 scale and importance planes (read as f32, stored with
@@ -1733,6 +1744,52 @@ fused_decode_kernel(const __grid_constant__ Params p) {
   }
 }
 
+// skip_append: the bytes of K1 CTA (blockIdx.y, blockIdx.x)'s d lanes that
+// its append writes -- K int8 and V int8 at slot idx, K msb and V msb at
+// the token's packed row, K lsb2 at its 2-bit row -- copied into its slice
+// of `stash` ([B, Hkv, 5, stash_row] bytes) before K1 (put), or back into
+// the planes after it (take).  Warp 0 moves K's rows, warp 1 V's, a lane
+// every 32nd byte; a row that does not append (or holds no token) has
+// nothing to move.
+__global__ void stash_kernel(const __grid_constant__ Params p,
+                             uint8_t* stash, int stash_row, bool put) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y, len = p.lengths[b];
+  if (warp > 1 || len < 1 || len > p.C ||
+      (p.appmask != nullptr && p.appmask[b] == 0))
+    return;
+  const int idx = len - 1, d = p.d, u = p.pack_unit, r_u = idx % u;
+  const size_t F = p.F, lanes = static_cast<size_t>(h) * d;
+  const size_t full = (static_cast<size_t>(b) * p.Ct + idx) * F + lanes;
+  const size_t packed = (static_cast<size_t>(b) * (p.Ct / 2) +
+                         static_cast<size_t>(idx / u) * (u / 2) + r_u % (u / 2)) *
+                            F + lanes;
+  const size_t lsb2 = (static_cast<size_t>(b) * (p.Ct / 4) +
+                       static_cast<size_t>(idx / u) * (u / 4) + r_u % (u / 4)) *
+                          F + lanes;
+  uint8_t* rows[3] = {nullptr, nullptr, nullptr};
+  if (warp == 0) {
+    rows[0] = reinterpret_cast<uint8_t*>(p.kfull) + full;
+    if (p.kmsb) rows[1] = p.kmsb + packed;
+    if (p.klsb2) rows[2] = p.klsb2 + lsb2;
+  } else {
+    rows[0] = reinterpret_cast<uint8_t*>(p.vfull) + full;
+    if (p.vmsb) rows[1] = p.vmsb + packed;
+  }
+  uint8_t* st = stash + ((static_cast<size_t>(b) * p.Hkv + h) * 5 +
+                         (warp == 0 ? 0 : 3)) * stash_row;
+  for (int k = 0; k < 3; ++k) {
+    if (rows[k] == nullptr) continue;
+    for (int c = lane; c < d; c += 32) {
+      if (put) {
+        st[k * stash_row + c] = rows[k][c];
+      } else {
+        rows[k][c] = st[k * stash_row + c];
+      }
+    }
+  }
+}
+
 // Bytes of one CTA's per-V-block arrays over `rows` score rows: masses
 // (f32 [rows, nvb]), the kept-block list and its count (int [nvb + 1]),
 // the keep masks ([rows, nvb] bytes) and their union ([nvb] bytes).
@@ -1938,8 +1995,8 @@ extern "C" int spatten_fused_decode(
     int pack_unit, int layer,
     float sm_scale, float threshold, float ema, int quant, int requant,
     int keep_blocks, int v_block, int sc_bf16, int imp_bf16, int qq,
-    int pv_int8, int probs_bf16, int presoftmax, int per_row, uint8_t* bplane,
-    void* stream) {
+    int pv_int8, int probs_bf16, int presoftmax, int per_row, uint8_t* stash,
+    int stash_row, uint8_t* bplane, void* stream) {
   if (Ct % 2 || C % 2 || (klsb2 && pack_unit % 4) || (Hkv * d) % 16 || misaligned(kfull) ||
       misaligned(kmsb) || misaligned(klsb2) || misaligned(vfull) ||
       misaligned(vmsb) || misaligned(splane) || misaligned(bplane))
@@ -1964,14 +2021,23 @@ extern "C" int spatten_fused_decode(
       (bplane != nullptr && splane == nullptr) || d < 1 ||
       (d + lead > D && D != 256) || (D != 64 && D != 128 && D != 256))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = plan_ring(p, B, D);
+  cudaError_t e = plan_ring(p, B, D);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return static_cast<int>(launch_g<64>(p, B, G, rows, s));
-    case 128: return static_cast<int>(launch_g<128>(p, B, G, rows, s));
-    case 256: return static_cast<int>(launch_g<256>(p, B, G, rows, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(Hkv, B);
+  if (stash != nullptr) {                           // skip_append: save
+    stash_kernel<<<grid, 64, 0, s>>>(p, stash, stash_row, true);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   }
+  switch (D) {
+    case 64: e = launch_g<64>(p, B, G, rows, s); break;
+    case 128: e = launch_g<128>(p, B, G, rows, s); break;
+    case 256: e = launch_g<256>(p, B, G, rows, s); break;
+  }
+  if (e == cudaSuccess && stash != nullptr) {       // and put back
+    stash_kernel<<<grid, 64, 0, s>>>(p, stash, stash_row, false);
+    e = cudaGetLastError();
+  }
+  return static_cast<int>(e);
 }
 #endif  // K1_PART == 2

@@ -214,16 +214,14 @@ def head_mask_due(cfg: SpAttenConfig, clock: int, window: int = 1) -> bool:
     return clock % n < window
 
 
-def maybe_update_head_mask(cfg: SpAttenConfig, state: DecodeState
-                           ) -> DecodeState:
-    """On-the-fly head pruning before one decode step: re-derive the
-    per-layer head mask from the live importance accumulators when
-    ``head_mask_due`` at the clock ``max(state.lengths)``."""
-    p = cfg.pruning
-    if not (p.enable_head_pruning and p.head_keep > 0
-            and p.head_update_interval > 0):
-        return state
-    if head_mask_due(cfg, int(state.lengths.max())):
+def maybe_update_head_mask(cfg: SpAttenConfig, state: DecodeState,
+                           window: int = 1) -> DecodeState:
+    """On-the-fly head pruning: re-derive the per-layer head mask from the
+    live importance accumulators when ``head_mask_due`` at the clock
+    ``max(state.lengths)``: before one decode step (``window`` 1), or
+    before a window of ``window`` steps, where it fires when the clock
+    crosses a multiple of ``head_update_interval`` within the window."""
+    if head_mask_due(cfg, int(state.lengths.max()), window):
         state = update_head_mask(cfg, state)
     return state
 

@@ -39,7 +39,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fused_decode": ("fused_decode", "spatten_fused_decode",
-                     [_P] * 23 + [_I] * 10 + [_F] * 3 + [_I] * 11 + [_P] * 2),
+                     [_P] * 23 + [_I] * 10 + [_F] * 3 + [_I] * 11
+                     + [_P, _I] + [_P] * 2),
     "compact_gather": ("compact_gather", "spatten_compact_gather",
                        [_P] * 5 + [_I] * 5 + [_P]),
     "probe_bare": ("launch_probe", "spatten_probe_bare", [_P] * 3),

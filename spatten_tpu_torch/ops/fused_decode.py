@@ -169,7 +169,7 @@ def fused_decode_attention_plain(
     track_importance=True, importance_ema=1.0, layer=None, quant_bits=None,
     quantize_queries=False, pv_int8=False, probs_bf16=False,
     cap_override=None, append_mask=None, return_row_stats=False,
-    per_row_importance=False,
+    per_row_importance=False, _skip_append=False,
 ):
     """Plain PyTorch version of the kernel (same signature, same in-place
     contract).  Returns (out, stats, k_quant, v_quant), and ``(m, den)``
@@ -185,7 +185,9 @@ def fused_decode_attention_plain(
     would move an 8-bit P·V weight near .5 by a whole step, or flip a
     V-block near-tie, and such differences add up over a deep model's
     layers).  Its f32 dot products and f32 P·V sums still run in torch's
-    order."""
+    order.  ``_skip_append`` computes the appending step, then puts back
+    the int8, nibble and 2-bit planes' bytes (the scales keep the new
+    row's, as the Pallas body writes them back)."""
     kq, vq, imp = _layer_views(k_quant, v_quant, importance_in, layer)
     cap = _rung(kq.tokens, cap_override, v_block_size)
     kq, vq = _prefix(kq, cap), _prefix(vq, cap)
@@ -202,6 +204,10 @@ def fused_decode_attention_plain(
         raise ValueError("6-bit profiles need cap >= 32")
     bits = _layer_bits(quant_enabled, quant_bits, layer, has_lsb2)
 
+    if _skip_append:
+        kept_planes = [(t, t.clone()) for t in (kq.full, kq.msb, kq.lsb2,
+                                               vq.full, vq.msb)
+                       if t is not None]
     # ---- append: dense mode keeps no nibble planes up to date, and the
     # 2-bit plane is maintained only under a mixed profile.  A sequence
     # whose append_mask is False writes nothing: its idx column is a
@@ -366,6 +372,9 @@ def fused_decode_attention_plain(
     stats = AttentionStats(max_prob=mp, need_requant=need,
                            importance_delta=delta,
                            probs=(e_st * wrow)[:, :, None, :])
+    if _skip_append:
+        for t, before in kept_planes:
+            t.copy_(before)
     if return_row_stats:
         return out[:, :, None, :], stats, k_quant, v_quant, (
             m[..., 0], torch.clamp(den, min=1e-30)[..., 0])
@@ -563,6 +572,7 @@ def fused_decode_attention(
     return_row_stats: bool = False,
     per_row_importance: bool = False,
     keep_out: Optional[torch.Tensor] = None,        # uint8 [B, Hq, rung/vb]
+    _skip_append: bool = False,    # perf triage: no plane byte written
 ):
     """One fused decode step.  Returns (out [B, Hq, 1, D] f32, stats,
     k_quant, v_quant): the cache planes (and the importance accumulator,
@@ -585,6 +595,17 @@ def fused_decode_attention(
     softmax max and denominator, as a fifth result.  ``keep_out`` (CUDA
     only, for checks) receives the per-row kept V-block mask when V
     pruning is on.
+
+    ``_skip_append`` (perf triage, the Pallas kernel's flag of that name):
+    the step returns what the appending step returns, the appended column
+    scored, weighted and reset as the new row, but writes no byte of the
+    int8, nibble or 2-bit planes; the scale planes take the new row's
+    scales (the Pallas body writes its scale windows back either way).
+    K1's passes read the appended row back from the planes, so on the
+    card the C entry brackets the unchanged K1 launch with a small kernel
+    that saves the bytes the append overwrites into a stash in device
+    memory and one that puts them back: the flag prices nothing of the
+    append there.
     """
     flags = dict(
         sm_scale=sm_scale, requant_threshold=requant_threshold,
@@ -596,7 +617,7 @@ def fused_decode_attention(
         quantize_queries=quantize_queries, pv_int8=pv_int8,
         probs_bf16=probs_bf16, cap_override=cap_override,
         append_mask=append_mask, return_row_stats=return_row_stats,
-        per_row_importance=per_row_importance)
+        per_row_importance=per_row_importance, _skip_append=_skip_append)
     if not q.is_cuda:
         if keep_out is not None:
             raise ValueError("keep_out is a kernel check output (CUDA only)")
@@ -707,6 +728,10 @@ def fused_decode_attention(
                                  or keep_out.dtype != torch.uint8):
         raise ValueError(f"keep_out must be uint8 {(b, hq, nvb)}")
     do_requant = quant_enabled and requant_threshold > 0.0
+    # skip_append: the five rows of d bytes each K1 CTA's append writes
+    stash = None
+    if _skip_append:
+        stash = torch.empty((b, hkv, 5, d), dtype=torch.uint8, device=dev)
     kernels.launch(
         "fused_decode", qf, knf, vnf, lens, kq.full,
         kq.msb if quant_enabled else None, kq.lsb2 if has_lsb2 else None,
@@ -722,7 +747,8 @@ def fused_decode_attention(
         int(kq.scale.dtype == torch.bfloat16),
         int(accumulate and imp.dtype == torch.bfloat16),
         int(quantize_queries), int(pv_int8), int(probs_bf16),
-        int(importance_kind == "presoftmax"), int(per_row), bplane)
+        int(importance_kind == "presoftmax"), int(per_row), stash, d,
+        bplane)
     fused_decode_attention.launches += 1
     if accumulate:
         delta = importance_in

@@ -13,8 +13,10 @@ supports, the groups 3, 5, 6 and 7 that it runs in a larger instance
 group among them), and each serving flag alone (head masks, bf16
 metadata, int8 queries, integer P·V, the bf16 probability plane, a
 capacity rung, 6- and 8-bit layers) and combined, presoftmax and
-delta-mode importance, and the split-K flags (rows that do not append,
-an empty shard, row stats, per-row importance under GQA); a small
+delta-mode importance, the split-K flags (rows that do not append, an
+empty shard, row stats, per-row importance under GQA) and
+``_skip_append`` (no plane byte written, the appending step's
+outputs); a small
 split-K step runs K1 per shard against one unsharded K1 call, at GQA
 groups 2 and 3; P1-P5 of the launch probe equal their plain versions (P2
 over the whole block, P3 on random bytes and on planes of -128 and 127,
@@ -173,6 +175,25 @@ def test_k1_serving_flags_match_plain(dev, case):
                    v_keep=(40, 48), head_mask=hm, **flags)
     if hm is not None:
         assert res["dead_groups"] > 0
+
+
+@pytest.mark.parametrize("case", ["serving", "bits6", "head_mask", "dense"])
+def test_k1_skip_append_matches_plain(dev, case):
+    """K1's _skip_append against its plain version: every plane and scale
+    equal after the call (the plain version puts the int8, nibble and
+    2-bit planes back, so neither writes them) and the outputs of the
+    appending step."""
+    opts, flags = FLAG_CASES[case]
+    cfg = serving_small(**opts)
+    g = torch.Generator(device=dev).manual_seed(100 + len(case))
+    flags = dict(flags)
+    hm = flags.pop("head_mask", None)
+    if hm is not None:
+        hm = torch.tensor(hm, device=dev)
+    lengths = [256, 129, 40, 1] if opts.get("cap", 256) == 256 \
+        else [2048, 1501, 900, 33]
+    run_pair(dev, cfg, g, lengths, requant=opts.get("quant", True),
+             v_keep=(40, 48), head_mask=hm, _skip_append=True, **flags)
 
 
 # name -> (GQA group, lengths, call options): importance kinds and the

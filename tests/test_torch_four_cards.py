@@ -146,7 +146,8 @@ ONE_CARD_PHASES = [
     "phase_k1_flags", "phase_k1_groups", "phase_k1_head_dims",
     "phase_k1_capacity", "phase_k1_device_scores", "phase_k1_wide_groups",
     "phase_k1_long_windows", "phase_k1_wide_head_dims",
-    "phase_k1_shard_shapes", "phase_k1_rounding", "phase_k2", "phase_k2",
+    "phase_k1_shard_shapes", "phase_k1_rounding", "phase_k1_skip_append",
+    "phase_k2", "phase_k2",
     "phase_split_k",
     "phase_launch_probe", "small_reference_check", "phase_gate",
     "server_small_check", "mesh_small_check",
@@ -155,7 +156,8 @@ ONE_CARD_PHASES = [
     "run_path:parity (depth 8)", "run_path:Llama-3.2-3B",
     "run_path:OpenLLaMA-3B", "phase_70b_depth", "phase_server",
     "phase_trace", "phase_replay", "phase_supervised", "phase_cli",
-    "phase_debug_hook", "phase_ppl", "phase_hbm", "phase_sharded",
+    "phase_debug_hook", "phase_ppl", "phase_hbm", "phase_bench",
+    "phase_bench_tools", "phase_sharded",
     "phase_sharded_70b", "phase_pipeline"]
 
 
