@@ -43,6 +43,7 @@ from spatten_tpu_torch.models import transformer
 from spatten_tpu_torch.ops import rope as rope_ops
 from spatten_tpu_torch.pruning import compact, token_pruning
 from spatten_tpu_torch.utils import debug as dbg
+from spatten_tpu_torch.utils.profiling import tracer
 
 
 def maybe_prune(cfg: SpAttenConfig, state: DecodeState, num_coming: int,
@@ -57,56 +58,66 @@ def maybe_prune(cfg: SpAttenConfig, state: DecodeState, num_coming: int,
     identity keeps still apply); ``()`` is a no-op; None checks every
     layer's trigger on the host.
     """
-    p = cfg.pruning
-    num_layers = cfg.model.num_layers
-    dev = state.device
-    caps = token_pruning.layer_capacities(cfg)
-    trigger_layer = (state.layer_lengths + num_coming
-                     > torch.tensor(caps, device=dev)[:, None])   # [L, B]
-    if static_layers is not None:
-        listed = torch.tensor([l in static_layers for l in range(num_layers)],
-                              device=dev)
-        trigger_layer = trigger_layer & listed[:, None]
-    trigger = trigger_layer.any(dim=0)
-    if not p.enable_token_pruning or static_layers == ():
-        return state, torch.zeros_like(trigger)
-    if static_layers is None:
-        static_layers = tuple(
-            int(l) for l in torch.nonzero(trigger_layer.any(dim=1))[:, 0])
+    with tracer.span("engine.prune") as span:
+        p = cfg.pruning
+        num_layers = cfg.model.num_layers
+        dev = state.device
+        caps = token_pruning.layer_capacities(cfg)
+        with tracer.sync("prune.caps"):
+            caps_t = torch.tensor(caps, device=dev)
+        trigger_layer = state.layer_lengths + num_coming > caps_t[:, None]
+        if static_layers is not None:
+            with tracer.sync("prune.listed"):
+                listed = torch.tensor(
+                    [l in static_layers for l in range(num_layers)],
+                    device=dev)
+            trigger_layer = trigger_layer & listed[:, None]
+        trigger = trigger_layer.any(dim=0)
+        if not p.enable_token_pruning or static_layers == ():
+            return state, torch.zeros_like(trigger)
+        if static_layers is None:
+            # one read, and one more for each layer it finds triggered
+            with tracer.sync("prune.layers"):
+                static_layers = tuple(
+                    int(l) for l in
+                    torch.nonzero(trigger_layer.any(dim=1))[:, 0])
+        if static_layers:
+            span.note(layers=len(static_layers))
 
-    budgets = token_pruning.layer_budgets(p, num_layers, dev)
-    budgets_static = token_pruning.layer_budgets_static(p, num_layers)
-    cached_rope = (cfg.engine.rope_mode == "cached"
-                   and not cfg.model.use_abs_pos_emb)
-    # keep_count is pure arithmetic (the selection's own count formula)
-    recent_begin = state.layer_lengths - p.recent_size            # [L, B]
-    n_imp = torch.minimum(budgets[:, None],
-                          torch.clamp(recent_begin - p.start_size, min=0))
-    keep_count = (p.start_size + n_imp + p.recent_size).to(torch.int32)
+        with tracer.sync("prune.budgets"):
+            budgets = token_pruning.layer_budgets(p, num_layers, dev)
+        budgets_static = token_pruning.layer_budgets_static(p, num_layers)
+        cached_rope = (cfg.engine.rope_mode == "cached"
+                       and not cfg.model.use_abs_pos_emb)
+        # keep_count is pure arithmetic (the selection's own count formula)
+        recent_begin = state.layer_lengths - p.recent_size        # [L, B]
+        n_imp = torch.minimum(budgets[:, None],
+                              torch.clamp(recent_begin - p.start_size, min=0))
+        keep_count = (p.start_size + n_imp + p.recent_size).to(torch.int32)
 
-    for l in static_layers:
-        trig_l = trigger_layer[l]
-        keep_max_l = p.start_size + budgets_static[l] + p.recent_size
-        window = caps[l]
-        kidx, _ = token_pruning.select_keep_indices_budgeted(
-            state.importance[l][None, :, :, :window],
-            state.layer_lengths[l][None], p.start_size, budgets[l:l + 1],
-            budgets_static[l], p.recent_size, num_coming=0)
-        ident = torch.arange(keep_max_l, dtype=torch.int32,
-                             device=dev).expand_as(kidx[0])
-        kidx = torch.where(trig_l[:, None, None], kidx[0], ident)
-        kc = torch.where(trig_l, keep_count[l],
-                         torch.full_like(keep_count[l], keep_max_l))
-        compact.compact_layer(
-            state.cache.layer(l), state.importance[l], kidx,
-            rotate_k=cached_rope, rope_theta=cfg.model.rope_theta,
-            lengths=state.layer_lengths[l], triggered=trig_l, keep_count=kc,
-            window=window,
-            use_gather_kernel=None if cfg.engine.use_pallas else False)
-    layer_lengths = torch.where(trigger_layer, keep_count,
-                                state.layer_lengths)
-    return state._replace(layer_lengths=layer_lengths,
-                          lengths=layer_lengths.amax(dim=0)), trigger
+        for l in static_layers:
+            trig_l = trigger_layer[l]
+            keep_max_l = p.start_size + budgets_static[l] + p.recent_size
+            window = caps[l]
+            kidx, _ = token_pruning.select_keep_indices_budgeted(
+                state.importance[l][None, :, :, :window],
+                state.layer_lengths[l][None], p.start_size, budgets[l:l + 1],
+                budgets_static[l], p.recent_size, num_coming=0)
+            ident = torch.arange(keep_max_l, dtype=torch.int32,
+                                 device=dev).expand_as(kidx[0])
+            kidx = torch.where(trig_l[:, None, None], kidx[0], ident)
+            kc = torch.where(trig_l, keep_count[l],
+                             torch.full_like(keep_count[l], keep_max_l))
+            compact.compact_layer(
+                state.cache.layer(l), state.importance[l], kidx,
+                rotate_k=cached_rope, rope_theta=cfg.model.rope_theta,
+                lengths=state.layer_lengths[l], triggered=trig_l,
+                keep_count=kc, window=window,
+                use_gather_kernel=None if cfg.engine.use_pallas else False)
+        layer_lengths = torch.where(trigger_layer, keep_count,
+                                    state.layer_lengths)
+        return state._replace(layer_lengths=layer_lengths,
+                              lengths=layer_lengths.amax(dim=0)), trigger
 
 
 def prune_schedule_step(cfg: SpAttenConfig, host_lens: list, num_coming: int
@@ -135,10 +146,12 @@ def prefill_chunk(params, cfg: SpAttenConfig, state: DecodeState,
                   tokens: torch.Tensor, *, static_layers=None):
     """Run one chunk of prompt tokens [B, S], pruning first when needed.
     Consumes ``state``.  Returns (last-token logits [B, V], state, aux)."""
-    state, _ = maybe_prune(cfg, state, tokens.shape[1],
-                           static_layers=static_layers)
-    logits, state, aux = transformer.forward(params, cfg, state, tokens)
-    return logits[:, -1], state, aux
+    with tracer.span("engine.prefill", rows=tokens.size(0),
+                     tokens=tokens.size(1)):
+        state, _ = maybe_prune(cfg, state, tokens.shape[1],
+                               static_layers=static_layers)
+        logits, state, aux = transformer.forward(params, cfg, state, tokens)
+        return logits[:, -1], state, aux
 
 
 def prefill_scan(params, cfg: SpAttenConfig, state: DecodeState,
@@ -221,8 +234,11 @@ def maybe_update_head_mask(cfg: SpAttenConfig, state: DecodeState,
     ``max(state.lengths)``: before one decode step (``window`` 1), or
     before a window of ``window`` steps, where it fires when the clock
     crosses a multiple of ``head_update_interval`` within the window."""
-    if head_mask_due(cfg, int(state.lengths.max()), window):
-        state = update_head_mask(cfg, state)
+    with tracer.sync("head_mask.clock"):
+        clock = int(state.lengths.max())
+    if head_mask_due(cfg, clock, window):
+        with tracer.span("engine.head_mask"):
+            state = update_head_mask(cfg, state)
     return state
 
 
@@ -231,11 +247,13 @@ def decode_step(params, cfg: SpAttenConfig, state: DecodeState,
     """One greedy decode step (pruning and the head mask update first,
     when due).  Consumes ``state``.  token: int32 [B] -> (next_token [B],
     state, aux)."""
-    state, _ = maybe_prune(cfg, state, 1)
-    state = maybe_update_head_mask(cfg, state)
-    logits, state, aux = transformer.forward(params, cfg, state,
-                                             token[:, None])
-    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), state, aux
+    with tracer.span("engine.decode"):
+        state, _ = maybe_prune(cfg, state, 1)
+        state = maybe_update_head_mask(cfg, state)
+        logits, state, aux = transformer.forward(params, cfg, state,
+                                                 token[:, None])
+        return (torch.argmax(logits[:, -1], dim=-1).to(torch.int32), state,
+                aux)
 
 
 class GenerateResult(NamedTuple):

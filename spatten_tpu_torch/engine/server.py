@@ -36,6 +36,7 @@ import spatten_tpu_torch.engine.generate as gen
 from spatten_tpu_torch.engine.state import (
     DecodeState, init_state, write_slot,
 )
+from spatten_tpu_torch.utils.profiling import tracer
 
 
 @dataclass
@@ -99,36 +100,49 @@ class SpAttenServer:
     def step(self) -> List[Request]:
         """One scheduler tick: start admissions, advance each in-flight
         prefill by ONE chunk, run one arena decode step over the active
-        slots, release finished.  Returns requests completed this tick."""
-        self._start_admissions()
-        self._advance_admissions()
+        slots, release finished.  Returns requests completed this tick.
 
-        if not self.active:
+        Under the tracer (``utils.profiling.tracer``) the tick is span
+        ``server.tick``; its children cover the server's own work
+        (``server.admit``, one ``server.admission`` per in-flight
+        admission, ``server.decode_input``, ``server.release``) and the
+        engine's, whose spans open inside the engine functions."""
+        with tracer.span("server.tick"):
+            with tracer.span("server.admit"):
+                self._start_admissions()
+            self._advance_admissions()
+
+            if not self.active:
+                return self._drain_finished()
+
+            # one lockstep decode over the arena; empty slots compute
+            # values that are never read (their cache is overwritten on
+            # admission)
+            with tracer.span("server.decode_input"):
+                tokens = np.zeros((self.batch,), np.int32)
+                for slot, req in self.active.items():
+                    tokens[slot] = req.next_token
+                with tracer.sync("server.decode_ids"):
+                    ids = torch.from_numpy(tokens).to(self.device)
+            next_tokens, self.state, _ = gen.decode_step(
+                self.params, self.cfg, self.state, ids)
+
+            with tracer.span("server.release"):
+                with tracer.sync("server.tokens"):
+                    next_tokens = next_tokens.cpu().tolist()
+                for slot in list(self.active):
+                    req = self.active[slot]
+                    req.generated.append(int(req.next_token))
+                    emitted = len(req.generated)
+                    if (self.eos is not None and req.next_token == self.eos) \
+                            or emitted >= req.max_new_tokens:
+                        req.done = True
+                        self.finished.append(req)
+                        del self.active[slot]
+                        self.free_slots.append(slot)  # out-of-order release
+                    else:
+                        req.next_token = next_tokens[slot]
             return self._drain_finished()
-
-        # one lockstep decode over the arena; empty slots compute values
-        # that are never read (their cache is overwritten on admission)
-        tokens = np.zeros((self.batch,), np.int32)
-        for slot, req in self.active.items():
-            tokens[slot] = req.next_token
-        next_tokens, self.state, _ = gen.decode_step(
-            self.params, self.cfg, self.state,
-            torch.from_numpy(tokens).to(self.device))
-        next_tokens = next_tokens.cpu().tolist()
-
-        for slot in list(self.active):
-            req = self.active[slot]
-            req.generated.append(int(req.next_token))
-            emitted = len(req.generated)
-            if (self.eos is not None and req.next_token == self.eos) or \
-                    emitted >= req.max_new_tokens:
-                req.done = True
-                self.finished.append(req)
-                del self.active[slot]
-                self.free_slots.append(slot)     # out-of-order release
-            else:
-                req.next_token = next_tokens[slot]
-        return self._drain_finished()
 
     def run_to_completion(self, max_steps: int = 10_000) -> List[Request]:
         out: List[Request] = []
@@ -155,21 +169,26 @@ class SpAttenServer:
         chunk = self.cfg.engine.prefill_chunk
         still: List[_Admission] = []
         for adm in self.admitting:
-            prompt = adm.req.prompt
-            n = min(chunk, len(prompt) - adm.pos)
-            ids = torch.from_numpy(prompt[None, adm.pos:adm.pos + n]).to(
-                self.device)
-            adm.last_logits, adm.sub, _ = gen.prefill_chunk(
-                self.params, self.cfg, adm.sub, ids)
-            adm.pos += n
-            if adm.pos < len(prompt):
-                still.append(adm)
-                continue
-            first = int(torch.argmax(adm.last_logits, dim=-1)[0])
-            self.state = write_slot(self.state, adm.sub, adm.slot)
-            adm.req.slot = adm.slot
-            adm.req.next_token = first
-            self.active[adm.slot] = adm.req
+            with tracer.span("server.admission",
+                             request=adm.req.request_id):
+                prompt = adm.req.prompt
+                n = min(chunk, len(prompt) - adm.pos)
+                with tracer.sync("server.prompt_ids"):
+                    ids = torch.from_numpy(
+                        prompt[None, adm.pos:adm.pos + n]).to(self.device)
+                adm.last_logits, adm.sub, _ = gen.prefill_chunk(
+                    self.params, self.cfg, adm.sub, ids)
+                adm.pos += n
+                if adm.pos < len(prompt):
+                    still.append(adm)
+                    continue
+                with tracer.sync("server.first_token"):
+                    first = int(torch.argmax(adm.last_logits, dim=-1)[0])
+                with tracer.span("server.write_slot"):
+                    self.state = write_slot(self.state, adm.sub, adm.slot)
+                adm.req.slot = adm.slot
+                adm.req.next_token = first
+                self.active[adm.slot] = adm.req
         self.admitting = still
 
     def _drain_finished(self) -> List[Request]:

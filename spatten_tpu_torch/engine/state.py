@@ -15,6 +15,7 @@ import torch
 from spatten_tpu_torch.config import SpAttenConfig
 from spatten_tpu_torch.device import resolve_device
 from spatten_tpu_torch.engine.kv_cache import LayerKVCache, init_stacked_cache
+from spatten_tpu_torch.utils.profiling import tracer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -88,7 +89,7 @@ def init_state(cfg: SpAttenConfig, batch: int | None = None,
     m, e = cfg.model, cfg.engine
     b = batch if batch is not None else e.max_batch_size
     cap = e.cache_capacity
-    return DecodeState(
+    fields = dict(
         cache=init_stacked_cache(m.num_layers, b, m.num_kv_heads, cap,
                                  m.head_dim, with_msb=cfg.quant.enabled,
                                  with_lsb2=cfg.quant.needs_lsb2,
@@ -102,7 +103,9 @@ def init_state(cfg: SpAttenConfig, batch: int | None = None,
                                   device=dev),
         head_mask=torch.ones((m.num_layers, m.num_heads), dtype=torch.bool,
                              device=dev),
-        requant_events=torch.zeros((), dtype=torch.int32, device=dev),
-        quant_bits=torch.tensor(cfg.quant.resolved_layer_bits(m.num_layers),
-                                dtype=torch.int32, device=dev),
-    )
+        requant_events=torch.zeros((), dtype=torch.int32, device=dev))
+    with tracer.sync("state.quant_bits"):
+        fields["quant_bits"] = torch.tensor(
+            cfg.quant.resolved_layer_bits(m.num_layers), dtype=torch.int32,
+            device=dev)
+    return DecodeState(**fields)

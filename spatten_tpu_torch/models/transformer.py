@@ -59,6 +59,7 @@ from spatten_tpu_torch.parallel.mesh import all_reduce
 from spatten_tpu_torch.pruning.token_pruning import (
     layer_budgets_static, layer_capacity_groups,
 )
+from spatten_tpu_torch.utils.profiling import tracer
 
 Params = Dict[str, Any]
 
@@ -450,7 +451,8 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
             kwargs["use_rope"] = (not m.use_abs_pos_emb
                                   and e.rope_mode == "read")
             if q.enabled and q.layer_bits is not None:
-                kwargs["pass1_bits"] = int(state.quant_bits[l])
+                with tracer.sync("model.pass1_bits"):
+                    kwargs["pass1_bits"] = int(state.quant_bits[l])
             if s > 1:
                 if e.prefill_fp_score:
                     # score the prompt at full precision; the quantized
@@ -499,18 +501,19 @@ def forward(params: Params, cfg: SpAttenConfig, state: DecodeState,
     ``tp_group``: this rank's tensor-parallel group (``cfg`` and the
     parameters then describe the rank's heads; see ``run_layers``)."""
     s = tokens.shape[1]
-    x, _ = embed_tokens(params, cfg, state, tokens)
-    x, new_lengths, requants, max_probs = run_layers(
-        head_compact["layers"] if head_compact else params["layers"], cfg,
-        state, x, rope_tables=rope_tables,
-        head_kept=(None if head_compact is None else
-                   (head_compact["kept_q"], head_compact["kept_kv"])),
-        layer_offset=layer_offset, tp_group=tp_group)
-    logits = lm_head(params, cfg, x)
-    total = requants.sum().to(torch.int32)
-    new_state = state._replace(
-        lengths=state.lengths + s, layer_lengths=new_lengths,
-        requant_events=state.requant_events + total)
+    with tracer.span("model.forward"):
+        x, _ = embed_tokens(params, cfg, state, tokens)
+        x, new_lengths, requants, max_probs = run_layers(
+            head_compact["layers"] if head_compact else params["layers"],
+            cfg, state, x, rope_tables=rope_tables,
+            head_kept=(None if head_compact is None else
+                       (head_compact["kept_q"], head_compact["kept_kv"])),
+            layer_offset=layer_offset, tp_group=tp_group)
+        logits = lm_head(params, cfg, x)
+        total = requants.sum().to(torch.int32)
+        new_state = state._replace(
+            lengths=state.lengths + s, layer_lengths=new_lengths,
+            requant_events=state.requant_events + total)
     return logits, new_state, StepAux(requant_events=total,
                                       max_probs=max_probs,
                                       layer_requants=requants)

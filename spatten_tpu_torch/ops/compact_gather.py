@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from spatten_tpu_torch import kernels
+from spatten_tpu_torch.utils.profiling import tracer
 
 
 def _check(k_plane, v_plane, keep_idx, lengths, triggered, keep_count):
@@ -88,25 +89,27 @@ def gather_compact_rows(
         return gather_compact_rows_plain(
             k_plane, v_plane, keep_idx, lengths, triggered,
             keep_count=keep_count, window=window)
-    b, c, f = k_plane.shape
-    h, p = keep_idx.shape[1:]
-    d = f // h
-    dev = k_plane.device
-    if k_plane.dtype != torch.int8 or v_plane.dtype != torch.int8:
-        raise TypeError("K2 takes int8 planes")
-    if not (k_plane.is_contiguous() and v_plane.is_contiguous()):
-        raise ValueError("K2 takes contiguous planes")
-    if not k2_takes(d):
-        raise NotImplementedError(f"K2 needs head_dim % 16 == 0, got {d}")
-    for t in (v_plane, keep_idx, triggered):
-        if t.device != dev:
-            raise ValueError("K2 operands must share one CUDA device")
-    idx = keep_idx.to(torch.int32).contiguous()
-    kc = (torch.full((b,), p, dtype=torch.int32, device=dev)
-          if keep_count is None else keep_count.to(torch.int32).contiguous())
-    trig = triggered.to(torch.int32).contiguous()
-    kernels.launch("compact_gather", k_plane, v_plane, idx, kc, trig,
-                   b, c, h, d, p)
+    with tracer.span("k2.launch"):
+        b, c, f = k_plane.shape
+        h, p = keep_idx.shape[1:]
+        d = f // h
+        dev = k_plane.device
+        if k_plane.dtype != torch.int8 or v_plane.dtype != torch.int8:
+            raise TypeError("K2 takes int8 planes")
+        if not (k_plane.is_contiguous() and v_plane.is_contiguous()):
+            raise ValueError("K2 takes contiguous planes")
+        if not k2_takes(d):
+            raise NotImplementedError(f"K2 needs head_dim % 16 == 0, got {d}")
+        for t in (v_plane, keep_idx, triggered):
+            if t.device != dev:
+                raise ValueError("K2 operands must share one CUDA device")
+        idx = keep_idx.to(torch.int32).contiguous()
+        kc = (torch.full((b,), p, dtype=torch.int32, device=dev)
+              if keep_count is None
+              else keep_count.to(torch.int32).contiguous())
+        trig = triggered.to(torch.int32).contiguous()
+        kernels.launch("compact_gather", k_plane, v_plane, idx, kc, trig,
+                       b, c, h, d, p)
     gather_compact_rows.launches += 1
     return k_plane, v_plane
 

@@ -47,6 +47,7 @@ import torch
 from spatten_tpu_torch import kernels
 from spatten_tpu_torch.ops import quantize as qz
 from spatten_tpu_torch.ops.attention_ref import MASK_VALUE, AttentionStats
+from spatten_tpu_torch.utils.profiling import tracer
 
 _SMEM_LIMIT = 227 * 1024
 _THREADS = 256
@@ -624,131 +625,134 @@ def fused_decode_attention(
         return fused_decode_attention_plain(
             q, k_quant, v_quant, k_new, v_new, lengths, **flags)
 
-    if importance_kind not in ("prob", "presoftmax"):
-        raise ValueError(importance_kind)
-    kq, vq, imp = _layer_views(k_quant, v_quant, importance_in, layer)
-    b, hq, q_len, d = q.shape
-    hkv, cap_total = kq.heads, kq.tokens
-    if hq % hkv:
-        raise ValueError(f"{hq} query heads over {hkv} kv heads")
-    group = hq // hkv
-    cap = _rung(cap_total, cap_override, v_block_size)
-    if q_len != 1:
-        raise ValueError("K1 is a single-query decode step")
-    if quant_enabled and kq.msb is None:
-        raise ValueError("quant_enabled needs the K msb plane")
-    mixed = quant_enabled and quant_bits is not None
-    has_lsb2 = mixed and kq.lsb2 is not None
-    if has_lsb2 and cap < 32:
-        raise ValueError("6-bit profiles need cap >= 32")
-    planes = [kq.full, kq.msb, kq.lsb2 if has_lsb2 else None, vq.full,
-              vq.msb]
-    expect = [(b, cap_total, hkv * d), (b, cap_total // 2, hkv * d),
-              (b, cap_total // 4, hkv * d), (b, cap_total, hkv * d),
-              (b, cap_total // 2, hkv * d)]
-    dtypes = [torch.int8, torch.uint8, torch.uint8, torch.int8, torch.uint8]
-    for t, shape, dt in zip(planes, expect, dtypes):
-        if t is None:
-            continue
-        if tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"cache plane {tuple(t.shape)} {t.dtype} is not "
-                             f"a contiguous {dt} {shape}")
-    accumulate = track_importance and imp is not None
-    per_row = per_row_importance and track_importance and not accumulate \
-        and group > 1
-    meta = [kq.scale, vq.scale] + ([imp] if accumulate else [])
-    for t in meta:
-        if (tuple(t.shape) != (b, hkv, cap_total) or t.dtype not in
-                _META_DTYPES or not t.is_contiguous()):
-            raise ValueError("K1 takes contiguous f32 or bf16 [B, Hkv, C] "
-                             "scales and importance")
-    if kq.scale.dtype != vq.scale.dtype:
-        raise ValueError("K and V scales must share one dtype")
-    if cap % v_block_size or cap % 2:
-        raise ValueError("capacity must be even and a multiple of v_block")
-    if has_lsb2 and qz.pack_unit(cap_total) % 4:
-        raise ValueError("the 2-bit plane needs a pack unit of 4k tokens")
-    if (hkv * d) % 16:
-        raise ValueError(f"K1 needs a lane width Hkv * D ({hkv * d}) that "
-                         "is a multiple of 16 bytes")
-    shape_error = k1_shape_error(group, d, cap_total, cap, v_block_size)
-    if shape_error:
-        raise NotImplementedError(shape_error)
-    plan = k1_plan(group, d, cap, v_block_size)   # the <G, D> instance
-    nvb = cap // v_block_size
+    with tracer.span("k1.launch"):
+        if importance_kind not in ("prob", "presoftmax"):
+            raise ValueError(importance_kind)
+        kq, vq, imp = _layer_views(k_quant, v_quant, importance_in, layer)
+        b, hq, q_len, d = q.shape
+        hkv, cap_total = kq.heads, kq.tokens
+        if hq % hkv:
+            raise ValueError(f"{hq} query heads over {hkv} kv heads")
+        group = hq // hkv
+        cap = _rung(cap_total, cap_override, v_block_size)
+        if q_len != 1:
+            raise ValueError("K1 is a single-query decode step")
+        if quant_enabled and kq.msb is None:
+            raise ValueError("quant_enabled needs the K msb plane")
+        mixed = quant_enabled and quant_bits is not None
+        has_lsb2 = mixed and kq.lsb2 is not None
+        if has_lsb2 and cap < 32:
+            raise ValueError("6-bit profiles need cap >= 32")
+        planes = [kq.full, kq.msb, kq.lsb2 if has_lsb2 else None, vq.full,
+                  vq.msb]
+        expect = [(b, cap_total, hkv * d), (b, cap_total // 2, hkv * d),
+                  (b, cap_total // 4, hkv * d), (b, cap_total, hkv * d),
+                  (b, cap_total // 2, hkv * d)]
+        dtypes = [torch.int8, torch.uint8, torch.uint8, torch.int8,
+                  torch.uint8]
+        for t, shape, dt in zip(planes, expect, dtypes):
+            if t is None:
+                continue
+            if (tuple(t.shape) != shape or t.dtype != dt
+                    or not t.is_contiguous()):
+                raise ValueError(f"cache plane {tuple(t.shape)} {t.dtype} is "
+                                 f"not a contiguous {dt} {shape}")
+        accumulate = track_importance and imp is not None
+        per_row = per_row_importance and track_importance and not accumulate \
+            and group > 1
+        meta = [kq.scale, vq.scale] + ([imp] if accumulate else [])
+        for t in meta:
+            if (tuple(t.shape) != (b, hkv, cap_total) or t.dtype not in
+                    _META_DTYPES or not t.is_contiguous()):
+                raise ValueError("K1 takes contiguous f32 or bf16 [B, Hkv, C] "
+                                 "scales and importance")
+        if kq.scale.dtype != vq.scale.dtype:
+            raise ValueError("K and V scales must share one dtype")
+        if cap % v_block_size or cap % 2:
+            raise ValueError("capacity must be even and a multiple of v_block")
+        if has_lsb2 and qz.pack_unit(cap_total) % 4:
+            raise ValueError("the 2-bit plane needs a pack unit of 4k tokens")
+        if (hkv * d) % 16:
+            raise ValueError(f"K1 needs a lane width Hkv * D ({hkv * d}) that "
+                             "is a multiple of 16 bytes")
+        shape_error = k1_shape_error(group, d, cap_total, cap, v_block_size)
+        if shape_error:
+            raise NotImplementedError(shape_error)
+        plan = k1_plan(group, d, cap, v_block_size)   # the <G, D> instance
+        nvb = cap // v_block_size
 
-    dev = q.device
-    qf = q.reshape(b, hq, d).to(torch.float32).contiguous()
-    knf = k_new.reshape(b, hkv, d).to(torch.float32).contiguous()
-    vnf = v_new.reshape(b, hkv, d).to(torch.float32).contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    hmask = None
-    if head_mask is not None:
-        hmask = (head_mask if head_mask.ndim == 2 else head_mask[None]
-                 ).expand(b, hq).to(torch.uint8).contiguous()
-    qbits = None
-    if mixed:
-        qbits = torch.as_tensor(quant_bits, dtype=torch.int32,
-                                device=dev).contiguous()
-    appm = None
-    if append_mask is not None:
-        appm = torch.as_tensor(append_mask, device=dev).to(
-            torch.uint8).reshape(b).contiguous()
-    for t in (kq.full, vq.full, lens) + tuple(
-            x for x in (hmask, qbits, appm) if x is not None):
-        if t.device != dev:
-            raise ValueError("K1 operands must share one CUDA device")
-    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
-    max_prob = torch.empty((b, hkv), dtype=torch.float32, device=dev)
-    need = torch.empty((b, hkv), dtype=torch.uint8, device=dev)
-    # delta mode: the kernel writes every column of the rung (zeros past a
-    # row's length), so the output needs no clearing
-    delta = None
-    if track_importance and not accumulate:
-        delta = torch.empty((b, hq if per_row else hkv, cap),
-                            dtype=torch.float32, device=dev)
-    # the score plane, where the instance's shared-memory plan cannot hold
-    # it (or the group runs in chunks): one [rows, cap] slice per CTA,
-    # padding rows included; and the per-V-block arrays, where the plan
-    # cannot hold them either: one 16-byte-aligned slice per CTA
-    splane = bplane = None
-    if not plan.scores_in_smem:
-        splane = torch.empty((b, hkv, plan.rows, cap), dtype=torch.float32,
-                             device=dev)
-    if not plan.blocks_in_smem:
-        stride = -(-block_bytes(plan.rows, nvb) // 16) * 16
-        bplane = torch.empty((b, hkv, stride), dtype=torch.uint8,
-                             device=dev)
-    m_rows = den_rows = None
-    if return_row_stats:
-        m_rows = torch.empty((b, hq), dtype=torch.float32, device=dev)
-        den_rows = torch.empty((b, hq), dtype=torch.float32, device=dev)
-    kb = _v_keep_blocks(v_keep, v_block_size, cap, layer)
-    if keep_out is not None and (tuple(keep_out.shape) != (b, hq, nvb)
-                                 or keep_out.dtype != torch.uint8):
-        raise ValueError(f"keep_out must be uint8 {(b, hq, nvb)}")
-    do_requant = quant_enabled and requant_threshold > 0.0
-    # skip_append: the five rows of d bytes each K1 CTA's append writes
-    stash = None
-    if _skip_append:
-        stash = torch.empty((b, hkv, 5, d), dtype=torch.uint8, device=dev)
-    kernels.launch(
-        "fused_decode", qf, knf, vnf, lens, kq.full,
-        kq.msb if quant_enabled else None, kq.lsb2 if has_lsb2 else None,
-        kq.scale, vq.full, vq.msb if quant_enabled else None, vq.scale,
-        imp if accumulate else None, hmask, qbits, appm, out, max_prob, need,
-        keep_out, delta, m_rows, den_rows, splane,
-        b, hq, hkv, plan.inst, plan.dim, d, cap,
-        cap_total,
-        qz.pack_unit(cap_total),
-        0 if layer is None else int(layer),
-        float(sm_scale), float(requant_threshold), float(importance_ema),
-        int(quant_enabled), int(do_requant), kb, v_block_size,
-        int(kq.scale.dtype == torch.bfloat16),
-        int(accumulate and imp.dtype == torch.bfloat16),
-        int(quantize_queries), int(pv_int8), int(probs_bf16),
-        int(importance_kind == "presoftmax"), int(per_row), stash, d,
-        bplane)
+        dev = q.device
+        qf = q.reshape(b, hq, d).to(torch.float32).contiguous()
+        knf = k_new.reshape(b, hkv, d).to(torch.float32).contiguous()
+        vnf = v_new.reshape(b, hkv, d).to(torch.float32).contiguous()
+        lens = lengths.to(torch.int32).contiguous()
+        hmask = None
+        if head_mask is not None:
+            hmask = (head_mask if head_mask.ndim == 2 else head_mask[None]
+                     ).expand(b, hq).to(torch.uint8).contiguous()
+        qbits = None
+        if mixed:
+            qbits = torch.as_tensor(quant_bits, dtype=torch.int32,
+                                    device=dev).contiguous()
+        appm = None
+        if append_mask is not None:
+            appm = torch.as_tensor(append_mask, device=dev).to(
+                torch.uint8).reshape(b).contiguous()
+        for t in (kq.full, vq.full, lens) + tuple(
+                x for x in (hmask, qbits, appm) if x is not None):
+            if t.device != dev:
+                raise ValueError("K1 operands must share one CUDA device")
+        out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+        max_prob = torch.empty((b, hkv), dtype=torch.float32, device=dev)
+        need = torch.empty((b, hkv), dtype=torch.uint8, device=dev)
+        # delta mode: the kernel writes every column of the rung (zeros past a
+        # row's length), so the output needs no clearing
+        delta = None
+        if track_importance and not accumulate:
+            delta = torch.empty((b, hq if per_row else hkv, cap),
+                                dtype=torch.float32, device=dev)
+        # the score plane, where the instance's shared-memory plan cannot hold
+        # it (or the group runs in chunks): one [rows, cap] slice per CTA,
+        # padding rows included; and the per-V-block arrays, where the plan
+        # cannot hold them either: one 16-byte-aligned slice per CTA
+        splane = bplane = None
+        if not plan.scores_in_smem:
+            splane = torch.empty((b, hkv, plan.rows, cap), dtype=torch.float32,
+                                 device=dev)
+        if not plan.blocks_in_smem:
+            stride = -(-block_bytes(plan.rows, nvb) // 16) * 16
+            bplane = torch.empty((b, hkv, stride), dtype=torch.uint8,
+                                 device=dev)
+        m_rows = den_rows = None
+        if return_row_stats:
+            m_rows = torch.empty((b, hq), dtype=torch.float32, device=dev)
+            den_rows = torch.empty((b, hq), dtype=torch.float32, device=dev)
+        kb = _v_keep_blocks(v_keep, v_block_size, cap, layer)
+        if keep_out is not None and (tuple(keep_out.shape) != (b, hq, nvb)
+                                     or keep_out.dtype != torch.uint8):
+            raise ValueError(f"keep_out must be uint8 {(b, hq, nvb)}")
+        do_requant = quant_enabled and requant_threshold > 0.0
+        # skip_append: the five rows of d bytes each K1 CTA's append writes
+        stash = None
+        if _skip_append:
+            stash = torch.empty((b, hkv, 5, d), dtype=torch.uint8, device=dev)
+        kernels.launch(
+            "fused_decode", qf, knf, vnf, lens, kq.full,
+            kq.msb if quant_enabled else None, kq.lsb2 if has_lsb2 else None,
+            kq.scale, vq.full, vq.msb if quant_enabled else None, vq.scale,
+            imp if accumulate else None, hmask, qbits, appm, out, max_prob,
+            need, keep_out, delta, m_rows, den_rows, splane,
+            b, hq, hkv, plan.inst, plan.dim, d, cap,
+            cap_total,
+            qz.pack_unit(cap_total),
+            0 if layer is None else int(layer),
+            float(sm_scale), float(requant_threshold), float(importance_ema),
+            int(quant_enabled), int(do_requant), kb, v_block_size,
+            int(kq.scale.dtype == torch.bfloat16),
+            int(accumulate and imp.dtype == torch.bfloat16),
+            int(quantize_queries), int(pv_int8), int(probs_bf16),
+            int(importance_kind == "presoftmax"), int(per_row), stash, d,
+            bplane)
     fused_decode_attention.launches += 1
     if accumulate:
         delta = importance_in

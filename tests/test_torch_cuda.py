@@ -955,3 +955,89 @@ def test_ppl_curve_at_gpt2s_widths_on_the_card(dev):
     r = evaluate_perplexity(params, cfg, text_ids, device=dev)
     assert math.isfinite(r.perplexity) and r.num_tokens == 511
     assert fd.fused_decode_attention.launches == 2 * 511
+
+
+def chat_like_cfg():
+    """The chat cell's serving knobs (``portbench/configs/deepseek-llm-7b-
+    chat.json``: MHA heads of 128, capacity rungs, head pruning, V
+    pruning, int8 queries and P·V, bf16 scales and importance) on a
+    2-layer model of 2 heads, capacity 256, 16-token prefill chunks."""
+    return SpAttenConfig(
+        model=ModelConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                          num_heads=2, num_kv_heads=2, head_dim=128,
+                          intermediate_size=512),
+        pruning=PruningConfig(
+            start_size=4, important_size=140, recent_size=25,
+            cascade_layer_ratios=(1.0, 0.78), enable_v_pruning=True,
+            v_keep_ratio=0.25, v_block_size=16, enable_head_pruning=True,
+            head_keep=1, head_update_interval=32,
+            importance_dtype="bfloat16"),
+        quant=QuantConfig(enabled=True, enable_requant=True,
+                          requant_threshold=0.05, quantize_queries=True,
+                          pv_int8=True, probs_bf16=True,
+                          scale_dtype="bfloat16"),
+        engine=EngineConfig(max_batch_size=4, cache_capacity=256,
+                            prefill_chunk=16, use_pallas=True,
+                            rope_mode="cached", layer_cap_rungs=True,
+                            layer_cap_headroom=64),
+    ).validate()
+
+
+def test_server_tick_syncs_all_traced(dev):
+    """One ``SpAttenServer.step`` on the card that starts an admission,
+    runs its prefill chunk, finishes it (first token, ``write_slot``) and
+    runs a decode step over the slot already active, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every synchronising
+    operation torch reports lies in a ``sync.*`` span of the tracer, and
+    every such span holds exactly one."""
+    import time
+    import traceback
+    import warnings
+
+    from spatten_tpu_torch.engine.server import SpAttenServer
+    from spatten_tpu_torch.utils.profiling import tracer
+
+    cfg = chat_like_cfg()
+    params = tr.init_params(cfg.model, 0, dtype=torch.bfloat16, device=dev)
+    srv = SpAttenServer(params, cfg, device=dev)
+    srv.submit(np.arange(20) % 251, max_new_tokens=8)
+    srv.step()                        # the first chunk of two
+    srv.step()                        # the second; the first decode
+    srv.submit(np.arange(12) * 7 % 251, max_new_tokens=4)
+    torch.cuda.synchronize()
+    seen = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            seen.append((time.perf_counter_ns(),
+                         "".join(traceback.format_stack(limit=8)[:-1])))
+
+    tracer.drain()
+    tracer.enable()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                srv.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        tracer.disable()
+        spans = tracer.drain()
+    names = [s.name for s in spans]
+    assert "server.write_slot" in names and "engine.decode" in names
+    syncs = [s for s in spans if s.name.startswith("sync.")]
+    held = [0] * len(syncs)
+    loose = []
+    for t, stack in seen:
+        inside = [i for i, s in enumerate(syncs) if s.t0 <= t <= s.t1]
+        if inside:
+            held[inside[0]] += 1
+        else:
+            loose.append(stack)
+    assert not loose, "syncs outside every sync.* span:\n" + \
+        "\n----\n".join(loose)
+    assert len(seen) == len(syncs) and set(held) == {1}, \
+        [(s.name, n) for s, n in zip(syncs, held)]
