@@ -174,6 +174,10 @@ split-K over the four cards against unsharded K1.  A failing phase is
 printed and the others run on; any failure fails the run.  It ends with
 a ``{"cards": ...}`` JSON line, the cards' names and power limits on one
 line, and the ``{"ok": true, ...}`` line.
+
+``--phases server`` on one card builds the kernels and runs only the
+server's two phases (``server_small_check``, ``phase_server``); each
+reports how many prefill chunks replayed from the server's CUDA graph.
 """
 
 from __future__ import annotations
@@ -2031,7 +2035,8 @@ def phase_server(dev) -> dict:
         f"taken out): {ticks / wall:.2f} ticks/s, "
         f"{sum(budget.values()) / wall:.1f} generated tok/s; completion "
         f"order {[r.request_id for r in done]}; K1 launches {k1} "
-        f"(= {m.num_layers} x {ticks}), K2 launches {k2}")
+        f"(= {m.num_layers} x {ticks}), K2 launches {k2}; prefill chunks "
+        f"from the graph {srv.prefill_graph.replays}")
     step_ms = float(np.median(tick_ms))
     dev_ms = float(np.median(prof_ms))
     log(f"server: decode tick host clock median {step_ms:.2f} ms (mean "
@@ -2048,9 +2053,11 @@ def phase_server(dev) -> dict:
         c["mean"] <= WINDOW_MEAN_TOL for c in checks),
         f"server: mean logit error {mean}")
     check(agree >= WINDOW_ARGMAX_MIN, f"server: argmax agreement {agree}")
+    srv_graphed = srv.prefill_graph.replays
     del params, srv
     free()
     return dict(k1=k1, k2=k2, ticks=ticks, wall_s=wall,
+                graphed=srv_graphed,
                 tok_s=sum(budget.values()) / wall, step_ms=step_ms,
                 device_ms=dev_ms, idle=1 - dev_ms / step_ms)
 
@@ -2077,7 +2084,8 @@ def server_small_check(dev) -> dict:
                                (513, 10), (40, 4))]
     r = kc.check_server_against_cpu(cfg, params, requests, dev)
     log(f"server, small f32 (GQA 8 x 128, capacity 4096, 2 slots, 6 "
-        f"requests) on the card vs its CPU replay: {r['calls']} calls, "
+        f"requests) on the card vs its CPU replay: {r['calls']} calls "
+        f"({r['graphed']} prefill chunks from the graph), "
         f"{r['ticks']} decode ticks, single-token calls' logits max |diff| "
         f"{r['max_logit_err']:.2e} (tolerance {kc.CPU_REPLAY_LOGIT_TOL}), "
         f"prefill chunks' {r['prefill_logit_err']:.2e} (reported); "
@@ -4103,6 +4111,8 @@ def phase_cards_cli(dev, cards: int) -> dict:
 
 
 CARDS_PHASES = ("sharded", "70b", "pipeline", "cli", "split-k")
+# one card, ``--phases``: the phases each name runs
+ONE_CARD_PHASES = {"server": (server_small_check, phase_server)}
 
 
 def main_cards(cards: int, only=None) -> int:
@@ -4207,10 +4217,15 @@ def main(argv=None) -> int:
     ap.add_argument("--cards", type=int, default=1,
                     help="1 (default): every one-card phase; N > 1: only "
                          "the multi-card phases, one card per rank (NCCL)")
-    ap.add_argument("--phases", nargs="+", choices=CARDS_PHASES,
+    ap.add_argument("--phases", nargs="+",
+                    choices=CARDS_PHASES + tuple(ONE_CARD_PHASES),
                     help="with --cards: only these multi-card phases (a "
-                         "four-card call costs four times its minutes)")
+                         "four-card call costs four times its minutes); "
+                         f"on one card: only {sorted(ONE_CARD_PHASES)}")
     args = ap.parse_args(argv)
+    allowed = CARDS_PHASES if args.cards > 1 else tuple(ONE_CARD_PHASES)
+    if any(p not in allowed for p in args.phases or ()):
+        ap.error(f"--phases with --cards {args.cards}: one of {allowed}")
     if args.cards > 1:
         return main_cards(args.cards, args.phases)
     if not torch.cuda.is_available():
@@ -4228,6 +4243,8 @@ def main(argv=None) -> int:
     log(f"card: {smi}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    if args.phases:
+        return run_one_card_phases(dev, args.phases)
     t_start = time.perf_counter()
     corpus_proc = extract_corpus_in_background()
     try:
@@ -4236,6 +4253,24 @@ def main(argv=None) -> int:
         if corpus_proc[0].poll() is None:
             corpus_proc[0].kill()
             corpus_proc[0].wait()
+
+
+def run_one_card_phases(dev, names) -> int:
+    """``--phases`` on one card: build the kernels, then run only the
+    phases ``ONE_CARD_PHASES`` gives those names, and print their results
+    as the last line."""
+    from spatten_tpu_torch import kernels
+    secs, _ = kernels.build_all()
+    log(f"built in {secs:.1f} s")
+    results = {}
+    for name in names:
+        for fn in ONE_CARD_PHASES[name]:
+            t0 = time.perf_counter()
+            results[fn.__name__] = fn(dev)
+            log(f"[{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+    print(json.dumps({"ok": True, "phases": results}, default=str),
+          flush=True)
+    return 0
 
 
 def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:

@@ -36,6 +36,7 @@ import torch
 
 from spatten_tpu_torch.config import SpAttenConfig
 from spatten_tpu_torch.device import resolve_device
+from spatten_tpu_torch.engine import prefill_graph
 from spatten_tpu_torch.engine.policy import update_head_mask
 from spatten_tpu_torch.engine.sampling import SamplingParams, sample_token
 from spatten_tpu_torch.engine.state import DecodeState, init_state
@@ -143,13 +144,21 @@ def prune_schedule_step(cfg: SpAttenConfig, host_lens: list, num_coming: int
 
 
 def prefill_chunk(params, cfg: SpAttenConfig, state: DecodeState,
-                  tokens: torch.Tensor, *, static_layers=None):
+                  tokens: torch.Tensor, *, static_layers=None,
+                  graph: Optional[prefill_graph.PrefillGraph] = None):
     """Run one chunk of prompt tokens [B, S], pruning first when needed.
-    Consumes ``state``.  Returns (last-token logits [B, V], state, aux)."""
+    Consumes ``state``.  Returns (last-token logits [B, V], state, aux).
+
+    ``graph``: a ``prefill_graph.PrefillGraph`` over ``params`` and
+    ``cfg``; where ``prefill_graph.engages`` (a batch-1, full-length
+    chunk on the card), the forward replays from it after the prune."""
     with tracer.span("engine.prefill", rows=tokens.size(0),
                      tokens=tokens.size(1)):
         state, _ = maybe_prune(cfg, state, tokens.shape[1],
                                static_layers=static_layers)
+        if graph is not None and prefill_graph.engages(
+                cfg, tokens.device.type, tokens.shape):
+            return graph.run(state, tokens)
         logits, state, aux = transformer.forward(params, cfg, state, tokens)
         return logits[:, -1], state, aux
 

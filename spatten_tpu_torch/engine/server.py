@@ -12,6 +12,9 @@ arena's decode steps, so a long prompt never stalls running decodes.
 When the prefill completes, ``state.write_slot`` copies the sub-state
 into the reserved slot and the request joins the next decode step.  With
 nothing decoding, a tick still advances every admission by one chunk.
+On the card an admission's full-length chunks replay from one captured
+CUDA graph (``engine/prefill_graph.py``), shared by every admission; a
+ragged last chunk runs eagerly.
 
 The same two engine steps as ``generate`` run here: ``prefill_chunk``
 (with its prunes checked on the host, as lengths differ per request) and
@@ -33,6 +36,7 @@ import torch
 from spatten_tpu_torch.config import SpAttenConfig
 from spatten_tpu_torch.device import resolve_device
 import spatten_tpu_torch.engine.generate as gen
+from spatten_tpu_torch.engine.prefill_graph import PrefillGraph
 from spatten_tpu_torch.engine.state import (
     DecodeState, init_state, write_slot,
 )
@@ -86,6 +90,8 @@ class SpAttenServer:
         self.pending: List[Request] = []
         self.finished: List[Request] = []
         self._ids = itertools.count()
+        # every admission's full-length chunks replay from one graph
+        self.prefill_graph = PrefillGraph(params, cfg)
 
     # -- client API ---------------------------------------------------------
 
@@ -177,7 +183,8 @@ class SpAttenServer:
                     ids = torch.from_numpy(
                         prompt[None, adm.pos:adm.pos + n]).to(self.device)
                 adm.last_logits, adm.sub, _ = gen.prefill_chunk(
-                    self.params, self.cfg, adm.sub, ids)
+                    self.params, self.cfg, adm.sub, ids,
+                    graph=self.prefill_graph)
                 adm.pos += n
                 if adm.pos < len(prompt):
                     still.append(adm)

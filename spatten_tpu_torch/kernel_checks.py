@@ -404,14 +404,26 @@ class _CpuReplay:
     the CPU from a copy of the state it was given (``params``: f32, on the
     CPU), then runs it; ``got`` / ``want`` collect the card's and the
     CPU's last-token logits [B, V] and ``shapes`` the token shapes.  A
-    tensor-parallel call (``tp_group``) replays its all-reduces on the
-    CPU copies over the same group, so every rank must replay."""
+    prefill chunk that replays from a CUDA graph
+    (``engine.prefill_graph.PrefillGraph.run``) is replayed on the CPU
+    the same way (``graphed`` counts them), and its capture runs the
+    unpatched forward.  A tensor-parallel call (``tp_group``) replays its
+    all-reduces on the CPU copies over the same group, so every rank must
+    replay."""
 
     def __init__(self, params):
+        from spatten_tpu_torch.engine.prefill_graph import PrefillGraph
         from spatten_tpu_torch.models import transformer as tr
         self.tr, self.params = tr, params
         self.run_forward = tr.forward
+        self.graph_cls, self.run_graph = PrefillGraph, PrefillGraph.run
         self.got, self.want, self.shapes = [], [], []
+        self.graphed = 0
+
+    def _keep(self, got, ref, tokens) -> None:
+        self.got.append(got.to("cpu"))
+        self.want.append(ref)
+        self.shapes.append(tuple(tokens.shape))
 
     def forward(self, p, cfg_, state, tokens, rope_tables=None,
                 head_compact=None, **kw):
@@ -421,17 +433,31 @@ class _CpuReplay:
                                _to(head_compact, cpu), **kw)[0]
         out = self.run_forward(p, cfg_, state, tokens, rope_tables,
                                head_compact, **kw)
-        self.got.append(out[0][:, -1].to(cpu))
-        self.want.append(ref[:, -1])
-        self.shapes.append(tuple(tokens.shape))
+        self._keep(out[0][:, -1], ref[:, -1], tokens)
+        return out
+
+    def graph_run(self, runner, state, tokens):
+        cpu = torch.device("cpu")
+        ref = self.run_forward(self.params, runner.cfg, state.clone(cpu),
+                               tokens.to(cpu))[0]
+        self.tr.forward = self.run_forward       # for the capture
+        try:
+            out = self.run_graph(runner, state, tokens)
+        finally:
+            self.tr.forward = self.forward
+        self._keep(out[0], ref[:, -1], tokens)
+        self.graphed += 1
         return out
 
     def __enter__(self):
         self.tr.forward = self.forward
+        self.graph_cls.run = lambda runner, state, tokens: self.graph_run(
+            runner, state, tokens)
         return self
 
     def __exit__(self, *exc):
         self.tr.forward = self.run_forward
+        self.graph_cls.run = self.run_graph
 
     def errors(self) -> list:
         """(|card - CPU| logit max, call index, token shape) of every call,
@@ -499,8 +525,9 @@ def check_server_against_cpu(cfg, params, requests, device: torch.device
                              ) -> dict:
     """Serve ``requests`` ((prompt, max_new_tokens), all submitted at
     once) with ``SpAttenServer`` on ``device`` and hold every forward call
-    (each admission's prefill chunks at batch 1, each lockstep decode
-    tick of the arena) against its replay on the CPU: the single-token
+    (each admission's prefill chunks at batch 1, those that replay from
+    the server's CUDA graph included, each lockstep decode tick of the
+    arena) against its replay on the CPU: the single-token
     calls (K1's: every decode tick, and a prompt's one-token last chunk)
     within ``CPU_REPLAY_LOGIT_TOL``, and the card's greedy token (each
     request's next token) equal to the CPU's argmax wherever the CPU's
@@ -552,6 +579,7 @@ def check_server_against_cpu(cfg, params, requests, device: torch.device
     check(same == clear, f"{clear - same} greedy tokens differ from the "
           "CPU's where its top-2 margin is clear")
     return dict(k1=k1, k2=k2, ticks=ticks, steps=steps, calls=len(rep.got),
+                graphed=rep.graphed,
                 max_logit_err=err, prefill_logit_err=prefill_err,
                 worst_calls=worst, clear_share=clear / sum(
                     w.shape[0] for w in rep.want),

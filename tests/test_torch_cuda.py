@@ -984,12 +984,13 @@ def chat_like_cfg():
 
 
 def test_server_tick_syncs_all_traced(dev):
-    """One ``SpAttenServer.step`` on the card that starts an admission,
-    runs its prefill chunk, finishes it (first token, ``write_slot``) and
-    runs a decode step over the slot already active, under
-    ``torch.cuda.set_sync_debug_mode("warn")``: every synchronising
-    operation torch reports lies in a ``sync.*`` span of the tracer, and
-    every such span holds exactly one."""
+    """One ``SpAttenServer.step`` on the card that starts two admissions,
+    runs their prefill chunks (one full-length, from the prefill graph
+    captured in an earlier tick; one ragged, eager), finishes them (first
+    token, ``write_slot``) and runs a decode step over the slot already
+    active, under ``torch.cuda.set_sync_debug_mode("warn")``: every
+    synchronising operation torch reports lies in a ``sync.*`` span of
+    the tracer, and every such span holds exactly one."""
     import time
     import traceback
     import warnings
@@ -1001,9 +1002,10 @@ def test_server_tick_syncs_all_traced(dev):
     params = tr.init_params(cfg.model, 0, dtype=torch.bfloat16, device=dev)
     srv = SpAttenServer(params, cfg, device=dev)
     srv.submit(np.arange(20) % 251, max_new_tokens=8)
-    srv.step()                        # the first chunk of two
+    srv.step()                        # the first chunk of two (captured)
     srv.step()                        # the second; the first decode
     srv.submit(np.arange(12) * 7 % 251, max_new_tokens=4)
+    srv.submit(np.arange(16) * 5 % 251, max_new_tokens=4)
     torch.cuda.synchronize()
     seen = []
 
@@ -1028,6 +1030,8 @@ def test_server_tick_syncs_all_traced(dev):
         spans = tracer.drain()
     names = [s.name for s in spans]
     assert "server.write_slot" in names and "engine.decode" in names
+    assert names.count("engine.prefill_replay") == 1
+    assert "engine.prefill_capture" not in names
     syncs = [s for s in spans if s.name.startswith("sync.")]
     held = [0] * len(syncs)
     loose = []
@@ -1041,3 +1045,117 @@ def test_server_tick_syncs_all_traced(dev):
         "\n----\n".join(loose)
     assert len(seen) == len(syncs) and set(held) == {1}, \
         [(s.name, n) for s, n in zip(syncs, held)]
+
+
+def chat_geometry_cfg(layers: int):
+    """The chat cell's configuration (``portbench/configs/deepseek-llm-
+    7b-chat.json`` through the harness's ``program_config``: 32 heads of
+    128, hidden 4096, MLP 11008, vocab 102400, capacity 2048, chunks of
+    128) cut to ``layers`` layers."""
+    import json
+    from pathlib import Path
+
+    from portbench.harness import program_config
+    path = (Path(__file__).resolve().parents[1] / "portbench" / "configs"
+            / "deepseek-llm-7b-chat.json")
+    c = json.loads(path.read_text())
+    c["num_hidden_layers"] = layers
+    return program_config(c)
+
+
+def state_fields(state) -> dict:
+    """Every tensor of a decode state by name."""
+    out = {f"k.{n}": x for n, x in state.cache.k._asdict().items()
+           if x is not None}
+    out.update({f"v.{n}": x for n, x in state.cache.v._asdict().items()
+                if x is not None})
+    out.update({n: getattr(state, n) for n in state._fields
+                if n != "cache"})
+    return out
+
+
+def chunks_bit_equal(params, cfg, prompts, dev):
+    """Run the prompts' chunks in turns (one chunk of each prompt in turn,
+    as the server interleaves its admissions) eagerly and through one
+    ``PrefillGraph``: every field of each state, the last logits and the
+    aux equal bit for bit after every chunk; the input's layer lengths
+    are never written and the returned lengths are new tensors.  Returns
+    (graphed chunks, chunks)."""
+    from spatten_tpu_torch.engine.prefill_graph import PrefillGraph
+    runner = PrefillGraph(params, cfg)
+    chunk = cfg.engine.prefill_chunk
+    eager = [init_state(cfg, 1, device=dev) for _ in prompts]
+    graphed = [init_state(cfg, 1, device=dev) for _ in prompts]
+    calls = 0
+    for pos in range(0, max(p.shape[1] for p in prompts), chunk):
+        for i, p in enumerate(prompts):
+            ids = p[:, pos:pos + chunk]
+            if ids.shape[1] == 0:
+                continue
+            want = gen.prefill_chunk(params, cfg, eager[i], ids)
+            before = graphed[i].layer_lengths.clone()
+            got = gen.prefill_chunk(params, cfg, graphed[i], ids,
+                                    graph=runner)
+            calls += 1
+            assert torch.equal(graphed[i].layer_lengths, before)
+            eager[i], graphed[i] = want[1], got[1]
+            assert torch.equal(got[0], want[0]), (i, pos)
+            for x, y in zip(got[2], want[2]):
+                assert torch.equal(x, y), (i, pos)
+            fa, fb = state_fields(got[1]), state_fields(want[1])
+            for name in fb:
+                assert torch.equal(fa[name], fb[name]), (i, pos, name)
+            if runner.out is not None:
+                owned = {x.data_ptr() for x in runner.out}
+                assert not owned & {got[1].lengths.data_ptr(),
+                                    got[1].layer_lengths.data_ptr(),
+                                    got[0].data_ptr()}
+    return runner.replays, calls
+
+
+def test_prefill_graph_chunk_bit_equal_to_eager(dev):
+    """At the chat cell's widths and knobs (2 layers, bf16 weights): three
+    full chunks and a ragged one of a prompt, from the prefill graph (the
+    first captures) and eagerly, bit for bit on every plane, scale,
+    importance, both lengths, the requant count, the last logits and the
+    aux; the ragged chunk runs eagerly."""
+    cfg = chat_geometry_cfg(2)
+    params = tr.init_params(cfg.model, 0, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(0, cfg.model.vocab_size, (1, 3 * 128 + 57),
+                        generator=g, device=dev, dtype=torch.int32)
+    assert chunks_bit_equal(params, cfg, [ids], dev) == (3, 4)
+
+
+def test_prefill_graph_interleaves_admissions_and_prunes(dev):
+    """Two admissions interleaved through the one staging state, past
+    the capacity (prunes before their late chunks), on
+    ``chat_like_cfg()``: every chunk bit-equal to the eager path; then a
+    server with the graph gives the tokens of one without it."""
+    from spatten_tpu_torch.engine.server import SpAttenServer
+    from spatten_tpu_torch.pruning import token_pruning
+    cfg = chat_like_cfg()
+    params = tr.init_params(cfg.model, 0, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    lengths = (20 * 16, 17 * 16 + 9)
+    assert max(lengths) > max(token_pruning.layer_capacities(cfg))
+    prompts = [torch.randint(0, cfg.model.vocab_size, (1, n), generator=g,
+                             device=dev, dtype=torch.int32)
+               for n in lengths]
+    graphed, calls = chunks_bit_equal(params, cfg, prompts, dev)
+    assert (graphed, calls) == (37, 38)
+
+    requests = [(p[0].cpu().numpy(), 6) for p in prompts] + [
+        (np.arange(16 * k + 3) % 251, 4) for k in (1, 3, 5)]
+    tokens = []
+    for with_graph in (True, False):
+        srv = SpAttenServer(params, cfg, device=dev)
+        if not with_graph:
+            srv.prefill_graph = None
+        for p, n in requests:
+            srv.submit(p, n)
+        done = srv.run_to_completion()
+        tokens.append({r.request_id: r.generated for r in done})
+        if with_graph:
+            assert srv.prefill_graph.replays == 37 + 1 + 3 + 5
+    assert tokens[0] == tokens[1]
