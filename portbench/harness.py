@@ -18,14 +18,25 @@ has its update.  After the window: the device's peak memory, then the
 program's state is freed and the reference replays a seed-drawn sample of
 the served requests.
 
+Everything about the model (the port's configuration, the weights, the
+plain reference and the model's operation and byte counts) comes from
+the model path the configuration names (``manifest.path``;
+``paths/__init__.py``).
+
 With ``trace`` the harness also wraps the program's calls from outside
 (synchronised host clocks around ``server.step``, ``generate.
 prefill_chunk``, ``generate.decode_step`` and ``generate.maybe_prune``)
 and runs ``torch.profiler`` over a stretch of ``PROFILED_TICKS`` ticks
 (one that holds a prune where the cell prunes); inside that stretch the
 wrappers neither synchronise nor read the device, and keep references
-that are read once it has closed.  The per-layer readers take their
-numbers from those.
+that are read once it has closed; outside it they note each of their
+synchronisations (``Record.drains``).  It also turns the program's own
+tracer on (``spatten_tpu_torch.utils.profiling.tracer``) from the
+warm-up to the run's last tick and hands its spans to the readers as
+``obs.program``; an untraced run leaves it off.  Inside the stretch each
+program span is also a profiler range, so the idle gaps of ``breakdown``
+fall under the innermost program span that was open.  The per-layer
+readers take their numbers from those.
 """
 
 from __future__ import annotations
@@ -43,21 +54,18 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from portbench import counts, devtrace, hostload, manifest
-from portbench.reference import spatten_ref
+from portbench import devtrace, hostload, manifest
 from portbench.traffic import generate as traffic_gen
-from portbench.weights import make_params
 
 import spatten_tpu_torch.engine.generate as gen
 from spatten_tpu_torch import kernels
-from spatten_tpu_torch.config import (
-    EngineConfig, ModelConfig, PruningConfig, QuantConfig, SpAttenConfig,
-)
+from spatten_tpu_torch.config import SpAttenConfig
 from spatten_tpu_torch.engine import server as server_mod
 from spatten_tpu_torch.engine.state import init_state, write_slot
 from spatten_tpu_torch.models import weight_quant
 from spatten_tpu_torch.pruning import compact as compact_mod
 from spatten_tpu_torch.pruning.token_pruning import layer_capacities
+from spatten_tpu_torch.utils.profiling import tracer
 
 PROFILED_TICKS = 24
 K1_KERNEL = "fused_decode_kernel"
@@ -69,55 +77,6 @@ def log(msg: str) -> None:
 
 
 # ------------------------------------------------------------ the program
-def program_config(c: dict) -> SpAttenConfig:
-    """The port's configuration for a Llama-layout config file."""
-    if c.get("hidden_act", "silu") != "silu":
-        raise ValueError(f"hidden_act {c['hidden_act']}: the port's llama "
-                         f"path runs SwiGLU")
-    for key in ("sliding_window", "rope_scaling"):
-        if c.get(key) is not None:
-            raise ValueError(f"{key} {c[key]!r}: not on the port's path")
-    heads = c["num_attention_heads"]
-    s, e = c["spatten"], c["engine"]
-    model = ModelConfig(
-        vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
-        num_layers=c["num_hidden_layers"], num_heads=heads,
-        num_kv_heads=c["num_key_value_heads"],
-        head_dim=c.get("head_dim") or c["hidden_size"] // heads,
-        intermediate_size=c["intermediate_size"], norm_eps=c["rms_norm_eps"],
-        rope_theta=float(c["rope_theta"]),
-        max_position_embeddings=c["max_position_embeddings"],
-        model_type="llama", activation="silu",
-        tie_word_embeddings=c["tie_word_embeddings"])
-    pruning = PruningConfig(
-        start_size=s["start_size"], important_size=s["important_size"],
-        recent_size=s["recent_size"], enable_token_pruning=True,
-        cascade_layer_ratios=tuple(s["cascade_layer_ratios"]),
-        importance_ema=s["importance_ema"],
-        enable_v_pruning=s["enable_v_pruning"],
-        v_keep_ratio=s["v_keep_ratio"], v_block_size=s["v_block_size"],
-        enable_head_pruning=s["enable_head_pruning"],
-        head_keep=s["head_keep"],
-        head_update_interval=s["head_update_interval"],
-        importance_dtype=s["importance_dtype"])
-    quant = QuantConfig(
-        enabled=s["quant_enabled"], enable_requant=s["enable_requant"],
-        requant_threshold=s["requant_threshold"],
-        quantize_queries=s["quantize_queries"], pv_int8=s["pv_int8"],
-        probs_bf16=s["probs_bf16"], scale_dtype=s["scale_dtype"])
-    engine = EngineConfig(
-        max_batch_size=e["max_batch_size"],
-        cache_capacity=e["cache_capacity"],
-        prefill_chunk=e["prefill_chunk"], decode_window=e["decode_window"],
-        param_dtype=e["param_dtype"], use_pallas=True,
-        rope_mode=e["rope_mode"], layer_cap_rungs=e["layer_cap_rungs"],
-        layer_cap_headroom=e["layer_cap_headroom"],
-        prefill_fp_score=e["prefill_fp_score"],
-        prefill_v_mask=e["prefill_v_mask"])
-    return SpAttenConfig(model=model, pruning=pruning, quant=quant,
-                         engine=engine).validate()
-
-
 def _row(st, i: int):
     """Batch row ``i`` of a decode state, as a batch-1 view."""
     def sl(x):
@@ -189,6 +148,10 @@ class Record:
     tick_info: list = field(default_factory=list)     # per tick (trace)
     k2_calls: list = field(default_factory=list)
     requants: object = None
+    # the wrappers' own synchronisations outside the stretch, (t0, t1)
+    # host s in time order: device time that lands inside the program's
+    # spans around a wrapped call, for ``program_trace`` to leave out
+    drains: list = field(default_factory=list)
 
     def settle(self) -> None:
         """Read what the wrappers and ticks kept as device tensors."""
@@ -263,16 +226,21 @@ class Wrapped:
         rec, dev = self.rec, self.dev
 
         def wrap(orig):
+            def drain():
+                d0 = time.perf_counter()
+                _sync(dev)
+                d1 = time.perf_counter()
+                rec.drains.append((d0, d1))
+                return d1
+
             def timed(*a, **kw):
                 quiet = rec.profiling
                 if not quiet:
-                    _sync(dev)
+                    drain()
                 t0 = time.perf_counter()
                 with torch.profiler.record_function(name):
                     out = orig(*a, **kw)
-                if not quiet:
-                    _sync(dev)
-                t1 = time.perf_counter()
+                t1 = time.perf_counter() if quiet else drain()
                 rec.spans.setdefault(name, []).append(
                     (t0, t1, info(a, kw, out)))
                 return out
@@ -358,9 +326,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     if dev.type == "cuda":
         kernels.build_all()
     phase("kernels")
-    cfg = program_config(c)
-    params = make_params(c, seed, dev,
-                         getattr(torch, c["engine"]["param_dtype"]))
+    path = manifest.path(c, bench_dir)
+    cfg = path.program_config(c)
+    params = path.make_params(c, seed, dev,
+                              getattr(torch, c["engine"]["param_dtype"]))
     if control not in (None, "int8", "fp8"):
         raise ValueError(f"control {control!r}")
     served = params
@@ -389,6 +358,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     try:
         if trace and dev.type == "cuda":
             _warm_profiler(dev)
+        if trace:
+            tracer.enable()
 
         def tick():
             rec.tick_start.append(time.perf_counter())
@@ -479,6 +450,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
             probed_tick()
     finally:
         wrapped.restore()
+        tracer.disable()
     rec.settle()
     phase(f"window ({last_tick - first_tick} ticks; then "
           f"{rec.tick - last_tick} for the head-mask check)")
@@ -490,8 +462,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         config=c, cfg=cfg, cell=cell, spec=spec, rec=rec, seconds=seconds,
         setup_s=setup_s, window_s=w1 - w0, w0=w0, w1=w1,
         first_tick=first_tick, last_tick=last_tick, rungs=rungs,
-        sessions=sessions, counts=counts, stretch=None)
-    obs.knobs = spatten_ref.Knobs.from_config(c)
+        sessions=sessions, path=path, counts=path.counts, stretch=None,
+        program=tracer.drain() if trace else None)
+    obs.knobs = path.reference.Knobs.from_config(c)
     obs.window_spans = lambda name, profiled=False: window_spans(
         obs, name, profiled)
     tokens, gaps, ttfts, attempted = window_stats(obs)
@@ -518,7 +491,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     gaps: list = []
     readings: dict = {}
     compared = judge(c, params, rows, mask_table, mask_probe, lim, dev, gaps,
-                     control, readings, tallies)
+                     control, readings, tallies, ref_mod=path.reference)
     phase(f"reference ({len(rows)} requests)")
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}
@@ -836,17 +809,17 @@ def gap_numbers(gaps: list, rows: list, chunk: int) -> dict:
     return numbers
 
 
-def control_readings(knobs, params: dict, rows: list, mask_table,
+def control_readings(ref_mod, knobs, params: dict, rows: list, mask_table,
                      logits: list, dev) -> dict:
     """Readings of the numbers for two stand-ins judged at the same
     positions against the same float32 logits (``logits``, per row): the
     reference computed in float8 e4m3 put in the program's place (at each
     position the token it puts first), and a served token altered where
     it is produced (the reference's first token + 1)."""
-    ref = spatten_ref.Reference(knobs, params, dev, precision="fp8")
+    ref = ref_mod.Reference(knobs, params, dev, precision="fp8")
     low: list = []
     with torch.no_grad():
-        spatten_ref.judge(ref, rows, mask_table, low)
+        ref_mod.judge(ref, rows, mask_table, low)
     del ref
 
     def gaps_of(pick):
@@ -874,9 +847,10 @@ def verdict(numbers: dict, lim: dict) -> dict:
 def judge(c: dict, params: dict, rows: list, mask_table, probe, lim: dict,
           dev, gaps_out: list, control: str | None = None,
           readings_out: dict | None = None,
-          tallies: dict | None = None) -> dict:
+          tallies: dict | None = None, *, ref_mod) -> dict:
     """The numbers compared, each with its limit: the widest gap by which
-    a served token's reference logit lies below the reference's best;
+    a served token's reference logit lies below the reference's best
+    (``ref_mod``: the model path's reference);
     the tokens judged and the ``tallies`` of the sample; the serving head
     mask against the one the reference works out from the program's
     importance at the update the probe took.  With ``control`` "fp8" the
@@ -884,11 +858,11 @@ def judge(c: dict, params: dict, rows: list, mask_table, probe, lim: dict,
     (``readings_out["verdicts"]``: a stand-in the check passes would be
     a control it cannot see)."""
     readings_out = {} if readings_out is None else readings_out
-    knobs = spatten_ref.Knobs.from_config(c)
+    knobs = ref_mod.Knobs.from_config(c)
     out = {}
     if probe is not None:
         imp, lens, mask = probe
-        ref_mask, sums = spatten_ref.head_mask_from_importance(
+        ref_mask, sums = ref_mod.head_mask_from_importance(
             knobs, imp, lens, c["spatten"]["head_keep"])
         # a layer whose kept and dropped groups lie within 1e-5 of each
         # other may break the tie either way
@@ -911,14 +885,15 @@ def judge(c: dict, params: dict, rows: list, mask_table, probe, lim: dict,
     torch.backends.cudnn.allow_tf32 = False
     try:
         logits = [] if control == "fp8" else None
-        ref = spatten_ref.Reference(knobs, params, dev)
+        ref = ref_mod.Reference(knobs, params, dev)
         with torch.no_grad():
-            gaps = spatten_ref.judge(ref, rows, mask_table, logits)
+            gaps = ref_mod.judge(ref, rows, mask_table, logits)
         gaps_out.extend(gaps)
         del ref
         if control == "fp8":
-            readings_out.update(control_readings(knobs, params, rows,
-                                                 mask_table, logits, dev))
+            readings_out.update(control_readings(ref_mod, knobs, params,
+                                                 rows, mask_table, logits,
+                                                 dev))
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev_tf32

@@ -6,6 +6,8 @@ kept V blocks) over K1's device time times 3.35 TB/s.  A layer's
 requants are given to its shortest live (slot, head) pairs, so the
 count errs low."""
 
+from portbench import counts
+
 
 def read(obs):
     st = obs.stretch
@@ -14,12 +16,10 @@ def read(obs):
     k1_s, k1_n = st["k1"]
     if not k1_n or k1_s <= 0:
         return None
-    c, counts, rec = obs.config, obs.counts, obs.rec
+    c, model, rec, knobs = obs.config, obs.counts, obs.rec, obs.knobs
     s = c["spatten"]
-    hq, hkv = c["num_attention_heads"], c["num_key_value_heads"]
-    g = hq // hkv
-    dh = c.get("head_dim") or c["hidden_size"] // hq
-    knobs = obs.knobs
+    # the cached heads as the model path's reference lays them out
+    hkv, g, dh = knobs.kv_heads, knobs.group, knobs.head_dim
     sb = 2 if s["scale_dtype"] == "bfloat16" else 4
     ib = 2 if s["importance_dtype"] == "bfloat16" else 4
     total = 0
@@ -40,7 +40,7 @@ def read(obs):
             kb = knobs.keep_blocks(l)
             kept = [[min(kb * knobs.v_block, n) if kb else n] * hkv
                     for n in n_l]
-            total += counts.k1_bytes(
+            total += model.k1_bytes(
                 n_l, alive, fired, kept, kv_heads=hkv, group=g,
                 head_dim=dh, capacity=knobs.cap, rung=knobs.rungs[l],
                 scale_bytes=sb, imp_bytes=ib)

@@ -4,6 +4,8 @@ profiled stretch, in %: the bytes its compactions need (each moved
 ``counts.k2_bytes``, from each call's keep indices) over K2's device time
 times 3.35 TB/s.  Nothing to read where the stretch holds no prune."""
 
+from portbench import counts
+
 
 def read(obs):
     st = obs.stretch
@@ -13,9 +15,7 @@ def read(obs):
     calls = obs.rec.k2_calls
     if not k2_n or k2_s <= 0 or not calls:
         return None
-    c = obs.config
-    hq = c["num_attention_heads"]
-    dh = c.get("head_dim") or c["hidden_size"] // hq
-    total = sum(obs.counts.k2_bytes(moved, kept, c["num_key_value_heads"],
-                                    dh) for moved, kept in calls)
-    return 100.0 * total / (k2_s * obs.counts.PEAK_HBM_BYTES_PER_S)
+    knobs = obs.knobs
+    total = sum(obs.counts.k2_bytes(moved, kept, knobs.kv_heads,
+                                    knobs.head_dim) for moved, kept in calls)
+    return 100.0 * total / (k2_s * counts.PEAK_HBM_BYTES_PER_S)

@@ -4,8 +4,10 @@ in the window; one still waiting at the window's end counts its wait so
 far.  In ms.  Read in the traced run, whose wrapped calls synchronise
 outside the profiled stretch."""
 
+from portbench import counts
+
 
 def read(obs):
     if not obs.ttfts:
         return None
-    return 1e3 * obs.counts.percentile(obs.ttfts, 0.95)
+    return 1e3 * counts.percentile(obs.ttfts, 0.95)

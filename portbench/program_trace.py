@@ -11,12 +11,14 @@ prints that result line), with the port's tracer
 prints one more JSON line: the numbers below, the split of the ticks,
 the sync sites, each span name's time, the profiled stretch's idle gaps
 under the innermost host range however long it is
-(``idle_gaps_nested``) and the tracer's own cost on this host.  The
-harness is not changed: ``harness.run`` hands its observations (the
-window, its ticks and which of them were profiled) to ``window_stats``
-once the window has closed, and the stretch's trace to
-``devtrace.idle_gaps``, and this module takes them there.  A traced run
-of ``portbench.run`` itself is the same run with the tracer off.
+(``idle_gaps_nested``) and the tracer's own cost on this host.
+``harness.run`` hands its observations (the window, its ticks and which
+of them were profiled) to ``window_stats`` once the window has closed,
+and the stretch's trace to ``devtrace.idle_gaps``, and this module takes
+them there.  A traced run turns the tracer on itself from the warm-up
+and keeps its spans as ``obs.program``: the readers
+``metrics/<number>.py`` read each number below from them, and this
+module reads the same spans, so its numbers are the result line's.
 
 The numbers, each ``fn(obs, spans)`` over the tracer's drained spans and
 the harness's observations; a window tick is matched to its
@@ -24,22 +26,24 @@ the harness's observations; a window tick is matched to its
 profiled ticks (the profiler slows them); "in the stretch" keeps only
 those, the ticks whose wrapped calls do not synchronise before and after
 (elsewhere the wrappers drain the device, so the program's own reads
-find it idle).  The wrappers' synchronisations around ``decode_step``
-and ``prefill_chunk`` fall in a tick's own time, outside its children;
-those around ``maybe_prune`` fall inside ``engine.decode`` and
-``engine.prefill`` (a few µs where the prune itself has just read the
-device).
+find it idle).  Outside the stretch the wrappers' own synchronisations
+(``obs.rec.drains``) wait for the device inside the program's spans:
+those around ``prefill_chunk`` inside ``server.admission``, those around
+``maybe_prune`` inside ``engine.decode`` and ``engine.prefill``; those
+around ``decode_step`` fall in a tick's own time, outside its children.
+The issue numbers leave them out with the ``sync.*`` spans.
 
 - ``server.issue_ms``: host ms a tick in ``server.tick``'s child spans,
-  their ``sync.*`` spans left out: the host's own work (Python,
-  allocation, launches); outside the stretch.
+  their ``sync.*`` spans and the wrappers' drains left out: the host's
+  own work (Python, allocation, launches); outside the stretch.
 - ``server.sync_wait_ms``: host ms a tick in ``sync.*`` spans; in the
   stretch.
 - ``server.syncs_per_tick``: ``sync.*`` spans a tick; every window tick.
 - ``server.prefill_rows``: mean ``rows`` of the ``engine.prefill`` spans
   under ``server.admission``; every window tick.
 - ``engine.decode_issue_ms``: host ms an ``engine.decode`` span, its
-  ``sync.*`` spans left out; outside the stretch.
+  ``sync.*`` spans and the wrappers' drains left out; outside the
+  stretch.
 - ``k1.host_us``: host µs a ``k1.launch`` span (K1's operand checks,
   allocations and ctypes call); outside the stretch.
 """
@@ -89,6 +93,21 @@ def _sync_ms(spans, idx) -> float:
     return sum(spans[j].ms for j in idx if spans[j].name.startswith(SYNC))
 
 
+def _drain_ms(obs, spans, idx) -> float:
+    """Host ms of the wrappers' synchronisations (``obs.rec.drains``)
+    that lie inside the spans ``idx``, none of which holds another."""
+    drains = getattr(obs.rec, "drains", [])
+    starts = [d0 for d0, _ in drains]
+    total = 0.0
+    for j in idx:
+        t0, t1 = spans[j].t0 * 1e-9, spans[j].t1 * 1e-9
+        k = bisect.bisect_left(starts, t0)
+        while k < len(drains) and drains[k][1] <= t1:
+            total += drains[k][1] - drains[k][0]
+            k += 1
+    return 1e3 * total
+
+
 def _descendants(spans, i: int, under: list) -> list:
     """The spans under span ``i`` among ``under`` (a tick's spans, in
     the order they opened)."""
@@ -109,8 +128,10 @@ def issue_ms(obs, spans):
     for profiled, i, under in tick_trees(obs, spans):
         if profiled:
             continue
-        kids = sum(spans[j].ms for j in under if spans[j].parent == i)
-        per_tick.append(kids - _sync_ms(spans, under))
+        kids = [j for j in under if spans[j].parent == i]
+        per_tick.append(sum(spans[j].ms for j in kids)
+                        - _sync_ms(spans, under)
+                        - _drain_ms(obs, spans, kids))
     return _mean(per_tick)
 
 
@@ -139,8 +160,9 @@ def decode_issue_ms(obs, spans):
             continue
         for j in under:
             if spans[j].name == "engine.decode":
-                out.append(spans[j].ms - _sync_ms(
-                    spans, _descendants(spans, j, under)))
+                out.append(spans[j].ms
+                           - _sync_ms(spans, _descendants(spans, j, under))
+                           - _drain_ms(obs, spans, [j]))
     return _mean(out)
 
 
@@ -163,11 +185,11 @@ NUMBERS = {
 
 def tick_split(obs, spans) -> dict:
     """Per tick, in and outside the stretch: the tick's span, its
-    children's, the host's own work and the sync waits in them, the
-    tick's own time (the wrappers' and the server's code between
-    children), the harness's time between ticks, each child and each
-    sync site (ms a tick, and spans a tick), and the children's share of
-    the tick."""
+    children's, the host's own work, the sync waits and the wrappers'
+    drains in them, the tick's own time (the wrappers' and the server's
+    code between children), the harness's time between ticks, each child
+    and each sync site (ms a tick, and spans a tick), and the children's
+    share of the tick."""
     ticks = tick_trees(obs, spans)
     order = sorted(i for _, i, _ in ticks)
     after = dict(zip(order, order[1:]))       # each tick's next tick
@@ -181,6 +203,9 @@ def tick_split(obs, spans) -> dict:
         kids = sum(spans[j].ms for i, u in sel for j in u
                    if spans[j].parent == i)
         syncs = sum(_sync_ms(spans, u) for _, u in sel)
+        drains = sum(_drain_ms(obs, spans, [j for j in u
+                                            if spans[j].parent == i])
+                     for i, u in sel)
         by_child, by_sync = defaultdict(float), defaultdict(float)
         n_sync = defaultdict(int)
         for i, u in sel:
@@ -196,7 +221,8 @@ def tick_split(obs, spans) -> dict:
                    for i, _ in sel if i in after]
         out[where] = {
             "ticks": n, "tick_ms": tick / n, "children_ms": kids / n,
-            "issue_ms": (kids - syncs) / n, "sync_ms": syncs / n,
+            "issue_ms": (kids - syncs - drains) / n, "sync_ms": syncs / n,
+            "drain_ms": drains / n,
             "self_ms": (tick - kids) / n,
             "between_ms": _mean(between),
             "children_share": kids / tick if tick else None,
@@ -209,7 +235,9 @@ def tick_split(obs, spans) -> dict:
 
 def by_name(obs, spans) -> dict:
     """Per window tick outside the stretch, for each span name: spans,
-    host ms, and self ms (the span's time less its children's)."""
+    host ms, and self ms (the span's time less its children's).  The
+    wrappers' drains sit in the times of the spans around a wrapped call
+    (``server.admission``, ``engine.decode``, ``engine.prefill``)."""
     out: dict = {}
     ticks = [(i, u) for p, i, u in tick_trees(obs, spans) if not p]
     for i, u in ticks:
@@ -258,23 +286,31 @@ def idle_gaps_nested(tr: dict, busy: list, k: int | None = 10) -> list:
 
 
 def tracer_cost(n: int = 20000) -> dict:
-    """Host µs for a span site with the tracer on (no profiler recording)
-    and off, on this host: the best of 5 loops of ``n``."""
+    """Host µs for a span site with the tracer on (no profiler
+    recording), on with a profiler recording the host (the span then
+    also opens a profiler range, as in the stretch) and off, on this
+    host: the best of 5 loops of ``n``."""
+    import torch
     from spatten_tpu_torch.utils.profiling import tracer
     was = tracer.on
     best = {}
     try:
-        for on in (True, False):
+        for key, on in (("on_us", True), ("profiled_us", True),
+                        ("off_us", False)):
             tracer.on = on
             t_best = float("inf")
             for _ in range(5):
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    with tracer.span("cost"):
-                        pass
-                t_best = min(t_best, time.perf_counter() - t0)
+                prof = (torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU])
+                    if key == "profiled_us" else contextlib.nullcontext())
+                with prof:
+                    t0 = time.perf_counter()
+                    for _ in range(n):
+                        with tracer.span("cost"):
+                            pass
+                    t_best = min(t_best, time.perf_counter() - t0)
                 tracer.drain()
-            best["on_us" if on else "off_us"] = 1e6 * t_best / n
+            best[key] = 1e6 * t_best / n
     finally:
         tracer.on = was
     return best
@@ -313,7 +349,8 @@ def taken():
     in the yielded dict, ``obs`` (its observations, at
     ``window_stats``) and ``trace`` (the profiled stretch's trace and
     busy intervals, at ``devtrace.idle_gaps``).  On exit the tracer is
-    off and its spans are under ``spans``."""
+    off and its spans are under ``spans``: those a traced run kept as
+    ``obs.program``, else those the tracer still holds."""
     from portbench import devtrace, harness
     from spatten_tpu_torch.utils.profiling import tracer
 
@@ -335,7 +372,9 @@ def taken():
     finally:
         tracer.disable()
         harness.window_stats, devtrace.idle_gaps = window_stats, idle_gaps
-        seen["spans"] = tracer.drain()
+        held = tracer.drain()
+        program = getattr(seen.get("obs"), "program", None)
+        seen["spans"] = held if program is None else program
 
 
 def main(argv=None) -> int:

@@ -14,7 +14,7 @@ import torch
 import spatten_tpu_torch.engine.generate as gen
 from spatten_tpu_torch.engine.server import SpAttenServer
 from spatten_tpu_torch.models import transformer
-from portbench import harness
+from portbench import harness, manifest
 from portbench.reference import spatten_ref
 from portbench.tests import tiny
 from portbench.traffic import generate as traffic_gen
@@ -42,7 +42,7 @@ def test_reference_equals_the_port_plain_path(history):
     its f32 scale where the reference reads the stored one."""
     c = plain_config()
     c["spatten"]["scale_dtype"] = "float32"
-    cfg = harness.program_config(c)
+    cfg = manifest.path(c).program_config(c)
     params = make_params(c, 11, "cpu", torch.float32)
     srv = SpAttenServer(params, cfg, device="cpu")
     spec = dict(tiny.TRAFFIC["long"], history_min=history[0],

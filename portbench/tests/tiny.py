@@ -1,5 +1,6 @@
 """A tiny copy of the benchmark for the CPU tests: a two-layer model at
-the serving knobs' shapes, both traffic kinds, the real metric readers."""
+the serving knobs' shapes, both traffic kinds, the real metric readers
+and model paths."""
 
 from __future__ import annotations
 
@@ -48,7 +49,9 @@ def make_root(tmp: Path) -> tuple[Path, Path, dict]:
     bdir = root / "portbench"
     for sub in ("configs", "traffic", "limits"):
         (bdir / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(BENCH / "metrics", bdir / "metrics", dirs_exist_ok=True)
+    for sub in ("metrics", "paths"):
+        shutil.copytree(BENCH / sub, bdir / sub, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     (bdir / "configs" / "tiny.json").write_text(json.dumps(tiny_config()))
     bench = copy.deepcopy(manifest.load())
     bench["configs"] = [{"name": "tiny", "source": "test",
