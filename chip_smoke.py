@@ -178,6 +178,13 @@ line, and the ``{"ok": true, ...}`` line.
 ``--phases server`` on one card builds the kernels and runs only the
 server's two phases (``server_small_check``, ``phase_server``); each
 reports how many prefill chunks replayed from the server's CUDA graph.
+``--phases latent`` runs only DeepSeek-V2-Lite's three card checks, which
+the full run holds too: ``phase_k1_latent`` (K1 at the latent row's
+shape, at capacity 2048 and both rungs of 4096, against its plain
+version, and timed), ``phase_grouped_gemm`` (the expert layer's grouped
+GEMMs against the loop over experts, and from a CUDA graph) and
+``phase_server_latent`` (the server on the latent model: K1 once per
+layer and decode tick).
 """
 
 from __future__ import annotations
@@ -192,6 +199,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1858,6 +1866,235 @@ CAPACITY_CASES = {
         3000, 1500, 60, True, (6, 6),
         [1500, 1499, 1494, 1200, 751, 750, 33, 3]),
 }
+
+
+# DeepSeek-V2-Lite's attention as the port caches it: one latent row of
+# 512 + 64 lanes read by 16 query heads, at the cell's batch and capacity
+LATENT_BATCH, LATENT_CAP = 128, 2048
+
+
+def latent_config(layers: int = 2, batch: int = LATENT_BATCH):
+    """``portbench``'s ``deepseek-v2-lite`` configuration (the cell's
+    widths and serving knobs) at ``layers`` layers and ``batch`` rows."""
+    import json
+    from portbench import manifest
+    c = json.loads((Path(__file__).resolve().parent / "portbench" /
+                    "configs" / "deepseek-v2-lite.json").read_text())
+    c["num_hidden_layers"] = layers
+    c["engine"]["max_batch_size"] = batch
+    return manifest.path(c).program_config(c)
+
+
+def phase_k1_latent(dev) -> dict:
+    """K1 at the latent shape (batch 128, one kv head of 576 lanes, group
+    16, the cell's serving flags, per-row importance in delta mode as
+    ``run_layers`` calls it for a latent cache, a partly masked group):
+    at the cell's capacity 2048 (whose one rung is 2048: the pack unit
+    spans it) and at capacity 4096 in both its rungs (4096 and 2048, as
+    a longer cell's layers would run), each held against its plain
+    version, then timed beside the bytes the latent needs
+    (``portbench/counts_deepseek_v2.k1_bytes``)."""
+    from portbench import counts_deepseek_v2 as dcounts
+    from spatten_tpu_torch import kernel_checks as kc
+    from spatten_tpu_torch.ops import fused_decode as fd
+    out, lines = {}, []
+    for cap, rung in ((LATENT_CAP, LATENT_CAP), (2 * LATENT_CAP,
+                                                2 * LATENT_CAP),
+                      (2 * LATENT_CAP, LATENT_CAP)):
+        cfg = latent_config()
+        cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, cache_capacity=cap))
+        m, vb = cfg.model, cfg.pruning.v_block_size
+        w, hq = m.cache_dim, m.num_heads
+        plan = fd.k1_plan(hq, w, rung, vb)
+        check(plan.inst == 8 and plan.rows == 16 and plan.dim == 256
+              and fd.lane_pieces(w) == 3, f"latent plan {plan}")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+        st = kc.random_state(cfg, LATENT_BATCH, gen, dev)
+        q = torch.randn((LATENT_BATCH, hq, 1, w), generator=gen, device=dev)
+        row = torch.randn((LATENT_BATCH, 1, 1, w), generator=gen,
+                          device=dev)
+        hm = torch.ones(hq, dtype=torch.bool, device=dev)
+        hm[[1, 6, 11, 12]] = False                 # the serving 12 of 16
+        lengths = torch.randint(1, rung + 1, (LATENT_BATCH,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        lengths[0], lengths[1] = rung, 1
+        r = k1_case(st, q, row, row, lengths, cfg, 0, rung, head_mask=hm,
+                    delta_mode=True, per_row_importance=True,
+                    sm_scale=m.softmax_scale)
+        kw = dict(r["kw"], layer=0, requant_threshold=r["threshold"],
+                  v_block_size=vb, head_mask=hm, per_row_importance=True)
+
+        def call(fn, i):
+            return fn(q, st.cache.k, st.cache.v, row, row, lengths,
+                      importance_in=None, **dict(kw, layer=i % 2))
+        ms = device_ms(lambda i: call(fd.fused_decode_attention, i), 8)
+        stats = call(fd.fused_decode_attention, 0)[1]
+        kb = fd._v_keep_blocks(kw["v_keep"], vb, rung, 0)
+        n = lengths.tolist()
+        fired = [bool(x) for x in stats.need_requant[:, 0].tolist()]
+        kept = [min(kb * vb, x) if kb else x for x in n]
+        live = int(hm.sum())
+        byts = dcounts.k1_bytes(
+            n, [[live > 0]] * len(n), [[f] for f in fired],
+            [[k] for k in kept], kv_heads=1, group=hq, head_dim=w,
+            capacity=cap, rung=rung, scale_bytes=2, imp_bytes=2,
+            rope=m.qk_rope_head_dim, live_heads=[[live]] * len(n))
+        bound = byts / 3.35e12 * 1e3
+        lines.append(f"K1 latent capacity {cap} rung {rung}: vs plain max "
+                     f"|out err| {r['max_abs_err']:.2e} (fires "
+                     f"{r['fired']}); {ms:.4f} ms, bound {bound:.4f} ms "
+                     f"({byts} B, {100 * bound / ms:.2f}% of roofline)")
+        out[f"{cap}/{rung}"] = dict(max_abs_err=r["max_abs_err"], ms=ms,
+                                    bound_ms=bound, bytes=byts,
+                                    fired=r["fired"])
+        del st
+        free()
+    for line in lines:
+        log(line)
+    return out
+
+
+def phase_grouped_gemm(dev) -> dict:
+    """DeepSeek-V2-Lite's expert layer on the card: ``torch._grouped_mm``
+    in bf16 (the routed dispatch of ``models/moe.experts``) against the
+    plain loop over experts, at a decode step's and an admission chunk's
+    128 tokens (768 picks over 64 experts of 1408) and at 5 tokens
+    (most experts get none), then inside a captured CUDA graph (bit-equal
+    to eager), then timed beside the bytes it needs
+    (``counts_deepseek_v2.moe_bytes``); the device kernels' names."""
+    from portbench import counts_deepseek_v2 as dcounts
+    from spatten_tpu_torch.models import moe
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    d, inter, n_exp, k = 2048, 1408, 64, 6
+    bf = torch.bfloat16
+    wgu = (torch.randn((n_exp, 2 * inter, d), generator=gen, device=dev)
+           / math.sqrt(d)).to(bf)
+    wd = (torch.randn((n_exp, d, inter), generator=gen, device=dev)
+          / math.sqrt(inter)).to(bf)
+    router = (torch.randn((d, n_exp), generator=gen, device=dev)
+              / math.sqrt(d)).to(bf)
+    res = {"torch": torch.__version__}
+    for t in (128, 5):
+        h = torch.randn((t, d), generator=gen, device=dev).to(bf)
+        wts, idx = moe.route(h, router, k)
+        got, offs = moe.experts(h, wgu, wd, wts, idx)
+        want = moe.experts_loop(h, wgu, wd, wts, idx)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        hits = moe.counts(offs)
+        check(int(hits.sum()) == t * k, "grouped offsets lose rows")
+        check(err <= 2e-2 * scale, f"grouped GEMM vs loop: {err} of {scale}")
+        res[f"tokens_{t}"] = dict(max_abs_err=err, max_abs=scale,
+                                  idle_experts=int((hits == 0).sum()))
+        log(f"grouped GEMM, {t} tokens: max |err| {err:.3e} of {scale:.3e}"
+            f", {int((hits == 0).sum())} experts idle")
+    h = torch.randn((128, d), generator=gen, device=dev).to(bf)
+    wts, idx = moe.route(h, router, k)
+    eager, _ = moe.experts(h, wgu, wd, wts, idx)
+    hs, ws, ids = h.clone(), wts.clone(), idx.clone()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        moe.experts(hs, wgu, wd, ws, ids)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out, g_offs = moe.experts(hs, wgu, wd, ws, ids)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(g_out, eager), "grouped GEMM graph replay != eager")
+    ms = device_ms(lambda i: moe.experts(h, wgu, wd, wts, idx), 20)
+    byts = dcounts.moe_bytes(moe.counts(g_offs).tolist(), d, inter)
+    bound = byts / 3.35e12 * 1e3
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        moe.experts(h, wgu, wd, wts, idx)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    res.update(graph_equal=True, ms=ms, bound_ms=bound, bytes=byts,
+               kernels=names)
+    log(f"grouped GEMM 128 tokens: {ms:.4f} ms, bound {bound:.4f} ms "
+        f"({byts} B, {100 * bound / ms:.1f}% of roofline); kernels {names}")
+    return res
+
+
+# (prompt tokens, budget) of phase_server_latent's requests: full-length
+# admission chunks (from the prefill graph), ragged ones and short ones
+LATENT_SERVER_REQUESTS = ((384, 12), (130, 20), (40, 8), (700, 6),
+                          (256, 16), (17, 24), (513, 10), (128, 14),
+                          (90, 18), (1000, 5), (3, 9), (300, 11))
+
+
+def phase_server_latent(dev) -> dict:
+    """``SpAttenServer`` at DeepSeek-V2-Lite's widths on 2 layers
+    (``latent_config(2, 8)``: layer 0 dense, layer 1 with its 64 experts;
+    random bf16 weights; 8 slots): ``LATENT_SERVER_REQUESTS`` run to
+    completion with K1's launch count set to 0 just before and read just
+    after.  Every request must finish with exactly its budget and every
+    slot end free; K1 must launch once per layer and single-token call
+    (each decode tick, and the one-token last chunk of the 513-token
+    prompt's admission): the latent row through the kernel on every
+    layer, no plain version; the full-length admission chunks replay from
+    the prefill graph."""
+    from spatten_tpu_torch.engine import generate as gen
+    from spatten_tpu_torch.engine.server import SpAttenServer
+    from spatten_tpu_torch.models import transformer as tr
+    from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    cfg = latent_config(2, 8)
+    m = cfg.model
+    check(tr.decode_uses_kernel(cfg, "cuda"),
+          "latent server: the gate sends decode to the plain version")
+    params = tr.init_params(m, SEED, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(SEED + 29)
+    srv = SpAttenServer(params, cfg, device=dev)
+    budget = {srv.submit(rng.integers(0, m.vocab_size, n), new): new
+              for n, new in LATENT_SERVER_REQUESTS}
+    run_decode_step, run_prefill_chunk = gen.decode_step, gen.prefill_chunk
+    ticks = singles = 0
+
+    def decode_step(*args, **kw):
+        nonlocal ticks
+        ticks += 1
+        return run_decode_step(*args, **kw)
+
+    def prefill_chunk(p, c, state, ids, **kw):
+        nonlocal singles
+        singles += ids.shape[1] == 1
+        return run_prefill_chunk(p, c, state, ids, **kw)
+
+    fused_decode_attention.launches = 0
+    gen.decode_step, gen.prefill_chunk = decode_step, prefill_chunk
+    t0 = time.perf_counter()
+    try:
+        done = srv.run_to_completion()
+    finally:
+        gen.decode_step = run_decode_step
+        gen.prefill_chunk = run_prefill_chunk
+    wall = time.perf_counter() - t0
+    k1 = fused_decode_attention.launches
+    graphed = srv.prefill_graph.replays
+    check(sorted(r.request_id for r in done) == sorted(budget),
+          "latent server: not every request finished")
+    check(all(len(r.generated) == budget[r.request_id] for r in done),
+          "latent server: a request did not emit exactly its budget")
+    check(sorted(srv.free_slots) == list(range(srv.batch)),
+          f"latent server: slots {srv.free_slots} are not all free")
+    check(ticks > 0 and singles > 0
+          and k1 == m.num_layers * (ticks + singles),
+          f"latent server: K1 launched {k1} times for {ticks} decode ticks "
+          f"and {singles} one-token chunks of {m.num_layers} layers")
+    check(graphed >= 1, "latent server: no admission chunk from the graph")
+    log(f"latent server (DeepSeek-V2-Lite widths, {m.num_layers} layers, "
+        f"{srv.batch} slots): {len(done)} requests in {ticks} decode "
+        f"ticks, {wall:.2f} s; K1 launches {k1} (= {m.num_layers} x "
+        f"({ticks} decode ticks + {singles} one-token chunks), none in the "
+        f"plain version); prefill chunks from the graph {graphed}")
+    del params, srv
+    free()
+    return dict(k1=k1, ticks=ticks, single_chunks=singles,
+                layers=m.num_layers, wall_s=wall, graphed=graphed)
 
 
 def phase_k1_capacity(dev) -> dict:
@@ -4112,7 +4349,9 @@ def phase_cards_cli(dev, cards: int) -> dict:
 
 CARDS_PHASES = ("sharded", "70b", "pipeline", "cli", "split-k")
 # one card, ``--phases``: the phases each name runs
-ONE_CARD_PHASES = {"server": (server_small_check, phase_server)}
+ONE_CARD_PHASES = {"server": (server_small_check, phase_server),
+                   "latent": (phase_k1_latent, phase_grouped_gemm,
+                              phase_server_latent)}
 
 
 def main_cards(cards: int, only=None) -> int:
@@ -4329,6 +4568,7 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
     k1_shards = timed(phase_k1_shard_shapes, dev)
     k1_round = timed(phase_k1_rounding, dev)
     k1_skip = timed(phase_k1_skip_append, dev)
+    k1_latent = timed(phase_k1_latent, dev)
     k2_pr1 = timed(phase_k2, dev, b=4, cap=1024, hkv=32, d=128,
                    keep_max=772, window=1024,
                    lengths=[1024, 1024, 900, 1000], triggered=[1, 0, 1, 1],
@@ -4340,6 +4580,7 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
                    triggered=[1, 1, 1, 0, 1, 1, 1, 1],
                    keep_count=[976, 976, 976, 976, 600, 976, 976, 976])
     split = timed(phase_split_k, dev)
+    grouped = timed(phase_grouped_gemm, dev)
     probe = timed(phase_launch_probe, dev)
     timed(small_reference_check, dev)
     gate = timed(phase_gate, dev)
@@ -4397,6 +4638,7 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
     free()
     depth70 = timed(phase_70b_depth, dev)
     server = timed(phase_server, dev)
+    server_latent = timed(phase_server_latent, dev)
     trace = timed(phase_trace, dev)
     replay = timed(phase_replay, dev, trace)
     supervised = timed(phase_supervised, dev)
@@ -4422,6 +4664,8 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
              "OpenLLaMA-3B": openllama, "server": server}
     k1_by_path = {k: v["k1"] for k, v in paths.items()}
     k1_by_path.update({"server, small f32": small_server["k1"],
+                       "server, DeepSeek-V2-Lite widths, 2 layers":
+                       server_latent["k1"],
                        "trace": trace["k1"], "supervised": supervised["k1"],
                        "cli": cli["k1"], "debug hook": debug_hook["k1"],
                        "70B TP-4 rank widths, 80 layers": depth70["k1"],
@@ -4451,7 +4695,8 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
          k1_dims["max_abs_err"], k1_caps["max_abs_err"],
          k1_wide["max_abs_err"], k1_long["max_abs_err"],
          k1_wide_dims["max_abs_err"], k1_shards["max_abs_err"]]
-        + [r["max_abs_err"] for r in k1_dev_scores.values()])
+        + [r["max_abs_err"] for r in k1_dev_scores.values()]
+        + [r["max_abs_err"] for r in k1_latent.values()])
     kernels_out = [
         dict(name="fused_decode_attention", route="cuda",
              source="spatten_tpu_torch/csrc/fused_decode.cu",
@@ -4473,6 +4718,7 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
                                   for k, v in rep.items() if "exact" in v}
                            for rung, rep in k1_round.items()},
              skip_append=k1_skip,
+             latent=dict(k1_latent, server=server_latent),
              bench=dict(point=bench["point"], window=bench["window"],
                         tools=bench_tools["counts"]),
              meshes={"sharded 2x4": sharded, "sharded 70B widths 1x8":
@@ -4485,7 +4731,7 @@ def run_one_card(dev, smi: str, t_start: float, corpus_proc) -> int:
              first_slice=dict(k2_pr1, launches=pr1["k2"])),
     ]
     kernels_out += probe_entries(probe, serving["probe_launches"])
-    out = {"kernels": kernels_out}
+    out = {"kernels": kernels_out, "grouped_gemm": grouped}
     log("library_ms: fused_decode_attention has no single PyTorch call "
         "computing its function (append + 4/6/8-bit scoring + requant + "
         "importance + V top-k + 8-bit P·V); gather_compact_rows is timed "

@@ -17,6 +17,7 @@ quantization *decisions* travel as arrays inside the decode state (see
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -49,6 +50,43 @@ class ModelConfig:
     def q_heads_per_kv(self) -> int:
         assert self.num_heads % self.num_kv_heads == 0
         return self.num_heads // self.num_kv_heads
+
+    # --- the cache geometry: what one cached row of a token holds.  The
+    # state's planes, K1's call, prefill, compaction and the head mask
+    # read these, never ``num_kv_heads`` / ``head_dim`` directly, so that
+    # a latent-cache model (``DeepseekV2Config``) lays its rows out as
+    # one cached head.  Properties, not fields: the llama and GPT-2 trees
+    # keep exactly their fields.
+    @property
+    def latent(self) -> bool:
+        """Whether the cache holds a latent row (MLA) rather than K/V
+        heads."""
+        return False
+
+    @property
+    def cache_heads(self) -> int:
+        """Cached heads of a token: the kv heads."""
+        return self.num_kv_heads
+
+    @property
+    def cache_dim(self) -> int:
+        """Lanes of one cached head row."""
+        return self.head_dim
+
+    @property
+    def importance_heads(self) -> int:
+        """Rows of a token's importance: the head groups head pruning
+        ranks (each kv head's group under GQA)."""
+        return self.num_kv_heads
+
+    @property
+    def rope_dim(self) -> int:
+        """The rotated lanes of a query / cached key head (the last ones)."""
+        return self.head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        return 1.0 / self.head_dim ** 0.5
 
     @staticmethod
     def llama2_7b() -> "ModelConfig":
@@ -100,6 +138,95 @@ class ModelConfig:
             head_dim=64,
             intermediate_size=4096,
         )
+
+
+@dataclass(frozen=True)
+class DeepseekV2Config(ModelConfig):
+    """DeepSeek-V2: multi-head latent attention (MLA) and routed experts.
+
+    The inherited fields keep their meaning where the architecture has
+    one: ``num_heads`` query heads (``num_kv_heads`` as published, equal
+    to it), ``head_dim`` the query head's ``qk_nope_head_dim +
+    qk_rope_head_dim`` lanes, ``intermediate_size`` the leading dense
+    layers' MLP width.  Attention without query compression
+    (``q_lora_rank`` null): ``kv_a`` projects a token to a
+    ``kv_lora_rank``-lane latent ``c_kv`` (RMS-normed) and
+    ``qk_rope_head_dim`` rope lanes ``k_pe`` shared by every head;
+    ``kv_b`` expands ``c_kv`` to each head's ``qk_nope_head_dim`` key
+    lanes (``W_UK``) and ``v_head_dim`` value lanes (``W_UV``).  The port
+    caches one row ``[c_kv || rope(k_pe)]`` per token and layer, a single
+    kv head of ``kv_lora_rank + qk_rope_head_dim`` lanes read by every
+    query head (group ``num_heads``): ``W_UK`` is folded into the query,
+    ``W_UV`` applied to the output's first ``kv_lora_rank`` lanes.
+    Positions use YaRN (``yarn_*``; ``yarn_factor`` 1 is plain RoPE).
+    After ``first_k_dense_replace`` dense layers each layer routes a token
+    to its top ``num_experts_per_tok`` of ``n_routed_experts`` experts of
+    width ``moe_intermediate_size`` (softmax router in f32, greedy) and
+    adds ``n_shared_experts`` shared experts, one SwiGLU of their summed
+    width."""
+
+    model_type: str = "deepseek_v2"
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    yarn_factor: float = 1.0
+    yarn_original_max_positions: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    moe_intermediate_size: int = 1408
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = False
+
+    @property
+    def latent(self) -> bool:
+        return True
+
+    @property
+    def cache_heads(self) -> int:
+        return 1
+
+    @property
+    def cache_dim(self) -> int:
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def importance_heads(self) -> int:
+        # each query head is its own group: head pruning ranks them
+        return self.num_heads
+
+    @property
+    def rope_dim(self) -> int:
+        return self.qk_rope_head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        """``(qk_nope + qk_rope) ** -0.5``, times YaRN's
+        ``mscale(factor, mscale_all_dim) ** 2`` where that is set (the
+        published ``DeepseekV2Attention.softmax_scale``)."""
+        scale = (self.qk_nope_head_dim + self.qk_rope_head_dim) ** -0.5
+        if self.yarn_mscale_all_dim:
+            m = yarn_mscale(self.yarn_factor, self.yarn_mscale_all_dim)
+            scale *= m * m
+        return scale
+
+    @property
+    def moe_layers(self) -> int:
+        return self.num_layers - self.first_k_dense_replace
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN's attention factor ``0.1 * mscale * ln(scale) + 1`` (1 for a
+    scale at or below 1)."""
+    if scale <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
 
 
 @dataclass(frozen=True)

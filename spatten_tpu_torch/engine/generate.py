@@ -96,12 +96,18 @@ def maybe_prune(cfg: SpAttenConfig, state: DecodeState, num_coming: int,
                               torch.clamp(recent_begin - p.start_size, min=0))
         keep_count = (p.start_size + n_imp + p.recent_size).to(torch.int32)
 
+        m = cfg.model
+        rope = None
         for l in static_layers:
             trig_l = trigger_layer[l]
             keep_max_l = p.start_size + budgets_static[l] + p.recent_size
             window = caps[l]
+            imp_l = state.importance[l][None, :, :, :window]
+            if m.importance_heads != m.cache_heads:
+                # a latent row's importance: summed over the query heads
+                imp_l = imp_l.to(torch.float32).sum(dim=2, keepdim=True)
             kidx, _ = token_pruning.select_keep_indices_budgeted(
-                state.importance[l][None, :, :, :window],
+                imp_l,
                 state.layer_lengths[l][None], p.start_size, budgets[l:l + 1],
                 budgets_static[l], p.recent_size, num_coming=0)
             ident = torch.arange(keep_max_l, dtype=torch.int32,
@@ -109,9 +115,11 @@ def maybe_prune(cfg: SpAttenConfig, state: DecodeState, num_coming: int,
             kidx = torch.where(trig_l[:, None, None], kidx[0], ident)
             kc = torch.where(trig_l, keep_count[l],
                              torch.full_like(keep_count[l], keep_max_l))
+            if rope is None and cached_rope:
+                rope = rope_ops.rope_lanes(m, dev)
             compact.compact_layer(
                 state.cache.layer(l), state.importance[l], kidx,
-                rotate_k=cached_rope, rope_theta=cfg.model.rope_theta,
+                rotate_k=cached_rope, rope=rope,
                 lengths=state.layer_lengths[l], triggered=trig_l,
                 keep_count=kc, window=window,
                 use_gather_kernel=None if cfg.engine.use_pallas else False)
@@ -378,9 +386,8 @@ def generate(
 
     token = sample_token(last_logits, generator, sampling)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    tables = rope_ops.rope_table(cfg.engine.cache_capacity,
-                                 cfg.model.head_dim, cfg.model.rope_theta,
-                                 dev)
+    tables = rope_ops.model_rope_table(cfg.model, cfg.engine.cache_capacity,
+                                       dev)
     window_steps = decode_window_steps(cfg)
     out = []
     layer_requants = torch.zeros((cfg.model.num_layers,), dtype=torch.int32,

@@ -4,7 +4,9 @@
 Each head's accumulated probability mass (the sum of its token
 importance) ranks it, and the top ``head_keep`` kv-head groups of each
 layer stay alive.  Under GQA pruning is decided per kv-head group, since
-the group shares its K/V rows.
+the group shares its K/V rows; under a latent cache (MLA) every query
+head reads the one latent row and keeps its own importance row, so each
+query head is ranked on its own (``ModelConfig.importance_heads``).
 """
 
 from __future__ import annotations
@@ -40,10 +42,10 @@ def update_head_mask(cfg: SpAttenConfig, state: DecodeState) -> DecodeState:
     p, m = cfg.pruning, cfg.model
     if not p.enable_head_pruning or p.head_keep <= 0:
         return state
-    keep_groups = min(p.head_keep, m.num_kv_heads)
+    groups = m.importance_heads
+    keep_groups = min(p.head_keep, groups)
     group_mask = select_heads(head_importance_from_state(state), keep_groups)
-    q_mask = group_mask.repeat_interleave(m.num_heads // m.num_kv_heads,
-                                          dim=-1)
+    q_mask = group_mask.repeat_interleave(m.num_heads // groups, dim=-1)
     return state._replace(head_mask=q_mask)
 
 

@@ -35,7 +35,10 @@ forward.
 
 Under the tracer (``utils.profiling.tracer``) the capture is span
 ``engine.prefill_capture`` and each chunk's copies and replay
-``engine.prefill_replay``, both children of ``engine.prefill``.
+``engine.prefill_replay``, both children of ``engine.prefill``; a graph
+of an expert model captured with the tracer on also outputs each expert
+layer's row counts, which the replay span notes as ``experts_hit``
+(the graph's ``moe.layer`` spans ran at the capture only).
 """
 
 from __future__ import annotations
@@ -96,11 +99,14 @@ class PrefillGraph:
     def forward(self) -> tuple:
         """The forward on the staging state and token buffer: (last-token
         logits, lengths, layer lengths, requant count, the call's requant
-        count, max probs, requants by layer)."""
+        count, max probs, requants by layer[, expert counts])."""
         logits, st, aux = transformer.forward(self.params, self.cfg,
                                               self.staging, self.ids)
+        # a graph outputs tensors: the expert counts only where the
+        # forward gives them (the last field, so the others keep their
+        # places)
         return (logits[:, -1], st.lengths, st.layer_lengths,
-                st.requant_events) + tuple(aux)
+                st.requant_events) + tuple(x for x in aux if x is not None)
 
     def capture(self, tokens: torch.Tensor) -> None:
         """Make the staging state and token buffer on ``tokens``' card, run
@@ -126,7 +132,7 @@ class PrefillGraph:
         if self.graph is None:
             with tracer.span("engine.prefill_capture"):
                 self.capture(tokens)
-        with tracer.span("engine.prefill_replay"):
+        with tracer.span("engine.prefill_replay") as span:
             load(self.staging, state)
             self.ids.copy_(tokens)
             self.graph.replay()
@@ -134,6 +140,10 @@ class PrefillGraph:
             self.replays += 1
             last, lengths, layer_lengths, events, *aux = (
                 x.clone() for x in self.out)
+            aux = transformer.StepAux(*aux)
+            if aux.expert_counts is not None:
+                # captured with the tracer on: the replay's expert counts
+                span.note(experts_hit=aux.expert_counts)
             return last, state._replace(
                 lengths=lengths, layer_lengths=layer_lengths,
-                requant_events=events), transformer.StepAux(*aux)
+                requant_events=events), aux

@@ -23,6 +23,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class DecodeState(NamedTuple):
     cache: LayerKVCache            # planes stacked [L, B, ...]
     importance: torch.Tensor       # f32 [L, B, Hkv, C] cascade accumulator
+                                   # (Hq rows under a latent cache)
     lengths: torch.Tensor          # int32 [B] nominal tokens per sequence
     layer_lengths: torch.Tensor    # int32 [L, B] live tokens per layer
     head_mask: torch.Tensor        # bool [L, Hq] (False = pruned head)
@@ -90,12 +91,12 @@ def init_state(cfg: SpAttenConfig, batch: int | None = None,
     b = batch if batch is not None else e.max_batch_size
     cap = e.cache_capacity
     fields = dict(
-        cache=init_stacked_cache(m.num_layers, b, m.num_kv_heads, cap,
-                                 m.head_dim, with_msb=cfg.quant.enabled,
+        cache=init_stacked_cache(m.num_layers, b, m.cache_heads, cap,
+                                 m.cache_dim, with_msb=cfg.quant.enabled,
                                  with_lsb2=cfg.quant.needs_lsb2,
                                  scale_dtype=_DTYPES[cfg.quant.scale_dtype],
                                  device=dev),
-        importance=torch.zeros((m.num_layers, b, m.num_kv_heads, cap),
+        importance=torch.zeros((m.num_layers, b, m.importance_heads, cap),
                                dtype=_DTYPES[cfg.pruning.importance_dtype],
                                device=dev),
         lengths=torch.zeros((b,), dtype=torch.int32, device=dev),

@@ -145,8 +145,8 @@ def generate_supervised(
             params, cfg, prompt, b, nwin, window, ckpt_dir, write_snapshot,
             dev)
 
-    tables = rope_ops.rope_table(cfg.engine.cache_capacity,
-                                 cfg.model.head_dim, cfg.model.rope_theta, dev)
+    tables = rope_ops.model_rope_table(cfg.model, cfg.engine.cache_capacity,
+                                       dev)
     restarts = 0
     while count < max_new_tokens:
         if not health():

@@ -173,8 +173,10 @@ def check_k1(kernel, plain, *, layer: int, lengths, threshold: float,
     tol = K1_IMP_BF16_TOL if imp_k.dtype == torch.bfloat16 else K1_IMP_TOL
     live = torch.zeros(s_k.importance.shape, dtype=torch.bool,
                        device=s_k.importance.device)
+    # a latent cache's accumulator holds a row per query head
+    imp_near = near_t if imp_k.shape[1] == hkv else row_near
     for bi, n in enumerate(lengths):
-        heads = ~near_t[bi]
+        heads = ~imp_near[bi]
         x, y = imp_k[bi, heads, :n].float(), imp_p[bi, heads, :n].float()
         if presoftmax and importance_before is not None \
                 and imp_k.dtype == torch.float32:
@@ -201,7 +203,8 @@ def check_k1(kernel, plain, *, layer: int, lengths, threshold: float,
         check(bool((st_k.max_prob[dead] == 0).all()),
               "K1 dead groups report a max prob")
         if importance_before is not None:
-            check(torch.equal(imp_k[dead], importance_before[dead]),
+            gone = dead if imp_k.shape[1] == hkv else dead_rows
+            check(torch.equal(imp_k[gone], importance_before[gone]),
                   "K1 touched a dead group's importance")
         check(bool((out_p[:, :, 0][dead_rows] == 0).all()),
               "plain dead head rows are not zero")
@@ -220,7 +223,7 @@ def random_state(cfg, batch: int, generator: torch.Generator,
     from spatten_tpu_torch.ops import quantize as qz
     m, cap = cfg.model, cfg.engine.cache_capacity
     st = init_state(cfg, batch=batch, device=device)
-    shape = (batch, m.num_kv_heads, cap, m.head_dim)
+    shape = (batch, m.cache_heads, cap, m.cache_dim)
     for dst, msb in ((st.cache.k, True), (st.cache.v, False)):
         src = qz.quantize(torch.randn(shape, generator=generator,
                                       device=device), with_msb=msb,

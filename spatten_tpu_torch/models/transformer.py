@@ -48,6 +48,7 @@ from spatten_tpu_torch.config import ModelConfig, SpAttenConfig
 from spatten_tpu_torch.device import resolve_device
 from spatten_tpu_torch.engine.kv_cache import append_tokens
 from spatten_tpu_torch.engine.state import DecodeState
+from spatten_tpu_torch.models import moe
 from spatten_tpu_torch.models.weight_quant import (
     is_quantized, matmul as _mm, matmul_t as _mm_t, take_rows as _take_rows,
 )
@@ -59,7 +60,7 @@ from spatten_tpu_torch.parallel.mesh import all_reduce
 from spatten_tpu_torch.pruning.token_pruning import (
     layer_budgets_static, layer_capacity_groups,
 )
-from spatten_tpu_torch.utils.profiling import tracer
+from spatten_tpu_torch.utils.profiling import OFF, tracer
 
 Params = Dict[str, Any]
 
@@ -82,6 +83,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
+    if cfg.latent:
+        if keep is not None:
+            raise NotImplementedError("a rank's part of a DeepSeek-V2 tree")
+        return _init_deepseek_v2(cfg, generator, dtype, dev)
     m = cfg
     L, D, I = m.num_layers, m.hidden_size, m.intermediate_size
     hq, hkv, dh = m.num_heads, m.num_kv_heads, m.head_dim
@@ -155,6 +160,63 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
     return params
 
 
+def _init_deepseek_v2(m, generator: torch.Generator, dtype: torch.dtype,
+                      dev: torch.device) -> Params:
+    """Random DeepSeek-V2 parameters (``init_params`` for a
+    ``DeepseekV2Config``), each leaf's layer slices drawn in turn.
+
+    ``layers`` holds the attention leaves stacked over every layer:
+    ``wq`` [D, H*(nope+rope)], ``wkv_a`` [D, R+rope], ``kv_a_norm_w``
+    [R], ``w_uk`` [H, nope, R] and ``w_uv`` [H, R, v] (the published
+    ``kv_b_proj``'s key and value rows of each head), ``wo`` [H*v, D];
+    ``layers["dense"]`` the leading dense layers' SwiGLU (``w_gate``,
+    ``w_up``, ``w_down``); ``layers["moe"]`` the expert layers' router
+    [D, E], experts ``w_gate_up`` [E, 2I, D] and ``w_down`` [E, D, I],
+    and the shared experts as one SwiGLU (``shared_gate``, ``shared_up``,
+    ``shared_down``) of width ``n_shared_experts * I``."""
+    L, D, H = m.num_layers, m.hidden_size, m.num_heads
+    R, nope, rope, vd = (m.kv_lora_rank, m.qk_nope_head_dim,
+                         m.qk_rope_head_dim, m.v_head_dim)
+    k, Lm, E = m.first_k_dense_replace, m.moe_layers, m.n_routed_experts
+    I, Im = m.intermediate_size, m.moe_intermediate_size
+    Is = m.n_shared_experts * Im
+
+    def dense(shape, fan_in):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for part in out:
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   device=dev) / math.sqrt(fan_in))
+        return out
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    layers = {
+        "attn_norm_w": ones((L, D)),
+        "wq": dense((L, D, H * (nope + rope)), D),
+        "wkv_a": dense((L, D, R + rope), D),
+        "kv_a_norm_w": ones((L, R)),
+        "w_uk": dense((L, H, nope, R), R),
+        "w_uv": dense((L, H, R, vd), R),
+        "wo": dense((L, H * vd, D), H * vd),
+        "mlp_norm_w": ones((L, D)),
+        "dense": {"w_gate": dense((k, D, I), D), "w_up": dense((k, D, I), D),
+                  "w_down": dense((k, I, D), I)},
+        "moe": {"router": dense((Lm, D, E), D),
+                "w_gate_up": dense((Lm, E, 2 * Im, D), D),
+                "w_down": dense((Lm, E, D, Im), Im),
+                "shared_gate": dense((Lm, D, Is), D),
+                "shared_up": dense((Lm, D, Is), D),
+                "shared_down": dense((Lm, Is, D), Is)},
+    }
+    def table(shape):                     # unstacked, fan-in the hidden size
+        return (torch.randn(shape, generator=generator, device=dev)
+                / math.sqrt(D)).to(dtype)
+
+    return {"embed": table((m.vocab_size, D)), "layers": layers,
+            "final_norm_w": ones((D,)), "lm_head": table((D, m.vocab_size))}
+
+
 def num_params(params: Params) -> int:
     """The number of parameters in a tree (nested dicts of tensors)."""
     if isinstance(params, torch.Tensor):
@@ -172,8 +234,14 @@ def compact_head_params(params: Params, cfg: SpAttenConfig,
     streams only live-head weight bytes.  The KV cache keeps its full
     head layout.  Returns {"layers": compacted stacked leaves, "kept_q":
     int64 [L, kq], "kept_kv": int64 [L, kkv]} for
-    ``forward(head_compact=...)``; outputs equal the masked forward."""
+    ``forward(head_compact=...)``; outputs equal the masked forward.
+    Not for a latent (MLA) cache: DeepSeek-V2's query heads share one
+    cached row, and its projections are not laid out per kv head."""
     m, p = cfg.model, cfg.pruning
+    if m.latent:
+        raise NotImplementedError(
+            f"compact_head_params: {m.model_type} caches a latent row "
+            "(MLA); its heads are pruned by the head mask alone")
     L, hq, hkv, dh = m.num_layers, m.num_heads, m.num_kv_heads, m.head_dim
     group = hq // hkv
     kg = min(p.head_keep, hkv)
@@ -258,6 +326,10 @@ class StepAux(NamedTuple):
     requant_events: torch.Tensor   # int32 [] (layer, batch, kv head) requants
     max_probs: torch.Tensor        # f32 [L, B, Hkv]
     layer_requants: torch.Tensor   # int32 [L] requants by layer
+    # rows each expert received, int32 [expert layers, E], for a model
+    # with expert layers (DeepSeek-V2) while the tracer is on (a graphed
+    # prefill chunk's ``moe.experts_hit``); else None
+    expert_counts: Optional[torch.Tensor] = None
 
 
 def embed_tokens(params: Params, cfg: SpAttenConfig, state: DecodeState,
@@ -311,22 +383,52 @@ def decode_uses_kernel(cfg: SpAttenConfig, device_type: str) -> bool:
     computes no RoPE (so "read" rope mode keeps the reference path), its
     6-bit append needs capacity >= 32, and on the card the fused lane width
     ``Hkv * D`` must be a multiple of 128 (the reference's ``(hkv*dh) % 128
-    == 0 or on_cpu``).  On the CPU the wrapper runs K1's plain version,
+    == 0 or on_cpu``) unless the cache holds a latent row (DeepSeek-V2's
+    576 lanes, a term of the port's own).  On the CPU the wrapper runs K1's plain version,
     which takes every shape.  A shape the gate admits and K1 does not take
     (``fused_decode.k1_shape_error``) raises in the wrapper."""
     m, q, e = cfg.model, cfg.quant, cfg.engine
     return (e.use_pallas and (m.use_abs_pos_emb or e.rope_mode == "cached")
             and (m.num_kv_heads * m.head_dim % 128 == 0
-                 or device_type != "cuda")
+                 or device_type != "cuda"
+                 # a latent row (MLA): one kv head of kv_lora_rank + rope
+                 # lanes, which K1 reads in lane pieces
+                 or m.latent)
             # the 6-bit path's 2-bit append needs cap >= 32
             and not (q.needs_lsb2 and e.cache_capacity < 32))
+
+
+def _accumulate_rows(imp: torch.Tensor, delta: torch.Tensor,
+                     lengths: torch.Tensor, alive: Optional[torch.Tensor],
+                     ema: float) -> None:
+    """K1's importance update, per query row, in place: ``imp`` [B, Hq, C]
+    (a latent cache's accumulator), ``delta`` [B, Hq, rung] this step's
+    per-row delta (zero past each length), ``lengths`` [B] with the
+    appended token: on the live columns of each alive row (``alive``
+    [Hq] bool, None for all) the appended slot is reset, then imp <- ema
+    * imp + delta; every other entry keeps its bytes, as K1 leaves a dead
+    head group's."""
+    rung = delta.shape[-1]
+    cur = imp[..., :rung]
+    cols = torch.arange(rung, device=imp.device)
+    at = (cols[None] == (lengths - 1)[:, None])[:, None]     # [B, 1, rung]
+    upd = (cols[None] < lengths[:, None])[:, None]
+    if alive is not None:
+        upd = upd & alive[None, :, None]
+    curf = cur.to(torch.float32)
+    new = torch.where(at, 0.0, curf) * ema + delta
+    cur.copy_(torch.where(upd, new, curf).to(cur.dtype))
+
+
+_MLP_GROUPS = ("dense", "moe")      # DeepSeek-V2's MLP leaves, by layer kind
 
 
 def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
                x: torch.Tensor,
                rope_tables: tuple[torch.Tensor, torch.Tensor] | None = None,
                head_kept: tuple[torch.Tensor, torch.Tensor] | None = None,
-               layer_offset: int = 0, tp_group=None):
+               layer_offset: int = 0, tp_group=None,
+               expert_hits: list | None = None):
     """Run x [B, S, D] through every layer, appending the S tokens to each
     layer's cache IN PLACE (the state's cache and importance are
     consumed).  Returns (x, new_layer_lengths, requants [L], max_probs
@@ -336,15 +438,27 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
     ``layer_params`` are the compacted leaves of ``compact_head_params``
     (decode only).  ``layer_offset``: the global index of local layer 0
     (the per-layer attention scale reads it); ``tp_group``: the process
-    group that the o_proj and MLP partial sums are reduced over."""
+    group that the o_proj and MLP partial sums are reduced over.
+
+    A DeepSeek-V2 model (``cfg.model.latent``) caches one latent row a
+    token and layer: the query is ``[q_nope W_UK^T || rope(q_pe)]`` per
+    head, the row ``[norm(c_kv) || rope(k_pe)]`` goes into the K and the V
+    plane alike (the V plane's lanes past ``kv_lora_rank`` are never read
+    out), the attention is K1 (decode) or ``prefill_attention`` at one kv
+    head of group ``num_heads``, with one importance row per query head,
+    and the output's first ``kv_lora_rank`` lanes go through ``W_UV`` and
+    ``wo`` (span ``mla.attention``); the MLP is dense in the first
+    ``first_k_dense_replace`` layers and routed experts plus the shared
+    ones after (``models/moe.py``, span ``moe.layer``).  ``expert_hits``:
+    a list that receives each expert layer's per-expert row counts."""
     m, p, q, e = cfg.model, cfg.pruning, cfg.quant, cfg.engine
     b, s = x.shape[:2]
     hq, hkv, dh = m.num_heads, m.num_kv_heads, m.head_dim
     cap = state.capacity
     if rope_tables is None:
-        rope_tables = rope_ops.rope_table(cap, dh, m.rope_theta, x.device)
+        rope_tables = rope_ops.model_rope_table(m, cap, x.device)
     cos, sin = rope_tables
-    base_scale = 1.0 / math.sqrt(dh)
+    base_scale = m.softmax_scale if m.latent else 1.0 / math.sqrt(dh)
     v_keep_layers = v_keep_budgets(cfg, cap)
     track_importance = p.enable_token_pruning or p.enable_head_pruning
     accum = track_importance and p.cascade_accumulate
@@ -393,6 +507,66 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
             sm_scale = base_scale / (layer_idx + layer_offset + 1.0)
         return qh, kh, vh, pos_l, sm_scale
 
+    def mla_qkv(x, lp, lengths_l):
+        """DeepSeek-V2's projections: (the absorbed queries [B, Hq, S,
+        R + rope], the latent rows [B, 1, S, R + rope], positions)."""
+        nope, rope, rank = m.qk_nope_head_dim, m.qk_rope_head_dim, \
+            m.kv_lora_rank
+        h = _norm(x, lp["attn_norm_w"], None, "rmsnorm", m.norm_eps)
+        qa = _mm(h, lp["wq"]).reshape(b, s, hq, nope + rope)
+        kv = _mm(h, lp["wkv_a"])                          # [B, S, R + rope]
+        c_kv = _norm(kv[..., :rank], lp["kv_a_norm_w"], None, "rmsnorm",
+                     m.norm_eps)
+        pos_l = torch.clamp(lengths_l[:, None] + ar[None, :], max=cap - 1)
+        c = cos[pos_l][:, :, None]                        # [B, S, 1, rope]
+        sn = sin[pos_l][:, :, None]
+
+        def turn(t):
+            t = rope_ops.deinterleave(t)
+            return (t * c + rope_ops.rotate_half(t) * sn).to(t.dtype)
+        q_pe = turn(qa[..., nope:])
+        k_pe = turn(kv[:, :, None, rank:])[:, :, 0]       # [B, S, rope]
+        # W_UK folded into the query: q_nope . (c_kv W_UK_h) = (q_nope
+        # W_UK_h^T) . c_kv
+        q_lat = torch.einsum("bshn,hnc->bshc", qa[..., :nope], lp["w_uk"])
+        qh = torch.cat([q_lat, q_pe], dim=-1).transpose(1, 2)
+        row = torch.cat([c_kv, k_pe], dim=-1)[:, None]
+        return qh, row, pos_l
+
+    def mla_out(attn_out, lp):
+        """The latent output's first R lanes through W_UV, then wo."""
+        o = attn_out[..., :m.kv_lora_rank].to(x.dtype)    # [B, Hq, S, R]
+        o = torch.einsum("bhsc,hcv->bshv", o, lp["w_uv"]).reshape(b, s, -1)
+        return _mm(o, lp["wo"])
+
+    def mlp_block(x, l, lp):
+        """The residual after DeepSeek-V2's MLP: dense SwiGLU in the
+        leading layers, else routed experts plus the shared ones."""
+        h2 = _norm(x, lp["mlp_norm_w"], None, "rmsnorm", m.norm_eps)
+        kd = m.first_k_dense_replace
+        if l < kd:
+            dp = {k: _layer_leaf(v, l) for k, v in
+                  layer_params["dense"].items()}
+            return x + _mlp(h2, dp, "silu")
+        mp = {k: _layer_leaf(v, l - kd) for k, v in
+              layer_params["moe"].items()}
+        with tracer.span("moe.layer", tokens=b * s) as span:
+            hf = h2.reshape(b * s, -1)
+            weights, idx = moe.route(
+                hf, mp["router"], m.num_experts_per_tok,
+                norm_topk=m.norm_topk_prob, scale=m.routed_scaling_factor)
+            y, offs = moe.experts(hf, mp["w_gate_up"], mp["w_down"],
+                                  weights, idx)
+            y = y + _mlp(hf, {"w_gate": mp["shared_gate"],
+                              "w_up": mp["shared_up"],
+                              "w_down": mp["shared_down"]}, "silu")
+            if tracer.on:
+                hits = moe.counts(offs)
+                span.note(experts_hit=hits)
+                if expert_hits is not None:
+                    expert_hits.append(hits)
+        return x + y.reshape(b, s, -1)
+
     def out_mlp(x, lp, attn_out, kept_q=None):
         if kept_q is not None:
             # head-compacted o_proj: the pruned heads' rows were zeros
@@ -410,77 +584,102 @@ def run_layers(layer_params: Params, cfg: SpAttenConfig, state: DecodeState,
         rungs[ga:gb] = [rung] * (gb - ga)
     requants, max_probs = [], []
     for l in range(m.num_layers):
-        lp = {k: _layer_leaf(v, l) for k, v in layer_params.items()}
+        lp = {k: _layer_leaf(v, l) for k, v in layer_params.items()
+              if k not in _MLP_GROUPS}
         lengths_l = state.layer_lengths[l]
         kept = None if head_kept is None else (head_kept[0][l],
                                                head_kept[1][l])
-        qh, kh, vh, pos_l, sm_scale = qkv(x, lp, lengths_l, l, kept)
-        common = dict(
-            requant_threshold=requant_threshold, quant_enabled=q.enabled,
-            v_block_size=p.v_block_size,
-            head_mask=state.head_mask[l] if p.enable_head_pruning else None,
-            importance_kind=p.importance_kind)
-        if use_kernel:
-            q_kernel = qh * (sm_scale / base_scale) \
-                if m.use_attn_scale_by_layer else qh
-            attn_out, stats, _, _ = fused_decode_attention(
-                q_kernel, state.cache.k, state.cache.v, kh, vh,
-                lengths_l + s, sm_scale=base_scale,
-                importance_in=state.importance if accum else None,
-                layer=l,
-                quant_bits=(state.quant_bits
-                            if q.enabled and q.layer_bits is not None
-                            else None),
-                quantize_queries=q.quantize_queries, pv_int8=q.pv_int8,
-                probs_bf16=q.probs_bf16,
-                cap_override=rungs[l] if rungs[l] < cap else None,
-                track_importance=track_importance,
-                importance_ema=p.importance_ema,
-                v_keep=v_keep_layers, **common)
-            if track_importance and not accum:
-                # a rung-sized delta: columns past the rung are dead
-                delta = stats.importance_delta
-                state.importance[l].zero_()
-                state.importance[l, ..., :delta.shape[-1]] = delta.to(
-                    state.importance.dtype)
-        else:
-            layer_cache = append_tokens(state.cache.layer(l), kh, vh,
-                                        lengths_l)
-            kwargs = dict(common, v_keep=v_keep_layers[
-                min(l, len(v_keep_layers) - 1)])
-            kwargs["use_rope"] = (not m.use_abs_pos_emb
-                                  and e.rope_mode == "read")
-            if q.enabled and q.layer_bits is not None:
-                with tracer.sync("model.pass1_bits"):
-                    kwargs["pass1_bits"] = int(state.quant_bits[l])
-            if s > 1:
-                if e.prefill_fp_score:
-                    # score the prompt at full precision; the quantized
-                    # planes and exact importance still build
-                    kwargs.update(quant_enabled=False, requant_threshold=0.0)
-                    kwargs.pop("pass1_bits", None)
-                if not e.prefill_v_mask:
-                    kwargs["v_keep"] = 0
-                attn_out, stats = prefill_attention(
-                    qh, layer_cache.k, layer_cache.v, cos, sin,
-                    lengths_l + s, pos_l, sm_scale=sm_scale, **kwargs)
+        with (tracer.span("mla.attention") if m.latent else OFF):
+            if m.latent:
+                qh, kh, pos_l = mla_qkv(x, lp, lengths_l)
+                vh, sm_scale = kh, base_scale
             else:
-                attn_out, stats = spatten_attention_reference(
-                    qh, layer_cache.k, layer_cache.v, cos, sin,
-                    lengths_l + s, pos_l, sm_scale=sm_scale, **kwargs)
-            if track_importance:
-                imp = state.importance[l]
-                if p.cascade_accumulate:
-                    # reset the incoming tokens' slots, then accumulate
-                    slot = torch.arange(cap, device=x.device)[None, None, :]
-                    is_new = ((slot >= lengths_l[:, None, None])
-                              & (slot < (lengths_l + s)[:, None, None]))
-                    prev = torch.where(is_new, 0.0, imp.to(torch.float32))
-                    imp.copy_((p.importance_ema * prev
-                               + stats.importance_delta).to(imp.dtype))
+                qh, kh, vh, pos_l, sm_scale = qkv(x, lp, lengths_l, l, kept)
+            common = dict(
+                requant_threshold=requant_threshold, quant_enabled=q.enabled,
+                v_block_size=p.v_block_size,
+                head_mask=state.head_mask[l] if p.enable_head_pruning
+                else None,
+                importance_kind=p.importance_kind)
+            if use_kernel:
+                q_kernel = qh * (sm_scale / base_scale) \
+                    if m.use_attn_scale_by_layer else qh
+                # a latent cache keeps an importance row per query head:
+                # K1 hands this step's per-row delta back (delta mode)
+                rows_kw = dict(per_row_importance=True) if m.latent else {}
+                attn_out, stats, _, _ = fused_decode_attention(
+                    q_kernel, state.cache.k, state.cache.v, kh, vh,
+                    lengths_l + s, sm_scale=base_scale,
+                    importance_in=(state.importance
+                                   if accum and not m.latent else None),
+                    layer=l,
+                    quant_bits=(state.quant_bits
+                                if q.enabled and q.layer_bits is not None
+                                else None),
+                    quantize_queries=q.quantize_queries, pv_int8=q.pv_int8,
+                    probs_bf16=q.probs_bf16,
+                    cap_override=rungs[l] if rungs[l] < cap else None,
+                    track_importance=track_importance,
+                    importance_ema=p.importance_ema,
+                    v_keep=v_keep_layers, **rows_kw, **common)
+                if track_importance and accum and m.latent:
+                    _accumulate_rows(state.importance[l],
+                                     stats.importance_delta, lengths_l + s,
+                                     common["head_mask"], p.importance_ema)
+                elif track_importance and not accum:
+                    # a rung-sized delta: columns past the rung are dead
+                    delta = stats.importance_delta
+                    state.importance[l].zero_()
+                    state.importance[l, ..., :delta.shape[-1]] = delta.to(
+                        state.importance.dtype)
+            else:
+                layer_cache = append_tokens(state.cache.layer(l), kh, vh,
+                                            lengths_l)
+                kwargs = dict(common, v_keep=v_keep_layers[
+                    min(l, len(v_keep_layers) - 1)])
+                kwargs["use_rope"] = (not m.use_abs_pos_emb
+                                      and e.rope_mode == "read")
+                if m.latent:
+                    kwargs["per_row_importance"] = True
+                if q.enabled and q.layer_bits is not None:
+                    with tracer.sync("model.pass1_bits"):
+                        kwargs["pass1_bits"] = int(state.quant_bits[l])
+                if s > 1:
+                    if e.prefill_fp_score:
+                        # score the prompt at full precision; the quantized
+                        # planes and exact importance still build
+                        kwargs.update(quant_enabled=False,
+                                      requant_threshold=0.0)
+                        kwargs.pop("pass1_bits", None)
+                    if not e.prefill_v_mask:
+                        kwargs["v_keep"] = 0
+                    attn_out, stats = prefill_attention(
+                        qh, layer_cache.k, layer_cache.v, cos, sin,
+                        lengths_l + s, pos_l, sm_scale=sm_scale, **kwargs)
                 else:
-                    imp.copy_(stats.importance_delta.to(imp.dtype))
-        x = out_mlp(x, lp, attn_out, None if kept is None else kept[0])
+                    attn_out, stats = spatten_attention_reference(
+                        qh, layer_cache.k, layer_cache.v, cos, sin,
+                        lengths_l + s, pos_l, sm_scale=sm_scale, **kwargs)
+                if track_importance:
+                    imp = state.importance[l]
+                    if p.cascade_accumulate:
+                        # reset the incoming tokens' slots, then accumulate
+                        slot = torch.arange(cap, device=x.device)[
+                            None, None, :]
+                        is_new = ((slot >= lengths_l[:, None, None])
+                                  & (slot < (lengths_l + s)[:, None, None]))
+                        prev = torch.where(is_new, 0.0,
+                                           imp.to(torch.float32))
+                        imp.copy_((p.importance_ema * prev
+                                   + stats.importance_delta).to(imp.dtype))
+                    else:
+                        imp.copy_(stats.importance_delta.to(imp.dtype))
+            if m.latent:
+                x = x + mla_out(attn_out, lp)
+        if m.latent:
+            x = mlp_block(x, l, lp)
+        else:
+            x = out_mlp(x, lp, attn_out, None if kept is None else kept[0])
         requants.append(stats.need_requant.sum())
         max_probs.append(stats.max_prob)
     return (x, state.layer_lengths + s,
@@ -503,17 +702,19 @@ def forward(params: Params, cfg: SpAttenConfig, state: DecodeState,
     s = tokens.shape[1]
     with tracer.span("model.forward"):
         x, _ = embed_tokens(params, cfg, state, tokens)
+        hits = [] if cfg.model.latent and tracer.on else None
         x, new_lengths, requants, max_probs = run_layers(
             head_compact["layers"] if head_compact else params["layers"],
             cfg, state, x, rope_tables=rope_tables,
             head_kept=(None if head_compact is None else
                        (head_compact["kept_q"], head_compact["kept_kv"])),
-            layer_offset=layer_offset, tp_group=tp_group)
+            layer_offset=layer_offset, tp_group=tp_group,
+            expert_hits=hits)
         logits = lm_head(params, cfg, x)
         total = requants.sum().to(torch.int32)
         new_state = state._replace(
             lengths=state.lengths + s, layer_lengths=new_lengths,
             requant_events=state.requant_events + total)
-    return logits, new_state, StepAux(requant_events=total,
-                                      max_probs=max_probs,
-                                      layer_requants=requants)
+    return logits, new_state, StepAux(
+        requant_events=total, max_probs=max_probs, layer_requants=requants,
+        expert_counts=torch.stack(hits) if hits else None)

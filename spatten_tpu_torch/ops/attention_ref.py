@@ -100,8 +100,11 @@ def spatten_attention_reference(
     importance_kind: str = "prob",
     use_rope: bool = True,
     pass1_bits=None,               # int 4/6/8: this layer's profile
+    per_row_importance: bool = False,
 ) -> tuple[torch.Tensor, AttentionStats]:
-    """Returns (output [B, Hq, q_len, D] f32, stats)."""
+    """Returns (output [B, Hq, q_len, D] f32, stats).
+    ``per_row_importance``: the importance delta per query head [B, Hq,
+    C] (a latent cache's rows), not summed over each GQA group."""
     b, hq, q_len, d = q.shape
     hkv = k_quant.heads
     cap = k_quant.tokens
@@ -187,8 +190,11 @@ def spatten_attention_reference(
         imp = torch.where(mask, scores, 0.0)
     else:
         raise ValueError(importance_kind)
-    importance_delta = group_reduce(imp.sum(dim=-2), hkv,
-                                    lambda x, a: x.sum(dim=a))    # [B,Hkv,C]
+    if per_row_importance:
+        importance_delta = imp.sum(dim=-2)                         # [B,Hq,C]
+    else:
+        importance_delta = group_reduce(imp.sum(dim=-2), hkv,
+                                        lambda x, a: x.sum(dim=a))  # [B,Hkv,C]
 
     # local V pruning: keep the top-v_keep tokens' probability mass
     if not isinstance(v_keep, int) or v_keep > 0:

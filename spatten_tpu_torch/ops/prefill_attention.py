@@ -40,6 +40,7 @@ def prefill_attention(
     importance_kind: str = "prob",
     use_rope: bool = True,
     pass1_bits=None,
+    per_row_importance: bool = False,
 ) -> tuple[torch.Tensor, AttentionStats]:
     """Returns (out [B, Hq, S, D] f32, stats without probabilities)."""
     out, stats = spatten_attention_reference(
@@ -48,5 +49,5 @@ def prefill_attention(
         quant_enabled=quant_enabled, v_keep=v_keep,
         v_block_size=v_block_size, head_mask=head_mask,
         importance_kind=importance_kind, use_rope=use_rope,
-        pass1_bits=pass1_bits)
+        pass1_bits=pass1_bits, per_row_importance=per_row_importance)
     return out, stats._replace(probs=None)

@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from spatten_tpu_torch.ops import quantize as qz
+from spatten_tpu_torch.ops import rope as rope_ops
 from spatten_tpu_torch.ops.attention_ref import MASK_VALUE
 from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
 from spatten_tpu_torch.pruning.compact import rotate_moved_rows
@@ -300,7 +301,8 @@ def split_k_prune(
         delta = torch.clamp(new_slot[None, None, :] - ki, max=0)
         k4, sc_t = rotate_moved_rows(
             krows.reshape(b, keep_total, hkv, d), ksc.transpose(1, 2),
-            delta.transpose(1, 2), d, rope_theta)
+            delta.transpose(1, 2),
+            rope_ops.RopeLanes(0, rope_ops.inv_freq(d, rope_theta, dev0)))
         krows = k4.reshape(b, keep_total, f)
         ksc = sc_t.transpose(1, 2).to(ksc.dtype)
     kf_new, vf_new = pad_rows(krows), pad_rows(gather_rows(vg.full))

@@ -30,36 +30,34 @@ import torch
 
 from spatten_tpu_torch.engine.kv_cache import LayerKVCache
 from spatten_tpu_torch.ops import quantize as qz
+from spatten_tpu_torch.ops import rope as rope_ops
 from spatten_tpu_torch.ops.compact_gather import gather_compact_rows, k2_takes
 
 
-def _rope_cos_sin(mag: torch.Tensor, head_dim: int, theta: float
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin of the re-rotation angle for each (row, lane), computed from
-    the position magnitude (same f32 ``pos * inv_freq`` as rope_table)."""
-    inv_freq = 1.0 / (theta ** (
-        torch.arange(0, head_dim, 2, dtype=torch.float32, device=mag.device)
-        / head_dim))
-    ang = mag.to(torch.float32)[..., None] * inv_freq
-    ang = torch.cat([ang, ang], dim=-1)
-    return torch.cos(ang), torch.sin(ang)
-
-
 def rotate_moved_rows(q8: torch.Tensor, sc: torch.Tensor, delta: torch.Tensor,
-                      head_dim: int, rope_theta: float
+                      rope: rope_ops.RopeLanes
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Re-rotate rows that MOVED (delta < 0) by their slot delta and
     requantize them; unmoved rows return bit-exact.
 
     q8: int8 [..., H, D]; sc: [..., H]; delta: int [..., H] (<= 0).
-    """
+    ``rope`` (``ops/rope.rope_lanes``): the lanes that carry a rotation
+    and their frequencies; the other lanes of a moved row keep their
+    values, and the whole row is requantized (its scale spans every
+    lane).  The angle is the f32 ``pos * inv_freq`` of the tables."""
     moved = delta < 0
     scf = sc.to(torch.float32)
     x = q8.to(torch.float32) * scf[..., None]
-    cc, ss = _rope_cos_sin(-delta, head_dim, rope_theta)
-    half = head_dim // 2
-    rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-    q8r, sc_new = qz.quantize_rows(x * cc - rot * ss)
+    ang = (-delta).to(torch.float32)[..., None] * rope.inv_freq
+    ang = torch.cat([ang, ang], dim=-1)
+    cc, ss = torch.cos(ang), torch.sin(ang)
+    xr = x[..., rope.first:] if rope.first else x
+    half = xr.shape[-1] // 2
+    rot = torch.cat([-xr[..., half:], xr[..., :half]], dim=-1)
+    xr = xr * cc - rot * ss
+    if rope.first:
+        xr = torch.cat([x[..., :rope.first], xr], dim=-1)
+    q8r, sc_new = qz.quantize_rows(xr)
     q8_out = torch.where(moved[..., None], q8r, q8)
     sc_out = torch.where(moved, sc_new, scf).to(sc.dtype)
     return q8_out, sc_out
@@ -93,7 +91,7 @@ def compact_layer(
                                          #   identity rows for untriggered
     *,
     rotate_k: bool,                      # cached-rope mode: re-rotate K
-    rope_theta: float = 10000.0,
+    rope: Optional[rope_ops.RopeLanes],  # rotated lanes; None: rotate_k off
     lengths: Optional[torch.Tensor] = None,     # [B] live tokens
     triggered: Optional[torch.Tensor] = None,   # [B]; False rows identity
     keep_count: Optional[torch.Tensor] = None,  # [B] live keep entries
@@ -103,7 +101,11 @@ def compact_layer(
     """Compact one layer's planes to ``keep_idx`` IN PLACE.
 
     Returns (cache, imp) -- the same tensors, updated -- with the kept
-    tokens moved to the front of every plane."""
+    tokens moved to the front of every plane.  ``rope``: the rotated lanes
+    of the model's cached row (``ops/rope.rope_lanes``), which a moved
+    row is re-rotated by where ``rotate_k``; None only without it.  ``imp`` may hold more rows per token
+    than the planes hold heads (one per query head of a latent cache);
+    each follows its token."""
     kq, vq = cache.k, cache.v
     b, cap, f = kq.full.shape
     h = kq.heads
@@ -149,7 +151,9 @@ def compact_layer(
             else triggered.to(torch.bool)[:, None, None])
 
     def prefix(plane):
-        srt = torch.gather(plane[..., :win], -1, order)[..., :keep_pad]
+        o = order if plane.shape[1] == h else order.expand(
+            b, plane.shape[1], win)
+        srt = torch.gather(plane[..., :win], -1, o)[..., :keep_pad]
         if keep_pad > keep_max:
             srt = torch.cat([srt[..., :keep_max],
                              plane[..., keep_max:keep_pad]], dim=-1)
@@ -177,8 +181,10 @@ def compact_layer(
         vc = torch.gather(vq.full.view(b, cap, h, d), 1, gidx)
     ksc_c = ksc_pref
     if rotate_k:
+        if rope is None:
+            raise ValueError("rotate_k needs the model's rope lanes")
         kc, ksc_t = rotate_moved_rows(kc, ksc_pref.transpose(1, 2),
-                                      delta.transpose(1, 2), d, rope_theta)
+                                      delta.transpose(1, 2), rope)
         ksc_c = ksc_t.transpose(1, 2)
     if rotate_k or not use_gather_kernel:
         kq.full[:, :keep_pad] = kc.reshape(b, keep_pad, f)

@@ -8,7 +8,11 @@ it as a Chrome trace (``chrome://tracing`` or Perfetto) into a directory;
 ``tracer`` is the process-wide tracer of the program's own spans: the
 serving tick and each layer under it (server, engine, model, the kernels'
 host-side launches) and every device-to-host read on the tick's path
-(``sync``).  It is off by default; then a span site returns the shared
+(``sync``).  A DeepSeek-V2 model adds ``mla.attention`` (a layer's
+latent projections, attention and up-projection) and ``moe.layer`` (an
+expert layer: router, sort, grouped GEMMs, combine, shared experts;
+``tokens``), whose counter ``moe.experts_hit`` (rows each expert
+received) the span keeps as a device tensor until ``drain``.  It is off by default; then a span site returns the shared
 no-op ``OFF``, records nothing, reads no clock and touches no device.
 When on, each span records its name, ``time.perf_counter_ns()`` at start
 and end, its parent and a few host-known attributes, kept in memory until
@@ -92,7 +96,8 @@ class Span:
     (``time.perf_counter_ns``, the clock of ``time.perf_counter``),
     ``parent`` (its enclosing span's index in the drained list, -1 at the
     top) and ``attrs`` (host-known ints: the request id, a chunk's rows
-    and tokens, the layers a prune compacted)."""
+    and tokens, the layers a prune compacted; or a counter kept as a
+    device tensor, read into lists by ``drain``)."""
 
     __slots__ = ("name", "t0", "t1", "parent", "attrs", "_tracer", "_range")
 
@@ -173,7 +178,28 @@ class Tracer:
             raise RuntimeError(f"drain() inside the open span "
                                f"{self._spans[self._stack[-1]].name!r}")
         out, self._spans = self._spans, []
+        _read_tensors(out)
         return out
+
+
+def _read_tensors(spans: list[Span]) -> None:
+    """Replace each device tensor a span noted (a counter kept on the
+    device, such as an expert layer's ``experts_hit``) by its values as
+    nested lists: one read a device for all of them, at collection, never
+    inside a tick."""
+    kept = [(sp, k, v) for sp in spans for k, v in sp.attrs.items()
+            if isinstance(v, torch.Tensor)]
+    by_dev: dict = {}
+    for item in kept:
+        by_dev.setdefault(item[2].device, []).append(item)
+    for items in by_dev.values():
+        flat = torch.cat([v.reshape(-1).to(torch.int64)
+                          for _, _, v in items]).cpu()
+        at = 0
+        for sp, k, v in items:
+            n = v.numel()
+            sp.attrs[k] = flat[at:at + n].reshape(v.shape).tolist()
+            at += n
 
 
 tracer = Tracer()

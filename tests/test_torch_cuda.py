@@ -957,6 +957,25 @@ def test_ppl_curve_at_gpt2s_widths_on_the_card(dev):
     assert fd.fused_decode_attention.launches == 2 * 511
 
 
+def latent_chat_cfg():
+    """``chat_like_cfg``'s knobs on a 2-layer DeepSeek-V2 at the latent
+    row's published lanes (512 + 64; nope and v 128; 4 heads, hidden 256;
+    layer 0 dense, layer 1 with 8 experts of 64, top 2, 1 shared)."""
+    from spatten_tpu_torch.config import DeepseekV2Config
+    base = chat_like_cfg()
+    model = DeepseekV2Config(
+        vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+        num_kv_heads=4, head_dim=192, intermediate_size=512,
+        norm_eps=1e-6, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, yarn_factor=40.0,
+        yarn_mscale=0.707, yarn_mscale_all_dim=0.707, n_routed_experts=8,
+        num_experts_per_tok=2, moe_intermediate_size=64, n_shared_experts=1)
+    return dataclasses.replace(
+        base, model=model, pruning=dataclasses.replace(base.pruning,
+                                                       head_keep=3)
+    ).validate()
+
+
 def chat_like_cfg():
     """The chat cell's serving knobs (``portbench/configs/deepseek-llm-7b-
     chat.json``: MHA heads of 128, capacity rungs, head pruning, V
@@ -991,6 +1010,23 @@ def test_server_tick_syncs_all_traced(dev):
     active, under ``torch.cuda.set_sync_debug_mode("warn")``: every
     synchronising operation torch reports lies in a ``sync.*`` span of
     the tracer, and every such span holds exactly one."""
+    cfg = chat_like_cfg()
+    params = tr.init_params(cfg.model, 0, dtype=torch.bfloat16, device=dev)
+    server_tick_syncs_all_traced(cfg, params, dev)
+
+
+def test_server_tick_syncs_all_traced_latent(dev):
+    """``test_server_tick_syncs_all_traced`` on a DeepSeek-V2 model
+    (``latent_chat_cfg``: the latent cache through K1, a dense layer and
+    an expert layer): the attention's latent projections and the expert
+    layer's router, sort and grouped GEMMs add no sync site."""
+    cfg = latent_chat_cfg()
+    params = tr.init_params(cfg.model, 0, dtype=torch.bfloat16, device=dev)
+    server_tick_syncs_all_traced(cfg, params, dev)
+
+
+def server_tick_syncs_all_traced(cfg, params, dev):
+    """The body of ``test_server_tick_syncs_all_traced`` for ``cfg``."""
     import time
     import traceback
     import warnings
@@ -998,8 +1034,6 @@ def test_server_tick_syncs_all_traced(dev):
     from spatten_tpu_torch.engine.server import SpAttenServer
     from spatten_tpu_torch.utils.profiling import tracer
 
-    cfg = chat_like_cfg()
-    params = tr.init_params(cfg.model, 0, dtype=torch.bfloat16, device=dev)
     srv = SpAttenServer(params, cfg, device=dev)
     srv.submit(np.arange(20) % 251, max_new_tokens=8)
     srv.step()                        # the first chunk of two (captured)
@@ -1055,12 +1089,12 @@ def chat_geometry_cfg(layers: int):
     import json
     from pathlib import Path
 
-    from portbench.harness import program_config
+    from portbench import manifest
     path = (Path(__file__).resolve().parents[1] / "portbench" / "configs"
             / "deepseek-llm-7b-chat.json")
     c = json.loads(path.read_text())
     c["num_hidden_layers"] = layers
-    return program_config(c)
+    return manifest.path(c).program_config(c)
 
 
 def state_fields(state) -> dict:
@@ -1101,12 +1135,13 @@ def chunks_bit_equal(params, cfg, prompts, dev):
             eager[i], graphed[i] = want[1], got[1]
             assert torch.equal(got[0], want[0]), (i, pos)
             for x, y in zip(got[2], want[2]):
-                assert torch.equal(x, y), (i, pos)
+                assert (x is None and y is None) or torch.equal(x, y), \
+                    (i, pos)
             fa, fb = state_fields(got[1]), state_fields(want[1])
             for name in fb:
                 assert torch.equal(fa[name], fb[name]), (i, pos, name)
             if runner.out is not None:
-                owned = {x.data_ptr() for x in runner.out}
+                owned = {x.data_ptr() for x in runner.out if x is not None}
                 assert not owned & {got[1].lengths.data_ptr(),
                                     got[1].layer_lengths.data_ptr(),
                                     got[0].data_ptr()}
@@ -1159,3 +1194,48 @@ def test_prefill_graph_interleaves_admissions_and_prunes(dev):
         if with_graph:
             assert srv.prefill_graph.replays == 37 + 1 + 3 + 5
     assert tokens[0] == tokens[1]
+
+
+def test_prefill_graph_latent_chunk_bit_equal_to_eager(dev):
+    """DeepSeek-V2-Lite's widths and the cell's knobs at 2 layers (layer 0
+    dense, layer 1 with 64 experts), bf16 weights: three full chunks and a
+    ragged one of a prompt, from the prefill graph (the latent
+    projections, K1-free prefill attention at one kv head of group 16,
+    the router, the sort and the grouped GEMMs captured) and eagerly, bit
+    for bit."""
+    cfg = chip_smoke.latent_config(2, 1)
+    params = tr.init_params(cfg.model, 0, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(0, cfg.model.vocab_size, (1, 3 * 128 + 57),
+                        generator=g, device=dev, dtype=torch.int32)
+    assert chunks_bit_equal(params, cfg, [ids], dev) == (3, 4)
+
+
+def test_k1_latent_shape(dev):
+    """K1 at the latent shape (``chip_smoke.phase_k1_latent``: batch 128,
+    one kv head of 576 lanes, group 16, capacity 2048 and both rungs of
+    capacity 4096, the serving flags, per-row importance) matches its
+    plain version."""
+    res = chip_smoke.phase_k1_latent(dev)
+    assert set(res) == {"2048/2048", "4096/4096", "4096/2048"}
+
+
+def test_grouped_gemm_against_loop(dev):
+    """The expert layer's grouped GEMMs in bf16 on the card
+    (``chip_smoke.phase_grouped_gemm``) against the loop over experts, at
+    128 tokens and at 5 (idle experts), and replayed from a CUDA graph
+    bit-equal to eager."""
+    res = chip_smoke.phase_grouped_gemm(dev)
+    assert res["graph_equal"] and res["tokens_5"]["idle_experts"] > 0
+
+
+def test_server_latent_launches_k1_every_layer(dev):
+    """``SpAttenServer`` at DeepSeek-V2-Lite's widths on 2 layers
+    (``chip_smoke.phase_server_latent``): every request meets its budget
+    and K1 launches once per layer and single-token call (decode ticks
+    and one-token admission chunks), with the full-length admission
+    chunks from the prefill graph."""
+    res = chip_smoke.phase_server_latent(dev)
+    assert res["ticks"] > 0 and res["single_chunks"] > 0
+    assert res["k1"] == 2 * (res["ticks"] + res["single_chunks"])
+    assert res["graphed"] >= 1

@@ -147,15 +147,16 @@ ONE_CARD_PHASES = [
     "phase_k1_capacity", "phase_k1_device_scores", "phase_k1_wide_groups",
     "phase_k1_long_windows", "phase_k1_wide_head_dims",
     "phase_k1_shard_shapes", "phase_k1_rounding", "phase_k1_skip_append",
+    "phase_k1_latent",
     "phase_k2", "phase_k2",
-    "phase_split_k",
+    "phase_split_k", "phase_grouped_gemm",
     "phase_launch_probe", "small_reference_check", "phase_gate",
     "server_small_check", "mesh_small_check",
     "run_path:first slice (depth 8)", "run_path:serving",
     "run_path:dense (depth 8)", "run_path:profile 4,4,6,6,8 (depth 8)",
     "run_path:parity (depth 8)", "run_path:Llama-3.2-3B",
     "run_path:OpenLLaMA-3B", "phase_70b_depth", "phase_server",
-    "phase_trace", "phase_replay", "phase_supervised", "phase_cli",
+    "phase_server_latent", "phase_trace", "phase_replay", "phase_supervised", "phase_cli",
     "phase_debug_hook", "phase_ppl", "phase_hbm", "phase_bench",
     "phase_bench_tools", "phase_sharded",
     "phase_sharded_70b", "phase_pipeline"]

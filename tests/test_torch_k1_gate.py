@@ -322,7 +322,8 @@ def test_compaction_sends_head_dims_k2_does_not_take_to_the_gather(
     keep = torch.arange(0, 64, 2, dtype=torch.int32).expand(b, h, 32)
     with monkeypatch.context() as mp:
         mp.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-        compact.compact_layer(cache, None, keep.contiguous(), rotate_k=False)
+        compact.compact_layer(cache, None, keep.contiguous(), rotate_k=False,
+                              rope=None)
     assert launched == (["compact_gather"] if k2 else [])
     assert cg.k2_takes(head_dim) is k2
     cg.gather_compact_rows.launches = count

@@ -192,7 +192,8 @@ def test_compact_layer_matches_jax(use_kernel_path):
     timp = T(imp.copy())
     tcompact.compact_layer(
         tcache, timp, T(keep_idx), use_gather_kernel=use_kernel_path,
-        **{k: T(v) for k, v in kw.items() if k != "rotate_k"}, rotate_k=True)
+        **{k: T(v) for k, v in kw.items() if k != "rotate_k"}, rotate_k=True,
+        rope=trope.rope_lanes(tcfg.ModelConfig(head_dim=d), "cpu"))
     live = [int(keep_count[0]), cap]       # untriggered row: all untouched
     for bi in range(b):
         n = live[bi] if use_kernel_path else cap

@@ -196,7 +196,8 @@ def test_graphed_chunks_equal_eager(on_cpu):
         eager, out = want[1], got[1]
         assert torch.equal(got[0], want[0])
         for x, y in zip(got[2], want[2]):
-            assert torch.equal(x, y)
+            # expert counts: None on both sides for a model without experts
+            assert (x is None and y is None) or torch.equal(x, y)
         assert_states_equal(out, eager)
         owned = [runner.staging.lengths, runner.staging.layer_lengths,
                  graphed.lengths, graphed.layer_lengths] + list(runner.out)

@@ -47,6 +47,7 @@ from spatten_tpu_torch.engine import generate as tgen
 from spatten_tpu_torch.engine import kv_cache as tkv
 from spatten_tpu_torch.ops import fused_decode as tfd
 from spatten_tpu_torch.ops import quantize as tqz
+from spatten_tpu_torch.ops import rope as trope
 from spatten_tpu_torch.pruning import compact as tcompact
 
 T = torch.from_numpy
@@ -278,6 +279,8 @@ def test_compact_and_append_keep_metadata(bf16, lsb2):
         **{k: jnp.asarray(v) for k, v in kw.items()})
     tcache = tkv.LayerKVCache(k=tk, v=tv)
     tcompact.compact_layer(tcache, timp, T(keep_idx), rotate_k=True,
+                           rope=trope.rope_lanes(
+                               tcfg.ModelConfig(head_dim=d), "cpu"),
                            **{k: T(v) for k, v in kw.items()})
     live = [int(keep_count[0]), cap]
     for bi in range(b):
