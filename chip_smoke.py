@@ -179,12 +179,13 @@ line, and the ``{"ok": true, ...}`` line.
 server's two phases (``server_small_check``, ``phase_server``); each
 reports how many prefill chunks replayed from the server's CUDA graph.
 ``--phases latent`` runs only DeepSeek-V2-Lite's three card checks, which
-the full run holds too: ``phase_k1_latent`` (K1 at the latent row's
-shape, at capacity 2048 and both rungs of 4096, against its plain
-version, and timed), ``phase_grouped_gemm`` (the expert layer's grouped
-GEMMs against the loop over experts, and from a CUDA graph) and
+the full run holds too: ``phase_k1_latent`` (K1's latent instance at the
+latent row's shape, at capacity 2048 and both rungs of 4096, against its
+plain version, and timed; its 4/6/8-bit and f32-scale paths; a row-stats
+call that keeps <8, 256>), ``phase_grouped_gemm`` (the expert layer's
+grouped GEMMs against the loop over experts, and from a CUDA graph) and
 ``phase_server_latent`` (the server on the latent model: K1 once per
-layer and decode tick).
+layer and decode tick, each launch in the latent instance).
 """
 
 from __future__ import annotations
@@ -1885,15 +1886,52 @@ def latent_config(layers: int = 2, batch: int = LATENT_BATCH):
     return manifest.path(c).program_config(c)
 
 
+def latent_plan(cfg, rung: int):
+    """K1's plan for the latent cache of ``cfg`` at ``rung`` under the
+    flags ``run_layers`` passes it (per-row importance in delta mode)."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    m, q = cfg.model, cfg.quant
+    latent = fd.latent_takes(
+        m.cache_heads, cfg.engine.cache_capacity, quant_enabled=q.enabled,
+        has_lsb2=q.needs_lsb2,
+        quantize_queries=q.quantize_queries, pv_int8=q.pv_int8,
+        importance_kind=cfg.pruning.importance_kind, delta_rows=True)
+    return fd.k1_plan(m.num_heads // m.cache_heads, m.cache_dim, rung,
+                      cfg.pruning.v_block_size, latent=latent)
+
+
+def latent_k1_case(cfg, st, q, row, lengths, rung, hm, layer=0,
+                   instance="latent", **extra) -> dict:
+    """``k1_case`` on the latent cache as ``run_layers`` calls K1 for it,
+    with a check that the call ran in ``instance`` (the latent one, or
+    the <G, D> one it takes otherwise)."""
+    from spatten_tpu_torch.ops import fused_decode as fd
+    before = fd.fused_decode_attention.latent_launches
+    r = k1_case(st, q, row, row, lengths, cfg, layer, rung, head_mask=hm,
+                delta_mode=True, per_row_importance=True,
+                sm_scale=cfg.model.softmax_scale, **extra)
+    took = fd.fused_decode_attention.latent_launches - before
+    check(took == (instance == "latent"),
+          f"latent K1 case ran {took} latent launches, not in {instance}")
+    return r
+
+
 def phase_k1_latent(dev) -> dict:
     """K1 at the latent shape (batch 128, one kv head of 576 lanes, group
     16, the cell's serving flags, per-row importance in delta mode as
-    ``run_layers`` calls it for a latent cache, a partly masked group):
-    at the cell's capacity 2048 (whose one rung is 2048: the pack unit
-    spans it) and at capacity 4096 in both its rungs (4096 and 2048, as
-    a longer cell's layers would run), each held against its plain
-    version, then timed beside the bytes the latent needs
-    (``portbench/counts_deepseek_v2.k1_bytes``)."""
+    ``run_layers`` calls it for a latent cache, a partly masked group),
+    in K1's latent instance: at the cell's capacity 2048 (whose one rung
+    is 2048: the pack unit spans it; the score plane in shared memory)
+    and at capacity 4096 in both its rungs (4096, with the plane in
+    device memory, and 2048, as a longer cell's layers would run), each
+    held against its plain version, then timed beside the bytes the
+    latent needs (``portbench/counts_deepseek_v2.k1_bytes``); at 2048 the
+    plain version's time too.  Then the instance's other paths at
+    capacity 2048, each held against its plain version: a 4/6/8-bit
+    layer profile (tiles of 32 packed rows beside their 2-bit rows, the
+    6-bit pass 1, an 8-bit pass 1) and f32 scales; and one call with row
+    stats, which the latent instance does not take: it must run in
+    <8, 256> and pass too."""
     from portbench import counts_deepseek_v2 as dcounts
     from spatten_tpu_torch import kernel_checks as kc
     from spatten_tpu_torch.ops import fused_decode as fd
@@ -1906,9 +1944,10 @@ def phase_k1_latent(dev) -> dict:
             cfg.engine, cache_capacity=cap))
         m, vb = cfg.model, cfg.pruning.v_block_size
         w, hq = m.cache_dim, m.num_heads
-        plan = fd.k1_plan(hq, w, rung, vb)
-        check(plan.inst == 8 and plan.rows == 16 and plan.dim == 256
-              and fd.lane_pieces(w) == 3, f"latent plan {plan}")
+        plan = latent_plan(cfg, rung)
+        check(plan.latent and plan.inst == 16 and plan.rows == 16
+              and plan.scores_in_smem == (rung == LATENT_CAP),
+              f"latent plan {plan}")
         gen = torch.Generator(device=dev).manual_seed(SEED + 19)
         st = kc.random_state(cfg, LATENT_BATCH, gen, dev)
         q = torch.randn((LATENT_BATCH, hq, 1, w), generator=gen, device=dev)
@@ -1919,9 +1958,7 @@ def phase_k1_latent(dev) -> dict:
         lengths = torch.randint(1, rung + 1, (LATENT_BATCH,), generator=gen,
                                 device=dev, dtype=torch.int32)
         lengths[0], lengths[1] = rung, 1
-        r = k1_case(st, q, row, row, lengths, cfg, 0, rung, head_mask=hm,
-                    delta_mode=True, per_row_importance=True,
-                    sm_scale=m.softmax_scale)
+        r = latent_k1_case(cfg, st, q, row, lengths, rung, hm)
         kw = dict(r["kw"], layer=0, requant_threshold=r["threshold"],
                   v_block_size=vb, head_mask=hm, per_row_importance=True)
 
@@ -1929,6 +1966,9 @@ def phase_k1_latent(dev) -> dict:
             return fn(q, st.cache.k, st.cache.v, row, row, lengths,
                       importance_in=None, **dict(kw, layer=i % 2))
         ms = device_ms(lambda i: call(fd.fused_decode_attention, i), 8)
+        plain_ms = (device_ms(lambda i: call(
+            fd.fused_decode_attention_plain, i), 2)
+            if cap == rung == LATENT_CAP else None)
         stats = call(fd.fused_decode_attention, 0)[1]
         kb = fd._v_keep_blocks(kw["v_keep"], vb, rung, 0)
         n = lengths.tolist()
@@ -1941,15 +1981,76 @@ def phase_k1_latent(dev) -> dict:
             capacity=cap, rung=rung, scale_bytes=2, imp_bytes=2,
             rope=m.qk_rope_head_dim, live_heads=[[live]] * len(n))
         bound = byts / 3.35e12 * 1e3
-        lines.append(f"K1 latent capacity {cap} rung {rung}: vs plain max "
-                     f"|out err| {r['max_abs_err']:.2e} (fires "
-                     f"{r['fired']}); {ms:.4f} ms, bound {bound:.4f} ms "
-                     f"({byts} B, {100 * bound / ms:.2f}% of roofline)")
+        where = "shared" if plan.scores_in_smem else "device"
+        lines.append(f"K1 latent capacity {cap} rung {rung} (latent "
+                     f"instance, score plane in {where} memory): vs plain "
+                     f"max |out err| {r['max_abs_err']:.2e} (fires "
+                     f"{r['fired']}, out bit-equal {r['out_exact']}/"
+                     f"{r['out_total']}); {ms:.4f} ms, bound {bound:.4f} ms "
+                     f"({byts} B, {100 * bound / ms:.2f}% of roofline)"
+                     + ("" if plain_ms is None
+                        else f"; plain {plain_ms:.4f} ms"))
         out[f"{cap}/{rung}"] = dict(max_abs_err=r["max_abs_err"], ms=ms,
                                     bound_ms=bound, bytes=byts,
-                                    fired=r["fired"])
+                                    fired=r["fired"], plain_ms=plain_ms,
+                                    out_exact=r["out_exact"],
+                                    out_total=r["out_total"])
         del st
         free()
+    # the instance's other paths: a 4/6/8-bit profile over 3 layers, and
+    # f32 scales
+    bits = (4, 6, 8)
+    base = latent_config(len(bits))
+    for name, cfg in (
+            ("4/6/8-bit profile", dataclasses.replace(
+                base, quant=dataclasses.replace(base.quant,
+                                                layer_bits=bits))),
+            ("f32 scales", dataclasses.replace(
+                base, quant=dataclasses.replace(base.quant,
+                                                scale_dtype="float32")))):
+        m = cfg.model
+        plan = latent_plan(cfg, LATENT_CAP)
+        check(plan.latent, f"latent plan, {name}: {plan}")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+        st = kc.random_state(cfg, LATENT_BATCH, gen, dev)
+        q = torch.randn((LATENT_BATCH, m.num_heads, 1, m.cache_dim),
+                        generator=gen, device=dev)
+        row = torch.randn((LATENT_BATCH, 1, 1, m.cache_dim), generator=gen,
+                          device=dev)
+        lengths = torch.randint(1, LATENT_CAP + 1, (LATENT_BATCH,),
+                                generator=gen, device=dev, dtype=torch.int32)
+        lengths[0], lengths[1] = LATENT_CAP, 1
+        layers = range(len(bits)) if cfg.quant.layer_bits else (0,)
+        for layer in layers:
+            r = latent_k1_case(cfg, st, q, row, lengths, LATENT_CAP, hm,
+                               layer=layer)
+            what = (f"{bits[layer]}-bit layer" if cfg.quant.layer_bits
+                    else "4-bit")
+            lines.append(f"K1 latent, {name}, {what}: vs plain max |out "
+                         f"err| {r['max_abs_err']:.2e} (fires {r['fired']}, "
+                         f"out bit-equal {r['out_exact']}/"
+                         f"{r['out_total']})")
+            out[f"{name}/{layer}"] = dict(max_abs_err=r["max_abs_err"],
+                                          fired=r["fired"])
+        del st
+        free()
+    # row stats are not the latent instance's: the old instance runs
+    cfg = latent_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    st = kc.random_state(cfg, LATENT_BATCH, gen, dev)
+    q = torch.randn((LATENT_BATCH, 16, 1, cfg.model.cache_dim),
+                    generator=gen, device=dev)
+    row = torch.randn((LATENT_BATCH, 1, 1, cfg.model.cache_dim),
+                      generator=gen, device=dev)
+    lengths = torch.randint(1, LATENT_CAP + 1, (LATENT_BATCH,),
+                            generator=gen, device=dev, dtype=torch.int32)
+    r = latent_k1_case(cfg, st, q, row, lengths, LATENT_CAP, hm,
+                       instance="<8, 256>", return_row_stats=True)
+    lines.append(f"K1 latent with row stats (in <8, 256>): vs plain max "
+                 f"|out err| {r['max_abs_err']:.2e}")
+    out["row stats"] = dict(max_abs_err=r["max_abs_err"])
+    del st
+    free()
     for line in lines:
         log(line)
     return out
@@ -2036,12 +2137,15 @@ def phase_server_latent(dev) -> dict:
     slot end free; K1 must launch once per layer and single-token call
     (each decode tick, and the one-token last chunk of the 513-token
     prompt's admission): the latent row through the kernel on every
-    layer, no plain version; the full-length admission chunks replay from
-    the prefill graph."""
+    layer, no plain version, every launch in K1's latent instance
+    (``latent_launches``, and the tracer's ``k1.launch`` spans, on for the
+    run, each noting ``instance="latent"``); the full-length admission
+    chunks replay from the prefill graph."""
     from spatten_tpu_torch.engine import generate as gen
     from spatten_tpu_torch.engine.server import SpAttenServer
     from spatten_tpu_torch.models import transformer as tr
     from spatten_tpu_torch.ops.fused_decode import fused_decode_attention
+    from spatten_tpu_torch.utils.profiling import tracer
     cfg = latent_config(2, 8)
     m = cfg.model
     check(tr.decode_uses_kernel(cfg, "cuda"),
@@ -2065,15 +2169,22 @@ def phase_server_latent(dev) -> dict:
         return run_prefill_chunk(p, c, state, ids, **kw)
 
     fused_decode_attention.launches = 0
+    fused_decode_attention.latent_launches = 0
     gen.decode_step, gen.prefill_chunk = decode_step, prefill_chunk
+    tracer.drain()
+    tracer.enable()
     t0 = time.perf_counter()
     try:
         done = srv.run_to_completion()
     finally:
+        tracer.disable()
         gen.decode_step = run_decode_step
         gen.prefill_chunk = run_prefill_chunk
     wall = time.perf_counter() - t0
     k1 = fused_decode_attention.launches
+    latent = fused_decode_attention.latent_launches
+    noted = [sp.attrs.get("instance") for sp in tracer.drain()
+             if sp.name == "k1.launch"]
     graphed = srv.prefill_graph.replays
     check(sorted(r.request_id for r in done) == sorted(budget),
           "latent server: not every request finished")
@@ -2085,15 +2196,20 @@ def phase_server_latent(dev) -> dict:
           and k1 == m.num_layers * (ticks + singles),
           f"latent server: K1 launched {k1} times for {ticks} decode ticks "
           f"and {singles} one-token chunks of {m.num_layers} layers")
+    check(latent == k1 and noted == ["latent"] * k1,
+          f"latent server: {latent} of {k1} K1 launches in the latent "
+          f"instance; k1.launch spans note {sorted(set(map(str, noted)))}")
     check(graphed >= 1, "latent server: no admission chunk from the graph")
     log(f"latent server (DeepSeek-V2-Lite widths, {m.num_layers} layers, "
         f"{srv.batch} slots): {len(done)} requests in {ticks} decode "
         f"ticks, {wall:.2f} s; K1 launches {k1} (= {m.num_layers} x "
         f"({ticks} decode ticks + {singles} one-token chunks), none in the "
-        f"plain version); prefill chunks from the graph {graphed}")
+        f"plain version, all {latent} in the latent instance, each "
+        f"k1.launch span noting it); prefill chunks from the graph "
+        f"{graphed}")
     del params, srv
     free()
-    return dict(k1=k1, ticks=ticks, single_chunks=singles,
+    return dict(k1=k1, latent=latent, ticks=ticks, single_chunks=singles,
                 layers=m.num_layers, wall_s=wall, graphed=graphed)
 
 

@@ -97,7 +97,10 @@
 // msb (plus len*D/4 of lsb2 for a 6-bit layer, len*D for a requant head,
 // an 8-bit layer or dense mode), the kept V rows, and the scale and
 // importance columns, against ~4*G flops per K byte -- far below the
-// H100's ~20 f32 flops/byte ridge.  The design reads each packed row once
+// H100's ~20 f32 flops/byte ridge.  (Not so for one cached head read by
+// 16 query rows, DeepSeek-V2's latent row: ~64 operations a packed byte
+// outrun dp4a, and such calls run in the latent instance on the tensor
+// cores, csrc/fused_decode_latent.cu.)  The design reads each packed row once
 // (one msb row and one lsb2 row serve a hi and a lo token), unpacks in
 // registers, keeps scores and probabilities in shared memory, and skips
 // the loads of V blocks no query row keeps and of dead head groups.
@@ -176,6 +179,10 @@
 // device-plane instances, which part 1 reaches through
 // spatten_fused_decode_device_plane.  K1_PART 0 (the default) is the
 // whole file in one unit, as tools/k1_passes.py builds its variants.
+// K1_PART 3 is this file's helpers alone, without an instance or a C
+// entry: csrc/fused_decode_latent.cu includes it so, and adds the latent
+// instance as a third unit of the same library, which the C entry
+// reaches through spatten_fused_decode_latent.
 #ifndef K1_PART
 #define K1_PART 0
 #endif
@@ -186,6 +193,10 @@
 extern "C" int spatten_fused_decode_device_plane(const void* params, int B,
                                                  int G, int D, int rows,
                                                  void* stream);
+// the latent instance's launch (csrc/fused_decode_latent.cu): one cached
+// head read by a group of 9-16 query rows, the wrapper's G = 16
+extern "C" int spatten_fused_decode_latent(const void* params, int B,
+                                           void* stream);
 
 namespace {
 
@@ -1751,6 +1762,7 @@ fused_decode_kernel(const __grid_constant__ Params p) {
 // the planes after it (take).  Warp 0 moves K's rows, warp 1 V's, a lane
 // every 32nd byte; a row that does not append (or holds no token) has
 // nothing to move.
+#if K1_PART != 3
 __global__ void stash_kernel(const __grid_constant__ Params p,
                              uint8_t* stash, int stash_row, bool put) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1789,6 +1801,7 @@ __global__ void stash_kernel(const __grid_constant__ Params p,
     }
   }
 }
+#endif  // K1_PART != 3
 
 // Bytes of one CTA's per-V-block arrays over `rows` score rows: masses
 // (f32 [rows, nvb]), the kept-block list and its count (int [nvb + 1]),
@@ -1868,9 +1881,10 @@ struct MapKey {
   uintptr_t base;
   uint64_t rows;
   int F, D, box;
+  CUtensorMapSwizzle swizzle;
   bool operator==(const MapKey& o) const {
     return base == o.base && rows == o.rows && F == o.F && D == o.D &&
-           box == o.box;
+           box == o.box && swizzle == o.swizzle;
   }
 };
 
@@ -1878,18 +1892,22 @@ struct MapHash {
   size_t operator()(const MapKey& k) const {
     return k.base ^ (k.rows * 0x9E3779B97F4A7C15ull) ^
            (static_cast<size_t>(k.F) << 40) ^ (static_cast<size_t>(k.D) << 20) ^
-           static_cast<size_t>(k.box);
+           static_cast<size_t>(k.box) ^ (static_cast<size_t>(k.swizzle) << 12);
   }
 };
 
 // The TMA tensor map of a plane of `rows` rows of F bytes, read in boxes
-// of D bytes x `box` rows; encoded once per (base, shape, box) -- once per
-// plane allocation and layer -- and cached, so a call only looks it up.
+// of D bytes x `box` rows (written to shared memory as they are, or under
+// a swizzle, which the latent instance asks for); encoded once per (base,
+// shape, box) -- once per plane allocation and layer -- and cached, so a
+// call only looks it up.
 cudaError_t plane_map(const void* base, uint64_t rows, int F, int D, int box,
-                      CUtensorMap* out) {
+                      CUtensorMap* out,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   static std::unordered_map<MapKey, CUtensorMap, MapHash> cache;
   static EncodeTiled encode = nullptr;
-  const MapKey key{reinterpret_cast<uintptr_t>(base), rows, F, D, box};
+  const MapKey key{reinterpret_cast<uintptr_t>(base), rows, F, D, box,
+                   swizzle};
   const auto it = cache.find(key);
   if (it != cache.end()) {
     *out = it->second;
@@ -1913,7 +1931,7 @@ cudaError_t plane_map(const void* base, uint64_t rows, int F, int D, int box,
   const cuuint32_t elem[2] = {1, 1};
   if (encode(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
              dims, strides, boxd, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   cache.emplace(key, m);
@@ -1969,7 +1987,7 @@ extern "C" int spatten_fused_decode_device_plane(const void* params, int B,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-#else
+#elif K1_PART != 3
 // Returns cudaGetLastError() after the launch (0 = success); the wrapper
 // (spatten_tpu_torch/ops/fused_decode.py) validates shapes and flags.
 // The bulk copies and tensor maps need 16-byte-aligned plane bases and a
@@ -1984,7 +2002,9 @@ extern "C" int spatten_fused_decode_device_plane(const void* params, int B,
 // it would pass 227 KB or g passes G, else null; `bplane`: bytes [B, Hkv,
 // round16(block_bytes(rows, C / v_block))] for the per-V-block arrays when
 // the plan with them would still pass 227 KB (only with `splane`), else
-// null.
+// null.  G = 16 asks for the latent instance (csrc/fused_decode_latent.cu,
+// which checks the rest of the call): `splane` is then f32 [B, 16, C + 4]
+// or null, and `D` is not read.
 extern "C" int spatten_fused_decode(
     const float* q, const float* k_new, const float* v_new, const int* lengths,
     int8_t* kfull, uint8_t* kmsb, uint8_t* klsb2, void* kscale, int8_t* vfull,
@@ -2009,6 +2029,10 @@ extern "C" int spatten_fused_decode(
   p.g = Hq / Hkv;
   p.d = d;
   p.bplane = bplane;
+  if (G == 16)                                      // the latent instance
+    return stash != nullptr || bplane != nullptr
+               ? static_cast<int>(cudaErrorInvalidValue)
+               : spatten_fused_decode_latent(&p, B, stream);
   const int rows = G < 1 ? 0 : (p.g + G - 1) / G * G;
   p.bstride = static_cast<int>((block_bytes(rows, C / v_block) + 15) & ~size_t{15});
   const int low = d & -d;                  // a box row's lead-in is at
@@ -2040,4 +2064,4 @@ extern "C" int spatten_fused_decode(
   }
   return static_cast<int>(e);
 }
-#endif  // K1_PART == 2
+#endif  // K1_PART

@@ -4,7 +4,7 @@ Each ``csrc/<source>.cu`` exposes plain C functions and compiles on its
 own with ``nvcc`` for ``sm_90a`` into ``build/cuda/lib<source>.so`` at the
 repo root (listed in ``.gitignore``), the first time one of its kernels
 is needed or when the source is newer than the library.  ``build_all``
-starts one ``nvcc`` per source at once (K1's source as two translation
+starts one ``nvcc`` per source at once (K1's as three translation
 units, ``PARTS``, linked after), so a fresh checkout builds in the time
 of the slowest unit.  Several processes may reach first use at
 once (the ranks of a mesh): a build holds a file lock in the build
@@ -52,9 +52,12 @@ SIGNATURES = {
 }
 SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
 # sources built as several translation units at once (one nvcc each, with
-# its -D flag) and linked into their one library: K1's shared-plane and
-# device-plane instances (csrc/fused_decode.cu, K1_PART)
-PARTS = {"fused_decode": ("-DK1_PART=1", "-DK1_PART=2")}
+# its -D flag, of the source's file or, for a (file, flag) pair, of
+# csrc/<file>.cu) and linked into their one library: K1's shared-plane and
+# device-plane instances (csrc/fused_decode.cu, K1_PART) and its latent
+# instance (csrc/fused_decode_latent.cu, which includes fused_decode.cu)
+PARTS = {"fused_decode": ("-DK1_PART=1", "-DK1_PART=2",
+                          ("fused_decode_latent", "-DK1_PART=3"))}
 _NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                "-Xptxas", "-v")
 
@@ -75,10 +78,18 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{source}.so"
 
 
+def _part(source: str, part) -> tuple[Path, str]:
+    """(the .cu file, the -D flag) of one unit of ``source``."""
+    name, flag = (source, part) if isinstance(part, str) else part
+    return CSRC / f"{name}.cu", flag
+
+
 def _stale(source: str) -> bool:
     lib = library_path(source)
-    src = CSRC / f"{source}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    srcs = {CSRC / f"{source}.cu"} | {
+        _part(source, x)[0] for x in PARTS.get(source, ())}
+    return not lib.exists() or any(
+        lib.stat().st_mtime < src.stat().st_mtime for src in srcs)
 
 
 @contextlib.contextmanager
@@ -114,8 +125,9 @@ def build_all(names=None, force: bool = False) -> tuple[float, dict]:
                 # one object per part, all compiled at once, then linked
                 jobs = [(tmp.with_suffix(f".{i}.o"),
                          [*_NVCC_FLAGS, flag, "-c", "-o",
-                          str(tmp.with_suffix(f".{i}.o")), src])
-                        for i, flag in enumerate(PARTS[n])]
+                          str(tmp.with_suffix(f".{i}.o")), str(cu)])
+                        for i, (cu, flag) in enumerate(
+                            _part(n, x) for x in PARTS[n])]
             else:
                 jobs = [(tmp, [*_NVCC_FLAGS, "-shared", "-o", str(tmp), src])]
             procs[n] = (tmp, [(out, subprocess.Popen(

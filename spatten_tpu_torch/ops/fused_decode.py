@@ -36,6 +36,16 @@ whose lanes past d it reads and never uses; a head past 256 lanes runs in
 the D = 256 instances as ``lane_pieces`` boxes of 256 bytes side by side.
 ``k1_plan`` says where a launch keeps its score plane and its per-V-block
 arrays; K1 takes every head_dim (``k1_shape_error``).
+
+One more instance, "latent" (``csrc/fused_decode_latent.cu``), takes a
+call with one cached head read by a group of 9-16 query rows of 257-640
+lanes -- DeepSeek-V2's latent cache, 16 heads over one row of 576 lanes
+-- under the serving path's flags for such a cache (``latent_takes``):
+one CTA a batch row streams each tile of the row's lanes once for every
+query row and scores and weights it on the int8 tensor cores.  Every
+other call keeps the ``<G, D>`` instance it ran before.
+``fused_decode_attention.latent_launches`` counts its launches, and the
+``k1.launch`` span notes the ``instance`` each launch ran.
 """
 
 from __future__ import annotations
@@ -60,6 +70,19 @@ _GROUPS = (1, 2, 4, 8)      # the CUDA kernel's <G, D> instance groups
 _HEAD_DIMS = (64, 128, 256)  # the CUDA kernel's instance head dims
 _META_DTYPES = (torch.float32, torch.bfloat16)
 _SUM_COLS = 8               # columns a thread adds at a time (softmax_rows)
+# the latent instance (csrc/fused_decode_latent.cu, lat_smem_bytes): its
+# query rows (the instance's G), the widest row (five 128-byte boxes), a
+# ring of two stages of 64 rows x five boxes + 1 KB of scale segments, the
+# 1 KB swizzle alignment, the score rows' padding and its per-row scalars
+_LATENT_ROWS = 16
+_LATENT_LANES = 640
+_LATENT_TILE = 64
+_LATENT_STAGES = 2
+_LATENT_STAGE_STRIDE = 5 * _LATENT_TILE * 128 + 1024
+_LATENT_ALIGN = 1024
+_LATENT_PAD = 4
+_LATENT_SCALARS = (_MISC_PER_ROW * _LATENT_ROWS + 3 * _LATENT_ROWS * _WARPS
+                   + 4 * _LATENT_ROWS + 4)
 
 
 def _layer_views(k_quant, v_quant, importance_in, layer):
@@ -491,15 +514,87 @@ class K1Plan(NamedTuple):
     scores_in_smem: bool      # the [rows, rung] score plane
     blocks_in_smem: bool      # the per-V-block arrays
     smem: int                 # shared memory of one CTA
+    latent: bool = False      # the latent instance (inst 16, dim 640)
 
 
-def k1_plan(group: int, head_dim: int, rung: int, v_block: int) -> K1Plan:
+def latent_smem_bytes(rung: int, v_block: int, in_smem: bool = True) -> int:
+    """Shared memory of one CTA of the latent instance over a window of
+    ``rung`` tokens, mirroring ``lat_smem_bytes`` in
+    ``csrc/fused_decode_latent.cu``: the alignment slack, the ring of two
+    41 KB stages and their barriers, the per-row scalars, the [16, rung +
+    4] f32 score plane (unless it lies in device memory) and the per-V-
+    block arrays.  At v_block 64 the plane fits 227 KB up to a rung of
+    2,176 tokens (2048: 221,380 B); past that it moves to device memory
+    (4096: 92,772 B), and the rest fits up to 1,707 V blocks (109,248
+    tokens at v_block 64); past that the call keeps ``<8, 256, false>``."""
+    nvb = rung // v_block
+    return (_LATENT_ALIGN + _LATENT_STAGES * (_LATENT_STAGE_STRIDE + _BARRIER)
+            + 4 * _LATENT_SCALARS
+            + 4 * _LATENT_ROWS * (rung + _LATENT_PAD) * in_smem
+            + 4 * _LATENT_ROWS * nvb + 4 * (nvb + 1)
+            + (_LATENT_ROWS + 1) * nvb)
+
+
+def latent_takes(kv_heads: int, cap_total: int, *, quant_enabled: bool,
+                 has_lsb2: bool, quantize_queries: bool, pv_int8: bool,
+                 importance_kind: str, delta_rows: bool,
+                 append_mask=None, return_row_stats: bool = False,
+                 skip_append: bool = False) -> bool:
+    """Whether a K1 call's cached heads, capacity and flags are the latent
+    instance's (``k1_plan(..., latent=True)`` then checks the group, the
+    row width, v_block and the plan): one cached head; quantized planes,
+    int8 queries and 8-bit P·V; "prob" importance handed back as this
+    step's delta per query row (``delta_rows``: tracked, per_row_importance,
+    no accumulator); no append mask, row stats or ``_skip_append``; and a
+    pack unit whose halves (and, with the 2-bit plane, quarters) hold whole
+    tiles of packed rows (64, or 32 beside their 2-bit rows).  The head
+    mask, the rung, the layer bits, the requant threshold, probs_bf16 and
+    f32 or bf16 scales may be anything."""
+    if not (kv_heads == 1 and quant_enabled and quantize_queries and pv_int8
+            and importance_kind == "prob" and delta_rows
+            and append_mask is None and not return_row_stats
+            and not skip_append):
+        return False
+    unit = qz.pack_unit(cap_total)
+    tile = _LATENT_TILE // 2 if has_lsb2 else _LATENT_TILE
+    return (unit // 2) % tile == 0 and (
+        not has_lsb2 or (unit // 4) % tile == 0)
+
+
+def _latent_shape(group: int, head_dim: int, v_block: int) -> bool:
+    """The group, row width and V block the latent instance takes: 9-16
+    query rows (M = 16 of its products; rows past the group are padding),
+    257-640 lanes in whole 16-byte columns, and a V block of 32, or of a
+    multiple of 64 (a k-step of 32 tokens lies inside one block, and a
+    tile of 64 rows is whole blocks or inside one)."""
+    return (8 < group <= _LATENT_ROWS and 256 < head_dim <= _LATENT_LANES
+            and head_dim % 16 == 0
+            and (v_block == 32 or (v_block > 0 and v_block % 64 == 0)))
+
+
+def k1_plan(group: int, head_dim: int, rung: int, v_block: int,
+            latent: bool = False) -> K1Plan:
     """The plan of a K1 launch at a model's GQA group and head_dim over a
     window of ``rung`` tokens: everything in shared memory where it fits
     227 KB (and the group fits its instance); else the score plane in
     device memory; else the per-V-block arrays there too.  The plan does
     not depend on ``lane_pieces``: the pieces of a head share the ring,
-    the score plane and the P·V partials."""
+    the score plane and the P·V partials.
+
+    ``latent``: the call's cached heads and flags admit the latent
+    instance (``latent_takes``); it runs there when its group, row width
+    and V block are the instance's (``_latent_shape``) and its plan fits:
+    the [16, rung] score plane in shared memory (to ~2.2k tokens) or else
+    in device memory."""
+    if latent and _latent_shape(group, head_dim, v_block):
+        smem = latent_smem_bytes(rung, v_block)
+        if smem <= _SMEM_LIMIT:
+            return K1Plan(_LATENT_ROWS, _LATENT_LANES, _LATENT_ROWS, True,
+                          True, smem, True)
+        smem = latent_smem_bytes(rung, v_block, False)
+        if smem <= _SMEM_LIMIT:
+            return K1Plan(_LATENT_ROWS, _LATENT_LANES, _LATENT_ROWS, False,
+                          True, smem, True)
     inst, dim = instance_group(group), instance_dim(head_dim)
     rows = plane_rows(group)
     if rows == inst and scores_in_smem(inst, dim, rung, v_block):
@@ -625,7 +720,7 @@ def fused_decode_attention(
         return fused_decode_attention_plain(
             q, k_quant, v_quant, k_new, v_new, lengths, **flags)
 
-    with tracer.span("k1.launch"):
+    with tracer.span("k1.launch") as span:
         if importance_kind not in ("prob", "presoftmax"):
             raise ValueError(importance_kind)
         kq, vq, imp = _layer_views(k_quant, v_quant, importance_in, layer)
@@ -678,7 +773,17 @@ def fused_decode_attention(
         shape_error = k1_shape_error(group, d, cap_total, cap, v_block_size)
         if shape_error:
             raise NotImplementedError(shape_error)
-        plan = k1_plan(group, d, cap, v_block_size)   # the <G, D> instance
+        latent = latent_takes(
+            hkv, cap_total, quant_enabled=quant_enabled, has_lsb2=has_lsb2,
+            quantize_queries=quantize_queries, pv_int8=pv_int8,
+            importance_kind=importance_kind, delta_rows=per_row,
+            append_mask=append_mask, return_row_stats=return_row_stats,
+            skip_append=_skip_append)
+        # the <G, D> instance, or the latent one
+        plan = k1_plan(group, d, cap, v_block_size, latent=latent)
+        if tracer.on:
+            span.note(instance="latent" if plan.latent
+                      else f"<{plan.inst}, {plan.dim}>")
         nvb = cap // v_block_size
 
         dev = q.device
@@ -713,12 +818,14 @@ def fused_decode_attention(
                                 dtype=torch.float32, device=dev)
         # the score plane, where the instance's shared-memory plan cannot hold
         # it (or the group runs in chunks): one [rows, cap] slice per CTA,
-        # padding rows included; and the per-V-block arrays, where the plan
-        # cannot hold them either: one 16-byte-aligned slice per CTA
+        # padding rows included (the latent instance's rows at a stride of
+        # cap + 4); and the per-V-block arrays, where the plan cannot hold
+        # them either: one 16-byte-aligned slice per CTA
         splane = bplane = None
         if not plan.scores_in_smem:
-            splane = torch.empty((b, hkv, plan.rows, cap), dtype=torch.float32,
-                                 device=dev)
+            stride = cap + _LATENT_PAD if plan.latent else cap
+            splane = torch.empty((b, hkv, plan.rows, stride),
+                                 dtype=torch.float32, device=dev)
         if not plan.blocks_in_smem:
             stride = -(-block_bytes(plan.rows, nvb) // 16) * 16
             bplane = torch.empty((b, hkv, stride), dtype=torch.uint8,
@@ -754,6 +861,8 @@ def fused_decode_attention(
             int(importance_kind == "presoftmax"), int(per_row), stash, d,
             bplane)
     fused_decode_attention.launches += 1
+    if plan.latent:
+        fused_decode_attention.latent_launches += 1
     if accumulate:
         delta = importance_in
     elif delta is None:
@@ -767,3 +876,4 @@ def fused_decode_attention(
 
 
 fused_decode_attention.launches = 0
+fused_decode_attention.latent_launches = 0

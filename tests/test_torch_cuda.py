@@ -1215,9 +1215,12 @@ def test_k1_latent_shape(dev):
     """K1 at the latent shape (``chip_smoke.phase_k1_latent``: batch 128,
     one kv head of 576 lanes, group 16, capacity 2048 and both rungs of
     capacity 4096, the serving flags, per-row importance) matches its
-    plain version."""
+    plain version in its latent instance, and so do the instance's 4-,
+    6- and 8-bit layers and f32 scales, and a row-stats call in <8, 256>."""
     res = chip_smoke.phase_k1_latent(dev)
-    assert set(res) == {"2048/2048", "4096/4096", "4096/2048"}
+    assert set(res) == {"2048/2048", "4096/4096", "4096/2048",
+                        "4/6/8-bit profile/0", "4/6/8-bit profile/1",
+                        "4/6/8-bit profile/2", "f32 scales/0", "row stats"}
 
 
 def test_grouped_gemm_against_loop(dev):
@@ -1233,9 +1236,10 @@ def test_server_latent_launches_k1_every_layer(dev):
     """``SpAttenServer`` at DeepSeek-V2-Lite's widths on 2 layers
     (``chip_smoke.phase_server_latent``): every request meets its budget
     and K1 launches once per layer and single-token call (decode ticks
-    and one-token admission chunks), with the full-length admission
-    chunks from the prefill graph."""
+    and one-token admission chunks), each in its latent instance, with
+    the full-length admission chunks from the prefill graph."""
     res = chip_smoke.phase_server_latent(dev)
     assert res["ticks"] > 0 and res["single_chunks"] > 0
     assert res["k1"] == 2 * (res["ticks"] + res["single_chunks"])
+    assert res["latent"] == res["k1"]
     assert res["graphed"] >= 1
